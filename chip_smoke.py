@@ -1,0 +1,569 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port of GreenDyGNN on one NVIDIA GPU and check it.
+
+Usage (from the repository root, on a machine with a CUDA card):
+
+    python3 chip_smoke.py
+
+Phases, each of which ends the run with a non-zero exit on failure:
+
+1. Print the card (``nvidia-smi`` name and power limit) and build the CUDA
+   kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (sm_90a).
+2. Hold each kernel against its plain PyTorch version on the card, at the
+   shapes the trainer's main path gives it (the first mini-batch of the
+   default ``reddit`` trace): block-SpMM for layer 0, layer 1 and layer 1's
+   transposed format (atol 1e-4, rtol 1e-5: fp32 summed in another order;
+   two launches bit-identical), its autograd backward against plain
+   autograd (same tolerance), the EmbeddingBag gather bit-equal to
+   ``table[idx]``, and weighted bags with empty bags (atol 1e-5).
+3. Run the main path, ``repro_torch.train.gnn_trainer.run``: the
+   GreenDyGNN trainer with measured compute and the device payload tier,
+   batch 2000, 3 epochs (2 of warmup) of 8 steps, a seeded untrained qnet.
+   Every launch count is zeroed just before and read just after; the run
+   must have launched both kernels, passed the block-path/scatter parity
+   check (< 2e-3), given finite losses and let the controller decide after
+   warmup. A short static-window run on the card is then compared with
+   the same run on the CPU through the plain versions (discrete streams
+   equal, losses rtol 1e-4).
+4. Profile steady trainer steps at the main path's size with
+   ``torch.profiler`` (device time by kernel against the host clock), then
+   time each kernel, its plain version and the equivalent library call
+   with CUDA events (median of 25 launches, L2 flushed before each), beside
+   the least time the card could take, and print one ``{"kernels": ...}``
+   line.
+5. The last line is ``{"ok": true, "device": {...}}``.
+
+Kernel builds land in ``build/kernels/`` (listed in ``.gitignore``).
+"""
+from __future__ import annotations
+
+import json
+import math
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
+# fp32 FLOP/s outside the tensor cores, at the full 700 W power limit.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+TOL_SPMM = dict(atol=1e-4, rtol=1e-5)
+TOL_BAGS = dict(atol=1e-5, rtol=0.0)
+REPEATS = 25
+SEED = 0
+
+MAIN_PATH = dict(
+    method="greendygnn", compute="measured", scenario=None,
+    async_pipeline=False, trace=False, batch_size=2000, n_epochs=3,
+    warmup_epochs=2, steps_per_epoch=8, seed=SEED,
+)
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeError(what)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ----------------------------------------------------------------- timing
+class Timer:
+    """Median CUDA-event time of a callable, L2 flushed before each run."""
+
+    def __init__(self, torch, device):
+        self.torch = torch
+        # larger than the 50 MB L2, rewritten before every timed launch
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+
+    def ms(self, fn, repeats: int = REPEATS) -> float:
+        torch = self.torch
+        for _ in range(3):
+            fn()
+        samples = []
+        for _ in range(repeats):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end))
+        return statistics.median(samples)
+
+
+def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------------- phase 1
+def phase_card_and_build(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    log(smi)
+    log(f"device: {torch.cuda.get_device_name(0)} "
+        f"(count {torch.cuda.device_count()}), torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    log(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    for stem, text in sorted(_build.build_logs.items()):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  ptxas[{stem}]: {line.strip()}")
+    return smi
+
+
+# ------------------------------------------------------------- phase 2
+def main_path_operands(torch, device):
+    """The kernels' operands as the main path's first step builds them."""
+    from repro_torch.store import MemoryBudget
+    from repro_torch.train import compute, gnn_trainer as gt
+
+    cfg = gt.RunConfig(**MAIN_PATH, mem_budget=MemoryBudget(),
+                       device=str(device))
+    cfg.n_epochs = 1
+    cfg.steps_per_epoch = 1
+    graph, _owner, _traces, mbs = gt.build_trace(cfg)
+    eng = compute.ComputeEngine(graph, cfg)
+    mb = mbs[0][0]
+    layers, x_rows, n_edges = eng.prepare(mb)
+    gen = torch.Generator().manual_seed(SEED)
+    x0 = eng.pad_input(graph.features[mb.input_nodes], x_rows)
+    h1 = torch.randn((layers[0]["fwd"].n_dst_blocks * 128, 16),
+                     generator=gen).to(device)
+    dy1 = torch.randn((layers[1]["fwd"].n_dst_blocks * 128, 16),
+                      generator=gen).to(device)
+    n_feat = graph.features.shape[1]
+    capacity = int(cfg.cache_frac * graph.n_nodes)
+    remote = int((_owner[mb.input_nodes] != 0).sum())
+    return dict(layers=layers, x0=x0, h1=h1, dy1=dy1, n_edges=n_edges,
+                n_feat=n_feat, capacity=capacity, n_remote=remote)
+
+
+def spmm_cases(ops):
+    """(label, format, x) for the three block-SpMM calls of one step."""
+    layers, x0, h1, dy1 = ops["layers"], ops["x0"], ops["h1"], ops["dy1"]
+    return [
+        ("layer0", layers[0]["fwd"], x0),
+        ("layer1", layers[1]["fwd"], h1),
+        ("layer1^T", layers[1]["bwd"], dy1),
+    ]
+
+
+def phase_kernels_vs_plain(torch, device, ops):
+    from repro_torch.kernels.embedding_bag import (
+        embedding_bag, embedding_bag_plain,
+    )
+    from repro_torch.kernels.segment_mm import (
+        BlockSpmm, block_spmm, block_spmm_plain,
+    )
+
+    errs = {"block_spmm": 0.0, "embedding_bag": 0.0}
+    for label, fmt, x in spmm_cases(ops):
+        args = (fmt.rows, fmt.cols, fmt.blocks, x, fmt.n_dst_blocks)
+        got = block_spmm(*args)
+        again = block_spmm(*args)
+        torch.cuda.synchronize()
+        want = block_spmm_plain(*args)
+        err = float((got - want).abs().max())
+        errs["block_spmm"] = max(errs["block_spmm"], err)
+        require(torch.allclose(got, want, **TOL_SPMM),
+                f"block_spmm {label}: kernel vs plain max |diff| {err:.3e}")
+        require(torch.equal(got, again),
+                f"block_spmm {label}: two launches differ")
+        log(f"block_spmm {label}: nb={fmt.rows.shape[0]} x={tuple(x.shape)} "
+            f"y={tuple(got.shape)} max|kernel-plain|={err:.3e} "
+            "bit-identical relaunch")
+
+    # autograd: dX = A^T dY through the kernel vs plain autograd
+    lay = ops["layers"][1]
+    h = ops["h1"].clone().requires_grad_(True)
+    y = BlockSpmm.apply(h, lay["fwd"], lay["bwd"])
+    (dx_k,) = torch.autograd.grad(y, h, grad_outputs=ops["dy1"])
+    h_p = ops["h1"].clone().requires_grad_(True)
+    f = lay["fwd"]
+    y_p = block_spmm_plain(f.rows, f.cols, f.blocks, h_p, f.n_dst_blocks)
+    (dx_p,) = torch.autograd.grad(y_p, h_p, grad_outputs=ops["dy1"])
+    err = float((dx_k - dx_p).abs().max())
+    errs["block_spmm"] = max(errs["block_spmm"], err)
+    require(torch.allclose(dx_k, dx_p, **TOL_SPMM),
+            f"block_spmm backward vs plain autograd: {err:.3e}")
+    log(f"block_spmm backward: max|kernel-plain autograd|={err:.3e}")
+
+    # embedding_bag as the device tier's gather: L = 8192, one lookup per
+    # bag, unit weights, pad bags weight 0; bit-equal to table[idx]
+    gen = torch.Generator().manual_seed(SEED + 1)
+    table = torch.randn((ops["capacity"], ops["n_feat"]),
+                        generator=gen).to(device)
+    n = min(ops["n_remote"], 8192)
+    L = 1 << (n - 1).bit_length()
+    idx = torch.randint(0, ops["capacity"], (L,), generator=gen,
+                        dtype=torch.int32).to(device)
+    w = torch.zeros(L, device=device)
+    w[:n] = 1.0
+    seg = torch.arange(L, dtype=torch.int32, device=device)
+    got = embedding_bag(table, idx, seg, L, w)
+    torch.cuda.synchronize()
+    require(torch.equal(got[:n], table[idx[:n].long()]),
+            "embedding_bag gather is not bit-equal to table[idx]")
+    require(bool((got[n:] == 0).all()), "embedding_bag pad bags not zero")
+    want = embedding_bag_plain(table, idx, seg, w, L)
+    require(torch.equal(got, want), "embedding_bag gather: kernel != plain")
+    log(f"embedding_bag gather: L={L} hits={n} table={tuple(table.shape)} "
+        "bit-equal to table[idx]")
+    gather_ops = dict(table=table, idx=idx, seg=seg, w=w, n_bags=L)
+
+    # weighted bags, random order, some bags empty
+    n_bags = 4096
+    seg_r = torch.randint(0, n_bags - 512, (L,), generator=gen,
+                          dtype=torch.int32).to(device)
+    w_r = torch.randn(L, generator=gen).to(device)
+    got = embedding_bag(table, idx, seg_r, n_bags, w_r)
+    order = torch.sort(seg_r, stable=True).indices
+    want = embedding_bag_plain(table, idx[order], seg_r[order], w_r[order],
+                               n_bags)
+    err = float((got - want).abs().max())
+    errs["embedding_bag"] = max(errs["embedding_bag"], err)
+    require(torch.allclose(got, want, **TOL_BAGS),
+            f"embedding_bag weighted bags: {err:.3e}")
+    require(bool((got[n_bags - 512:] == 0).all()), "empty bags not zero")
+    log(f"embedding_bag weighted: {n_bags} bags, 512 empty, "
+        f"max|kernel-plain|={err:.3e}")
+    return errs, gather_ops
+
+
+# ------------------------------------------------------------- phase 3
+def phase_main_path(torch, device):
+    import numpy as np
+
+    from repro_torch.core import controller as ctl, dqn
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.segment_mm import block_spmm
+    from repro_torch.store import MemoryBudget
+    from repro_torch.train import gnn_trainer as gt
+
+    qnet = dqn.init_qnet(torch.Generator().manual_seed(SEED),
+                         ctl.state_dim(3), ctl.n_actions(3), device=device)
+    q_base = dqn.q_fn_of(qnet)
+    decisions = []
+
+    def q_fn(state):
+        decisions.append(int(np.argmax(q_base(state))))
+        return q_base(state)
+
+    cfg = gt.RunConfig(**MAIN_PATH, q_fn=q_fn,
+                       mem_budget=MemoryBudget(host_bytes=None,
+                                               device_payloads=True),
+                       device=str(device))
+    bundle = gt.build_trace(cfg)
+    block_spmm.launches = 0
+    embedding_bag.launches = 0
+    t0 = time.perf_counter()
+    res = gt.run(cfg, bundle)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"block_spmm": block_spmm.launches,
+              "embedding_bag": embedding_bag.launches}
+    rep = res.compute_report
+    n_steps = cfg.n_epochs * cfg.steps_per_epoch
+    steps_with_hits = int((res.step_hits > 0).sum())
+    log(f"main path: {n_steps} steps in {wall:.2f} s, windows "
+        f"{res.window_per_epoch.tolist()}, hits {int(res.step_hits.sum())}, "
+        f"misses {int(res.step_misses.sum())}, launches {counts}, "
+        f"decisions {decisions}")
+    log(f"main path: losses {[round(x, 4) for x in rep['losses']]}")
+    # 2 forward + 1 backward per step, and 2 forward in the parity check
+    require(counts["block_spmm"] == 3 * n_steps + 2,
+            f"block_spmm launches {counts['block_spmm']} != 3 per step + 2")
+    require(steps_with_hits > 0
+            and counts["embedding_bag"] == steps_with_hits,
+            f"embedding_bag launches {counts['embedding_bag']} != "
+            f"{steps_with_hits} steps with hits")
+    require(rep["n_steps"] == n_steps, "measured steps missing")
+    require(rep["parity_max_diff"] is not None
+            and rep["parity_max_diff"] < 2e-3,
+            f"parity_max_diff {rep['parity_max_diff']}")
+    require(all(math.isfinite(x) for x in rep["losses"]), "non-finite loss")
+    require(len(decisions) >= 1, "the controller never decided")
+    step_ms = statistics.median(rep["step_s"]) * 1e3
+    log(f"main path: parity_max_diff {rep['parity_max_diff']:.3e}, median "
+        f"measured step {step_ms:.3f} ms")
+    return counts, step_ms, n_steps
+
+
+def phase_card_vs_cpu(torch, device):
+    """A short static-window run on the card against the same run on the
+    CPU (plain versions), from the same parameters."""
+    import numpy as np
+
+    from repro_torch.convert import sage_params_to_jax
+    from repro_torch.store import MemoryBudget
+    from repro_torch.train import gnn_trainer as gt
+    from repro_torch.train.worker import TrainerWorker
+
+    base = dict(MAIN_PATH, method="static_w", batch_size=600, n_epochs=2,
+                warmup_epochs=1, steps_per_epoch=4, static_window=2)
+    results = {}
+    params0 = None
+    for dev in (str(device), "cpu"):
+        cfg = gt.RunConfig(**base, mem_budget=MemoryBudget(),
+                           device=dev)
+        w = TrainerWorker(cfg, gt.build_trace(cfg))
+        if params0 is None:
+            params0 = sage_params_to_jax(w.engine.params)
+        w.engine.load_params(params0)
+        for e in range(cfg.n_epochs):
+            w.begin_epoch(e)
+            for s in range(cfg.steps_per_epoch):
+                w.step(e, s)
+            w.end_epoch(e)
+        results[dev] = w.result()
+    a, b = results[str(device)], results["cpu"]
+    for name in ("step_hits", "step_misses", "fetched_rows_by_owner",
+                 "window_per_epoch"):
+        require(np.array_equal(getattr(a, name), getattr(b, name)),
+                f"card vs CPU: {name} differs")
+    la = np.asarray(a.compute_report["losses"])
+    lb = np.asarray(b.compute_report["losses"])
+    rel = float(np.max(np.abs(la - lb) / np.abs(lb)))
+    require(np.allclose(la, lb, rtol=1e-4, atol=0.0),
+            f"card vs CPU losses rel diff {rel:.3e}")
+    log(f"card vs CPU static_w run: discrete streams equal, losses max rel "
+        f"diff {rel:.3e}")
+
+
+def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
+    """Where a trainer step's time goes at the main path's size.
+
+    After ``n_warm`` steps (the parity check, first allocations), the host
+    clock times ``n_each`` steps with the worker's parts wrapped in host
+    timers; then ``torch.profiler`` records ``n_each`` more for the device
+    time by kernel. The profiler's own host overhead is large, so the
+    host wall comes from the unprofiled steps."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.store import MemoryBudget
+    from repro_torch.train import gnn_trainer as gt
+    from repro_torch.train.worker import TrainerWorker
+
+    cfg = gt.RunConfig(**dict(MAIN_PATH, method="static_w", n_epochs=1,
+                              steps_per_epoch=n_warm + 2 * n_each),
+                       mem_budget=MemoryBudget(device_payloads=True),
+                       device=str(device))
+    w = TrainerWorker(cfg, gt.build_trace(cfg))
+    w.begin_epoch(0)
+    for s in range(n_warm):
+        w.step(0, s)
+    torch.cuda.synchronize()
+
+    spans = collections.defaultdict(float)
+
+    def timed(name, fn):
+        def inner(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spans[name] += time.perf_counter() - t
+        return inner
+
+    w.engine.prepare = timed("prepare: numpy blocks + copies",
+                             w.engine.prepare)
+    w.engine.pad_input = timed("input rows copy", w.engine.pad_input)
+    w.engine._step_fn = timed("SAGE fwd/bwd/AdamW (host)",
+                              w.engine._step_fn)
+    w.device_tier.gather = timed("device-tier gather", w.device_tier.gather)
+    w._resolve_features = timed("feature rows (numpy)", w._resolve_features)
+    t0 = time.perf_counter()
+    for s in range(n_warm, n_warm + n_each):
+        w.step(0, s)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_each
+    engine_ms = statistics.median(w.engine.step_s[n_warm:]) * 1e3
+    log(f"profile ({n_each} steady trainer steps, batch {cfg.batch_size}): "
+        f"host wall {wall_ms:.3f} ms/step, measured compute (CUDA events) "
+        f"{engine_ms:.3f} ms/step")
+    for name, sec in sorted(spans.items(), key=lambda kv: -kv[1]):
+        log(f"  host {sec * 1e3 / n_each:8.3f} ms/step  {name}")
+    log(f"  host {wall_ms - sum(spans.values()) * 1e3 / n_each:8.3f} "
+        "ms/step  rest of the trainer step")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for s in range(n_warm + n_each, n_warm + 2 * n_each):
+            w.step(0, s)
+        torch.cuda.synchronize()
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name][0] += e.time_range.elapsed_us()
+            by_name[e.name][1] += 1
+    busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / n_each
+    log(f"profile: device busy {busy_ms:.3f} ms/step, device idle share "
+        f"{1.0 - busy_ms / wall_ms:.4f} of the unprofiled host wall")
+    if not by_name:
+        log("profile: the profiler reported no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    for name, (us, cnt) in top:
+        log(f"  device {us / 1e3 / n_each:8.4f} ms/step x{cnt / n_each:5.1f}"
+            f"  {name[:80]}")
+
+
+# ------------------------------------------------------------- phase 4
+def spmm_library_operand(torch, fmt):
+    """The same adjacency as one CSR matrix, for torch.sparse.mm."""
+    b, i, j = torch.nonzero(fmt.blocks, as_tuple=True)
+    r = fmt.rows.long()[b] * 128 + i
+    c = fmt.cols.long()[b] * 128 + j
+    vals = fmt.blocks[b, i, j]
+    n_rows = fmt.n_dst_blocks * 128
+    return r, c, vals, n_rows
+
+
+def phase_timing(torch, device, ops, gather_ops, counts, n_steps):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.kernels.segment_mm import block_spmm_plain
+    from repro_torch.kernels.segment_mm import ops as spmm_ops
+
+    timer = Timer(torch, device)
+    rows = []
+    per_step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+    for label, fmt, x in spmm_cases(ops):
+        rowptr = torch.searchsorted(
+            fmt.rows, torch.arange(fmt.n_dst_blocks + 1, dtype=torch.int32,
+                                   device=device), out_int32=True)
+        y = torch.empty((fmt.n_dst_blocks * 128, x.shape[1]), device=device)
+        ms = timer.ms(lambda: spmm_ops.launch(rowptr, fmt.cols, fmt.blocks,
+                                              x, y, fmt.n_dst_blocks))
+        plain = timer.ms(lambda: block_spmm_plain(
+            fmt.rows, fmt.cols, fmt.blocks, x, fmt.n_dst_blocks))
+        r, c, vals, n_rows = spmm_library_operand(torch, fmt)
+        csr = torch.sparse_coo_tensor(
+            torch.stack([r, c]), vals, (n_rows, x.shape[0])
+        ).coalesce().to_sparse_csr()
+        lib = timer.ms(lambda: torch.sparse.mm(csr, x))
+        nnz = int(vals.numel())
+        n_bytes = (fmt.blocks.numel() * 4 + x.numel() * 4
+                   + fmt.rows.numel() * 8 + y.numel() * 4)
+        n_flops = 2.0 * nnz * x.shape[1]
+        b_ms, b_by = bound_ms(n_bytes, n_flops)
+        log(f"time block_spmm {label}: kernel {ms:.4f} ms, plain {plain:.4f} "
+            f"ms, torch.sparse.mm {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{n_bytes / 1e6:.1f} MB, nnz {nnz}, dense-block flops "
+            f"{2.0 * fmt.blocks.shape[0] * 128 * 128 * x.shape[1]:.3g})")
+        for k, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", b_ms),
+                     ("library_ms", lib), ("bytes", n_bytes),
+                     ("flops", n_flops)):
+            per_step[k] += v
+    spmm_bound, spmm_by = bound_ms(per_step["bytes"], per_step["flops"])
+    rows.append({
+        "name": "block_spmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/block_spmm.cu",
+        "replaces": "src/repro/kernels/segment_mm/kernel.py:78",
+        "launches": counts["block_spmm"],
+        "max_abs_err": ops["errs"]["block_spmm"],
+        "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
+        "bound_ms": spmm_bound, "bound_by": spmm_by,
+        "library_ms": per_step["library_ms"],
+    })
+
+    g = gather_ops
+    seg_s, order = torch.sort(g["seg"], stable=True)
+    idx_s, w_s = g["idx"][order].contiguous(), g["w"][order].contiguous()
+    offsets = torch.searchsorted(
+        seg_s, torch.arange(g["n_bags"] + 1, dtype=torch.int32,
+                            device=device), out_int32=True)
+    out = torch.empty((g["n_bags"], g["table"].shape[1]), device=device)
+    ms = timer.ms(lambda: bag_ops.launch(idx_s, w_s, offsets, g["table"],
+                                         out))
+    plain = timer.ms(lambda: bag_ops.embedding_bag_plain(
+        g["table"], idx_s, seg_s, w_s, g["n_bags"]))
+    lib = timer.ms(lambda: F.embedding_bag(
+        idx_s, g["table"], offsets[:-1], mode="sum",
+        per_sample_weights=w_s, include_last_offset=False))
+    L, d = idx_s.numel(), g["table"].shape[1]
+    n_bytes = L * d * 4 + out.numel() * 4 + L * 8 + offsets.numel() * 4
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * L * d)
+    log(f"time embedding_bag gather L={L}: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, F.embedding_bag {lib:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; {n_bytes / 1e6:.2f} MB)")
+    rows.append({
+        "name": "embedding_bag", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:48",
+        "launches": counts["embedding_bag"],
+        "max_abs_err": ops["errs"]["embedding_bag"],
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib,
+    })
+    log(f"launches per step: block_spmm "
+        f"{counts['block_spmm'] / n_steps:.3f}, embedding_bag "
+        f"{counts['embedding_bag'] / n_steps:.3f}")
+    return rows
+
+
+# ----------------------------------------------------------------- main
+def main() -> int:
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
+              "checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+
+    t_start = time.perf_counter()
+    smi = phase_card_and_build(torch)
+    ops = main_path_operands(torch, device)
+    errs, gather_ops = phase_kernels_vs_plain(torch, device, ops)
+    ops["errs"] = errs
+    counts, step_ms, n_steps = phase_main_path(torch, device)
+    phase_card_vs_cpu(torch, device)
+    phase_profile(torch, device)
+    rows = phase_timing(torch, device, ops, gather_ops, counts, n_steps)
+    log(f"median measured step: {step_ms:.4f} ms; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

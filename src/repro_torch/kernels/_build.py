@@ -1,0 +1,120 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface and loaded with ``ctypes``; the sources
+are compiled in parallel, one ``nvcc`` each. Libraries land in
+``build/kernels/<hash>/`` at the repository root (listed in
+``.gitignore``), keyed by a hash of the source text and the flags, so an
+edited source is rebuilt on first use and an unchanged one is reused.
+
+Nothing is built at import time: the first kernel launch (or an explicit
+:func:`build_all`) builds. Without ``nvcc`` the build raises; there is no
+fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# C entry points: name -> (source stem, ctypes argtypes). Every entry
+# returns cudaGetLastError() as an int.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+ENTRIES = {
+    "block_spmm_f32": ("block_spmm", (_P, _P, _P, _P, _P, _I, _I, _P)),
+    "embedding_bag_f32": ("embedding_bag", (_P, _P, _P, _P, _P, _I, _I, _P)),
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+build_logs: dict[str, str] = {}   # stem -> nvcc's output (ptxas -v report)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH or CUDA_HOME): the CUDA kernels cannot be built"
+    )
+
+
+def _lib_path(stem: str) -> pathlib.Path:
+    src = (CSRC / f"{stem}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / h / f"lib{stem}.so"
+
+
+def build_all() -> dict[str, float]:
+    """Compile every source whose library is missing, all at once.
+
+    Returns {stem: seconds} for what was compiled. Raises with nvcc's
+    output if any compilation fails."""
+    stems = sorted({stem for stem, _ in ENTRIES.values()})
+    todo = [s for s in stems if not _lib_path(s).exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for stem in todo:
+        out = _lib_path(stem)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+        os.close(fd)
+        procs[stem] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{stem}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    secs, failed = {}, []
+    for stem, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        secs[stem] = time.perf_counter() - t0
+        build_logs[stem] = log
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{stem}.cu:\n{log}")
+        else:
+            os.replace(tmp, _lib_path(stem))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return secs
+
+
+def entry(name: str):
+    """The ctypes function ``name``, building its library on first use."""
+    stem, argtypes = ENTRIES[name]
+    with _lock:
+        lib = _libs.get(stem)
+        if lib is None:
+            path = _lib_path(stem)
+            if not path.exists():
+                build_all()
+            lib = _libs[stem] = ctypes.CDLL(str(path))
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(name: str, err: int) -> None:
+    """Raise when a C entry reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -1,0 +1,493 @@
+"""One partition's trainer runtime (the P=1 slice).
+
+Port of ``repro/train/worker.py``: a :class:`TrainerWorker` is the
+substrate of ONE partition (its feature store rank, hot cache, controller,
+energy meter, device payload tier and measured compute engine), assembled
+from small pure builders, with explicit per-epoch/per-step methods that
+``gnn_trainer.run`` drives in a plain loop.
+
+This slice ports the synchronous rebuild path over the closed-form Eq. 4
+network. Not ported yet, and refused with ``NotImplementedError`` naming
+the ROADMAP item that ports them: the event fabric (a ``scenario`` other
+than closed form), the threaded pipeline (``async_pipeline=True``),
+greentrace (``trace=True``), the heuristic policy, a budgeted host tier,
+and the cluster's shared-fabric mode.
+
+The worker keeps a virtual clock (``meter.wall_s``); nothing here reads
+the OS clock on the timing path except the measured compute lane.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core import controller as ctl
+from repro_torch.core import cost_model as cm
+from repro_torch.core.energy import EnergyMeter, StepSample
+from repro_torch.core.windowed_cache import CacheStats, DoubleBufferedCache
+from repro_torch.device import resolve
+from repro_torch.graph.features import ShardedFeatureStore
+
+WINDOWED_METHODS = ("static_w", "heuristic", "greendygnn", "greendygnn_nocw")
+ADAPTIVE_METHODS = ("heuristic", "greendygnn", "greendygnn_nocw")
+CLOSED_FORM = (None, "closed_form")
+
+
+def check_supported(cfg) -> None:
+    """Refuse the configurations this slice does not port yet."""
+    if cfg.method == "heuristic":
+        raise NotImplementedError(
+            "method='heuristic' needs core/policies.py, not ported yet "
+            "(ROADMAP queue 1: host tier and policies)"
+        )
+    if cfg.scenario not in CLOSED_FORM:
+        raise NotImplementedError(
+            f"scenario={cfg.scenario!r} needs the net/ event fabric, not "
+            "ported yet (ROADMAP queue 1: network); use scenario=None"
+        )
+    if cfg.async_pipeline:
+        raise NotImplementedError(
+            "async_pipeline=True needs pipeline/, not ported yet "
+            "(ROADMAP queue 1: pipeline)"
+        )
+    if cfg.trace:
+        raise NotImplementedError(
+            "trace=True needs obs/ (greentrace), not ported yet "
+            "(ROADMAP queue 1: tracing)"
+        )
+    if cfg.compute not in ("modeled", "measured"):
+        raise ValueError(
+            f"compute must be 'modeled' or 'measured', got {cfg.compute!r}"
+        )
+    if cfg.run_model and cfg.compute != "measured":
+        raise NotImplementedError(
+            "run_model=True runs the modeled-lane model runner, not ported "
+            "yet (ROADMAP queue 1: modeled-lane model); use compute='measured'"
+        )
+
+
+# --------------------------------------------------------------------------
+# Pure builders: each assembles one piece of a worker's substrate from the
+# run config. No hidden state, no I/O — a worker is just their composition.
+# --------------------------------------------------------------------------
+
+def build_store(graph, owner: np.ndarray, rank: int, n_parts: int,
+                budget=None) -> ShardedFeatureStore:
+    """The partition-``rank`` view of the owner-sharded feature store
+    (the tiered store when a budget or a streaming source is given)."""
+    source = getattr(graph, "feature_source", None)
+    if budget is None and source is None:
+        return ShardedFeatureStore(graph.features, owner, rank, n_parts)
+    from repro_torch.store import TieredFeatureStore
+
+    return TieredFeatureStore(
+        graph.features, owner, rank, n_parts, budget=budget, source=source,
+    )
+
+
+def build_cache(cfg, graph, owner_idx_map: np.ndarray
+                ) -> DoubleBufferedCache | None:
+    """Hot-set cache for cached methods (None for dgl/bgl)."""
+    windowed = cfg.method in WINDOWED_METHODS
+    if not (windowed or cfg.method == "rapidgnn"):
+        return None
+    capacity = int(cfg.cache_frac * graph.n_nodes)
+    return DoubleBufferedCache(capacity, owner_idx_map, cfg.n_parts - 1)
+
+
+def build_controller(cfg, params, n_owners: int
+                     ) -> ctl.AdaptiveController | None:
+    """Per-boundary W/weights controller over a trained DQN's q_fn."""
+    if cfg.method not in ADAPTIVE_METHODS:
+        return None
+    if cfg.q_fn is None:
+        raise ValueError("greendygnn methods need a trained q_fn")
+    if cfg.method == "greendygnn_nocw":
+        base = cfg.q_fn
+        n_a = n_owners + 1
+
+        def q_fn(state, _base=base, _na=n_a):
+            q = np.asarray(_base(state), np.float64).copy()
+            mask = (np.arange(len(q)) % _na) != 0
+            q[mask] = -1e18  # uniform-allocation actions only
+            return q
+    else:
+        q_fn = cfg.q_fn
+    return ctl.AdaptiveController(q_fn, params, n_owners)
+
+
+def build_meter(cfg) -> EnergyMeter:
+    return EnergyMeter(params=cfg.params, n_nodes=cfg.n_parts)
+
+
+class TrainerWorker:
+    """One partition's training substrate with explicit step methods.
+
+    Drive it as::
+
+        w = TrainerWorker(cfg, bundle, rank=0)
+        for epoch in range(cfg.n_epochs):
+            w.begin_epoch(epoch)
+            for step in range(cfg.steps_per_epoch):
+                w.step(epoch, step)
+            w.end_epoch(epoch)
+        result = w.result()
+    """
+
+    def __init__(self, cfg, trace_bundle, rank: int = 0):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.rank = int(rank)
+        self.device = resolve(cfg.device)
+
+        graph, owner, traces, mbs = trace_bundle
+        self.graph, self.owner = graph, owner
+        self.traces, self.mbs = traces, mbs
+        params = cfg.params
+        self.params = params
+        self.n_owners = cfg.n_parts - 1
+
+        self.mem_budget = getattr(cfg, "mem_budget", None)
+        self.store = build_store(
+            graph, owner, self.rank, cfg.n_parts, budget=self.mem_budget
+        )
+        self.owner_idx_map = self.store.owner_index(np.arange(graph.n_nodes))
+        self.bytes_per_row = self.store.bytes_per_row
+
+        self.windowed = cfg.method in WINDOWED_METHODS
+        self.cache = build_cache(cfg, graph, self.owner_idx_map)
+        self.controller = build_controller(cfg, params, self.n_owners)
+        self.meter = build_meter(cfg)
+
+        # device payload tier: real capacity-bounded rows over the hot
+        # cache, hit path served through the embedding_bag kernel
+        self.device_tier = None
+        if (
+            self.mem_budget is not None
+            and getattr(self.mem_budget, "device_payloads", False)
+            and self.cache is not None
+        ):
+            from repro_torch.store import DevicePayloadTier
+
+            n_feat = (
+                graph.features.shape[1]
+                if graph.features is not None
+                else graph.feature_source.n_feat
+            )
+            self.device_tier = DevicePayloadTier(
+                self.cache, n_feat, device=self.device
+            )
+
+        self.engine = None
+        if cfg.compute == "measured" and self.mbs is not None:
+            # measured lane: a real SAGE step each trainer step; its time
+            # replaces the modeled t_base charge below
+            from repro_torch.train.compute import ComputeEngine
+
+            self.engine = ComputeEngine(graph, cfg)
+
+        self.t_base = float(params.t_base)
+        self.window = (
+            cfg.static_window if self.windowed else cfg.steps_per_epoch
+        )
+        self.weights = np.full(self.n_owners, 1.0 / self.n_owners)
+
+        self.hit_rates: list = []
+        self.windows_log: list = []
+        self.acc_log: list = []
+        self.sigma_log: list = []
+        self.wall_log: list = []
+        self.e_baseline = None
+        self.window_left = 0
+        self.pending_rebuild_cost = 0.0
+        self.window_stats = CacheStats()
+        self.meter_snapshot: dict = {}
+        self.step_hits: list[int] = []
+        self.step_misses: list[int] = []
+        self.fetched_rows_by_owner = np.zeros(self.n_owners, np.float64)
+
+        # per-epoch scratch
+        self.delta = np.zeros(self.n_owners)
+        self.sigma_true = np.ones(self.n_owners)
+        self.epoch_stats = CacheStats()
+        self.epoch_windows: list = []
+        self._wall0 = 0.0
+
+    # ------------------------------------------------------ network substrate
+    def _net_bulk(self, per_owner_rows, delta):
+        """ONE consolidated bulk RPC per owner (closed-form Eq. 4).
+        Returns (raw, cpu, bytes, n_rpcs)."""
+        from repro_torch.train import gnn_trainer as gt
+
+        rows = np.asarray(per_owner_rows, np.float64)
+        return gt._fetch_time(self.params, rows, delta, self.bytes_per_row)
+
+    def _net_chunked(self, per_owner_rows, delta):
+        """Fine-grained DistTensor round (DGL/BGL), closed form."""
+        from repro_torch.train import gnn_trainer as gt
+
+        cfg = self.cfg
+        rows = np.asarray(per_owner_rows, np.float64)
+        return gt._chunked_fetch_time(
+            self.params, rows, delta, self.bytes_per_row,
+            cfg.dgl_chunk, cfg.dgl_concurrency,
+        )
+
+    # ------------------------------------------------------------- controller
+    def _decide(self, exposed_stall: float, step: int):
+        """Controller decision from the just-finished window."""
+        from repro_torch.train import gnn_trainer as gt
+
+        cfg = self.cfg
+        obs_stats = (
+            self.window_stats
+            if self.window_stats.hits + self.window_stats.misses
+            else self.epoch_stats
+        )
+        stats = gt._controller_stats(
+            obs_stats, self.meter, self.t_base, self.e_baseline,
+            step, cfg.steps_per_epoch, self.n_owners,
+            snapshot=self.meter_snapshot,
+            rebuild_stall=exposed_stall,
+        )
+        w, ww, _action = self.controller.decide(stats)
+        if cfg.method == "greendygnn_nocw":
+            ww = np.full(self.n_owners, 1.0 / self.n_owners)
+        return w, ww
+
+    # ------------------------------------------------------------ epoch hooks
+    def begin_epoch(self, epoch: int) -> None:
+        from repro_torch.train import gnn_trainer as gt
+
+        cfg = self.cfg
+        self.delta = gt._closed_form_delta(cfg, epoch, self.n_owners)
+        self.sigma_true = np.asarray(
+            [float(cm.sigma_from_delta(self.params, d)) for d in self.delta]
+        )
+        self.sigma_log.append(self.sigma_true)
+        self.epoch_stats = CacheStats()
+        self.epoch_windows = []
+        self._wall0 = self.meter.wall_s
+        trace = self.traces[epoch]
+
+        if cfg.method == "rapidgnn" and self.cache is not None:
+            # epoch-level rebuild from the full presampled epoch trace
+            remote = [self.store.remote_ids_of(t) for t in trace]
+            plan = self.cache.plan_window(remote, self.weights)
+            raw, cpu_rb, nbytes, nrpc = self._net_bulk(
+                plan.per_owner_fetched.astype(np.float64), self.delta
+            )
+            if self.device_tier is not None:
+                self.device_tier.load(plan, self.store.peek_rows)
+            self.meter.record_background(cpu_rb, nbytes, nrpc)
+            self.meter.record_step(
+                StepSample(0.0, float(self.params.alpha_crit) * raw, 0.0)
+            )
+            self.cache.swap(plan)
+            self.fetched_rows_by_owner += plan.per_owner_fetched
+
+    def end_epoch(self, epoch: int) -> None:
+        cfg = self.cfg
+        self.meter.mark_epoch()
+        self.hit_rates.append(self.epoch_stats.hit_rate())
+        self.windows_log.append(
+            float(np.mean(self.epoch_windows)) if self.epoch_windows else 0
+        )
+        self.wall_log.append(self.meter.wall_s - self._wall0)
+        if cfg.run_model and self.engine is not None:
+            self.acc_log.append(self.engine.model_eval(self.graph))
+        if self.controller is not None and epoch == cfg.warmup_epochs - 1:
+            self.controller.observe_warmup()
+        if epoch == cfg.warmup_epochs - 1:
+            kj = self.meter.totals_kj()["total_kj"]
+            steps = cfg.warmup_epochs * cfg.steps_per_epoch
+            self.e_baseline = kj * 1e3 / max(steps, 1) / cfg.n_parts
+
+    # ------------------------------------------------------------------- step
+    def step(self, epoch: int, step: int) -> None:
+        cfg = self.cfg
+        trace = self.traces[epoch]
+        input_nodes = trace[step]
+        remote_ids = self.store.remote_ids_of(input_nodes)
+        delta, sigma_true = self.delta, self.sigma_true
+
+        # ---- windowed rebuild boundary ----
+        if self.windowed and self.window_left <= 0:
+            adaptive_now = (
+                self.controller is not None and epoch >= cfg.warmup_epochs
+            )
+            self._rebuild_sync(adaptive_now, epoch, step, delta)
+            self.window_left = self.window
+        self.epoch_windows.append(self.window)
+
+        # ---- resolve features ----
+        if self.cache is not None:
+            # one searchsorted probe recorded into both stat sinks
+            miss_ids = self.cache.access(
+                remote_ids, self.epoch_stats, self.window_stats
+            )
+        else:
+            miss_ids = remote_ids
+        self.step_hits.append(len(remote_ids) - len(miss_ids))
+        self.step_misses.append(len(miss_ids))
+        per_owner = np.zeros(self.n_owners, np.float64)
+        if len(miss_ids):
+            oi = self.owner_idx_map[miss_ids]
+            per_owner += np.bincount(oi, minlength=self.n_owners)
+            self.fetched_rows_by_owner += per_owner
+
+        device_rows = None
+        if self.device_tier is not None and len(remote_ids):
+            # hit path: real payload rows gathered from the device tier
+            # through the embedding_bag kernel (timings and the hit/miss
+            # stream above are untouched)
+            hit_mask, _rows = self.device_tier.gather(remote_ids)
+            self.store.tier_stats.device_hits += int(hit_mask.sum())
+            device_rows = (hit_mask, _rows)
+
+        gpu_overlap = 0.0
+        if cfg.method in ("dgl", "bgl"):
+            # fine-grained per-layer rounds of small DistTensor RPCs;
+            # the second layer round issues after the first completes
+            rows1 = np.floor(per_owner * 0.5)
+            s1, c1, b1, r1 = self._net_chunked(rows1, delta)
+            s2, c2, b2, r2 = self._net_chunked(per_owner - rows1, delta)
+            raw, cpu, nbytes, nrpc = s1 + s2, c1 + c2, b1 + b2, r1 + r2
+            if cfg.method == "bgl":
+                # BGL prefetches during sampling: part of the latency is
+                # hidden, and GPU idle energy drops further (Section II-B)
+                slack = cfg.bgl_depth * self.t_base
+                gpu_overlap = cfg.bgl_overlap_frac
+            else:
+                slack = 0.0
+        else:
+            # consolidated bulk fetch of misses; the Stage-3 async queue
+            # (depth Q) hides up to Q * t_base of latency (Section II-B)
+            raw, cpu, nbytes, nrpc = self._net_bulk(per_owner, delta)
+            slack = cfg.prefetch_depth * self.t_base
+
+        stall = max(0.0, raw - slack)
+        rebuild_stall = (
+            self.pending_rebuild_cost / max(self.window, 1)
+            if self.windowed else 0.0
+        )
+        ar_penalty = (
+            float(self.params.kappa_ar) * max(sigma_true.max() - 1.0, 0)
+        )
+        if self.engine is not None:
+            # measured lane: the real step over this batch's resolved
+            # payload rows; its time is charged where the modeled lane
+            # charges the t_base constant
+            mb = self.mbs[epoch][step]
+            x_in = self._resolve_features(input_nodes, remote_ids,
+                                          device_rows)
+            t_compute = self.engine.step(mb, x_in, key=(epoch, step))
+        else:
+            t_compute = self.t_base
+        self.meter.record_step(
+            StepSample(
+                t_compute=t_compute,
+                t_stall=stall + rebuild_stall + ar_penalty,
+                t_cpu_comm=cpu,
+                remote_bytes=nbytes,
+                n_rpcs=nrpc,
+                gpu_overlap=gpu_overlap,
+            )
+        )
+
+        # feed the fetch-time deque (per-owner per-RPC observations,
+        # including the raw injected RTT so Eq. 8 can see congestion)
+        if self.controller is not None:
+            for o in range(self.n_owners):
+                if per_owner[o] > 0:
+                    payload_o = per_owner[o] * self.bytes_per_row
+                    t_o = cm.rpc_wall_s(
+                        float(self.params.alpha_rpc),
+                        float(self.params.beta),
+                        float(self.params.gamma_c),
+                        payload_o,
+                        delta[o],
+                    )
+                    self.controller.deque.append(
+                        o, t_o / max(per_owner[o], 1)
+                    )
+
+        self.window_left -= 1
+
+    # ------------------------------------------------------ rebuild boundary
+    def _rebuild_sync(self, adaptive_now, epoch, step, delta) -> None:
+        """Analytic double-buffer model (alpha_crit leak)."""
+        cfg = self.cfg
+        if adaptive_now:
+            self.window, self.weights = self._decide(
+                self.pending_rebuild_cost / max(self.window, 1), step
+            )
+        else:
+            self.window = cfg.static_window
+        self.window_stats = CacheStats()
+        self.meter_snapshot = {
+            "n": self.meter.n_steps, "wall": self.meter.wall_s,
+            "energy": self.meter.gpu_j + self.meter.cpu_j,
+        }
+        trace = self.traces[epoch]
+        upcoming = [
+            self.store.remote_ids_of(t)
+            for t in trace[step : step + self.window]
+        ]
+        plan = self.cache.plan_window(upcoming, self.weights)
+        raw_rb, cpu_rb, nbytes, nrpc = self._net_bulk(
+            plan.per_owner_fetched.astype(np.float64), delta
+        )
+        # the fetch runs on a hypothetical builder thread (background CPU
+        # energy); alpha_crit of it leaks onto the critical path, amortized
+        # over the window
+        if self.device_tier is not None:
+            # payload assembly must see the OLD active buffer (persisted
+            # rows are copied device-to-device), so load before swap
+            self.device_tier.load(plan, self.store.peek_rows)
+        self.meter.record_background(cpu_rb, nbytes, nrpc)
+        self.pending_rebuild_cost = float(self.params.alpha_crit) * raw_rb
+        self.cache.swap(plan)
+        self.fetched_rows_by_owner += plan.per_owner_fetched
+
+    # ------------------------------------------------------------- features
+    def _resolve_features(self, input_nodes, remote_ids, device_rows):
+        """Feature payload rows for the measured step: host rows from the
+        store's pure peek, with the remote ids resident on the device tier
+        overlaid by the rows the tier just gathered through the
+        embedding_bag kernel (bit-identical to the host rows)."""
+        ids = np.asarray(input_nodes, np.int64)
+        x = np.asarray(self.store.peek_rows(ids), np.float32)
+        if device_rows is not None:
+            hit_mask, rows = device_rows
+            if hit_mask.any():
+                # remote_ids is the order-preserving remote subset of
+                # input_nodes, so remote position k sits at rpos[k]
+                rpos = np.flatnonzero(self.owner[ids] != self.rank)
+                x[rpos[hit_mask]] = np.asarray(rows, np.float32)
+        return x
+
+    # --------------------------------------------------------------- result
+    def result(self):
+        from repro_torch.train import gnn_trainer as gt
+
+        tier_counts = (
+            self.store.tier_stats.counts()
+            if hasattr(self.store, "tier_stats") else None
+        )
+        return gt.RunResult(
+            meter=self.meter,
+            tier_counts=tier_counts,
+            hit_rate_per_epoch=np.asarray(self.hit_rates),
+            window_per_epoch=np.asarray(self.windows_log),
+            sigma_trace=np.asarray(self.sigma_log),
+            accuracy_per_epoch=(
+                np.asarray(self.acc_log) if self.acc_log else None
+            ),
+            wall_time_per_epoch=np.asarray(self.wall_log),
+            step_hits=np.asarray(self.step_hits, np.int64),
+            step_misses=np.asarray(self.step_misses, np.int64),
+            fetched_rows_by_owner=self.fetched_rows_by_owner,
+            compute_report=(
+                self.engine.report() if self.engine is not None else None
+            ),
+        )

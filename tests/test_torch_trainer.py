@@ -1,0 +1,115 @@
+"""The port's P=1 trainer against the JAX reference, end to end on the CPU.
+
+The reference runs are built once per module: with device payloads each
+one spends most of its time in the EmbeddingBag Pallas interpreter.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.analysis import digest as dg
+from repro.core import controller as rctl
+from repro.core import dqn as rdqn
+from repro.store import MemoryBudget as RefBudget
+from repro.train import gnn_trainer as rgt
+from repro.train.worker import TrainerWorker as RefWorker
+from repro_torch.core import dqn as pdqn
+from repro_torch.store import MemoryBudget
+from repro_torch.train import gnn_trainer as pgt
+from repro_torch.train.worker import TrainerWorker
+
+# the reference measurement the port is held to: 3 epochs of 4 steps,
+# one warmup epoch, W=2 until the controller takes over
+MOTIVATION = dict(method="greendygnn", batch_size=600, n_epochs=3,
+                  warmup_epochs=1, steps_per_epoch=4, static_window=2)
+
+
+def _drive(worker, cfg):
+    """Drive a TrainerWorker the way ``gnn_trainer.run`` does."""
+    for epoch in range(cfg.n_epochs):
+        worker.begin_epoch(epoch)
+        for step in range(cfg.steps_per_epoch):
+            worker.step(epoch, step)
+        worker.end_epoch(epoch)
+    return worker.result()
+
+
+@pytest.fixture(scope="module")
+def qnet_npz(tmp_path_factory):
+    qnet = rdqn.init_qnet(jax.random.PRNGKey(0), rctl.state_dim(3),
+                          rctl.n_actions(3))
+    path = str(tmp_path_factory.mktemp("qnet") / "qnet.npz")
+    rdqn.save_qnet(path, qnet)
+    fwd = jax.jit(rdqn.q_forward)
+
+    def ref_q(state):
+        return np.asarray(fwd(qnet, jnp.asarray(state, jnp.float32)))
+
+    return ref_q, path
+
+
+@pytest.fixture(scope="module")
+def modeled_runs(qnet_npz):
+    ref_q, path = qnet_npz
+    cfg = rgt.RunConfig(**MOTIVATION, q_fn=ref_q,
+                        mem_budget=RefBudget(device_payloads=True))
+    ref = rgt.run(cfg, rgt.build_trace(cfg))
+    pcfg = pgt.RunConfig(**MOTIVATION, q_fn=pdqn.q_fn_of(pdqn.load_qnet(path)),
+                         mem_budget=MemoryBudget(device_payloads=True),
+                         device="cpu")
+    return ref, pgt.run(pcfg, pgt.build_trace(pcfg))
+
+
+@pytest.fixture(scope="module")
+def measured_runs():
+    kw = dict(MOTIVATION, method="static_w", compute="measured")
+    cfg = rgt.RunConfig(**kw, mem_budget=RefBudget(device_payloads=True))
+    rw = RefWorker(cfg, rgt.build_trace(cfg))
+    params = jax.tree.map(np.asarray, rw.engine.params)
+    ref = _drive(rw, cfg)
+    pcfg = pgt.RunConfig(**kw, mem_budget=MemoryBudget(device_payloads=True),
+                         device="cpu")
+    pw = TrainerWorker(pcfg, pgt.build_trace(pcfg))
+    pw.engine.load_params(params)
+    return ref, _drive(pw, pcfg)
+
+
+class TestModeledGreenDyGNN:
+    def test_result_digest_equal(self, modeled_runs):
+        ref, port = modeled_runs
+        dg.assert_results_equal(ref, port)
+
+    def test_controller_took_over_after_warmup(self, modeled_runs):
+        _, port = modeled_runs
+        assert port.window_per_epoch[0] == 2.0
+        assert list(port.window_per_epoch) == [2.0, 128.0, 128.0]
+
+    def test_device_tier_counts_equal(self, modeled_runs):
+        ref, port = modeled_runs
+        assert port.tier_counts == ref.tier_counts
+        assert port.tier_counts["device_hits"] > 0
+
+
+class TestMeasuredStaticW:
+    def test_discrete_streams_equal(self, measured_runs):
+        ref, port = measured_runs
+        for name in ("step_hits", "step_misses", "fetched_rows_by_owner",
+                     "window_per_epoch", "hit_rate_per_epoch"):
+            np.testing.assert_array_equal(getattr(port, name),
+                                          getattr(ref, name), err_msg=name)
+        assert port.compute_report["step_edges"] \
+            == ref.compute_report["step_edges"]
+        assert port.compute_report["n_steps"] == ref.compute_report["n_steps"]
+
+    def test_losses_within_tolerance(self, measured_runs):
+        ref, port = measured_runs
+        np.testing.assert_allclose(port.compute_report["losses"],
+                                   ref.compute_report["losses"], rtol=1e-4)
+
+    def test_parity_and_timing_recorded(self, measured_runs):
+        _, port = measured_runs
+        rep = port.compute_report
+        assert rep["parity_max_diff"] < 2e-3
+        assert len(rep["step_s"]) == rep["n_steps"] == 12
+        assert all(t > 0 for t in rep["step_s"])
