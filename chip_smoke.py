@@ -8,30 +8,55 @@ Usage (from the repository root, on a machine with a CUDA card):
 Phases, each of which ends the run with a non-zero exit on failure:
 
 1. Print the card (``nvidia-smi`` name and power limit) and build the CUDA
-   kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (sm_90a).
+   kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (sm_90a),
+   one ``nvcc`` per source, all at once.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes the trainer's main path gives it (the first mini-batch of the
-   default ``reddit`` trace): block-SpMM for layer 0, layer 1 and layer 1's
-   transposed format (atol 1e-4, rtol 1e-5: fp32 summed in another order;
-   two launches bit-identical), its autograd backward against plain
-   autograd (same tolerance), the EmbeddingBag gather bit-equal to
-   ``table[idx]``, and weighted bags with empty bags (atol 1e-5).
-3. Run the main path, ``repro_torch.train.gnn_trainer.run``: the
+   shapes its main path gives it. The trainer's kernels at the first
+   mini-batch of the default ``reddit`` trace: block-SpMM for layer 0,
+   layer 1 and layer 1's transposed format (atol 1e-4, rtol 1e-5: fp32
+   summed in another order; two launches bit-identical), its autograd
+   backward against plain autograd (same tolerance), the EmbeddingBag
+   gather bit-equal to ``table[idx]``, and weighted bags with empty bags
+   (atol 1e-5). Flash attention: the reference's test matrix and ragged
+   lengths in float32 (atol 2e-5, rtol 1e-4, against the plain version and
+   the dense oracle), GQA over strided heads, and TinyLlama's prefill shape
+   (B=2, S=4096, Hq=32, Hkv=4, D=64, causal): in float32 against the plain
+   version and the dense oracle (atol 2e-5, rtol 1e-4); in bf16 against the
+   plain version (atol 1e-3, rtol 1e-2: both round p the same way and cast
+   the output once, so they differ by about one bf16 ulp) and against the
+   float32 oracle (atol 4e-2, rtol 2e-2: p and the output rounded to bf16);
+   two bf16 launches bit-identical. The plain version runs the kernel's
+   own 64 x 64 tiles, so both round p at the same running max.
+3. Run the trainer's main path, ``repro_torch.train.gnn_trainer.run``: the
    GreenDyGNN trainer with measured compute and the device payload tier,
    batch 2000, 3 epochs (2 of warmup) of 8 steps, a seeded untrained qnet.
    Every launch count is zeroed just before and read just after; the run
-   must have launched both kernels, passed the block-path/scatter parity
-   check (< 2e-3), given finite losses and let the controller decide after
-   warmup. A short static-window run on the card is then compared with
-   the same run on the CPU through the plain versions (discrete streams
-   equal, losses rtol 1e-4).
-4. Profile steady trainer steps at the main path's size with
-   ``torch.profiler`` (device time by kernel against the host clock), then
-   time each kernel, its plain version and the equivalent library call
-   with CUDA events (median of 25 launches, L2 flushed before each), beside
-   the least time the card could take, and print one ``{"kernels": ...}``
-   line.
-5. The last line is ``{"ok": true, "device": {...}}``.
+   must have launched both of its kernels, passed the block-path/scatter
+   parity check (< 2e-3), given finite losses and let the controller
+   decide after warmup. A short static-window run on the card is then
+   compared with the same run on the CPU through the plain versions
+   (discrete streams equal, losses rtol 1e-4). Then ``torch.profiler``
+   splits steady trainer steps into device time by kernel against the host
+   clock.
+4. Run the LM serving path at full width: ``tinyllama-1.1b`` (22 layers,
+   d_model 2048, bf16, seeded random weights). Counts zeroed, then
+   ``repro_torch.launch.serve.run`` (batch 4, prompt 8, generation 16;
+   decode steps launch no flash kernel) and one ``prefill`` of B=2, S=4096
+   (one flash launch per layer: 22), counts read. The serve run's last
+   prompt step's logits are held against ``prefill`` on the same prompt,
+   and the S=4096 prefill against the same model through the dense
+   attention path: finite, the same argmax in every row, max |diff| under
+   ``TOL_LOGITS``. Then ``torch.profiler`` splits one prefill's device time
+   between the flash kernel, the matrix products and the rest, and a
+   window of decode steps into device kernels per step, device busy time
+   against the unprofiled host wall, and the host ops that take the most
+   CPU time.
+5. Time each kernel, its plain version and the equivalent library call
+   with CUDA events (median of 25 launches, L2 flushed before each),
+   beside the least time the card could take, and print one
+   ``{"kernels": ...}`` line. TF32 is off throughout: float32 results are
+   compared in full float32.
+6. The last line is ``{"ok": true, "device": {...}}``.
 
 Kernel builds land in ``build/kernels/`` (listed in ``.gitignore``).
 """
@@ -52,9 +77,17 @@ SRC = ROOT / "src"
 # fp32 FLOP/s outside the tensor cores, at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12   # dense, tensor cores
 
 TOL_SPMM = dict(atol=1e-4, rtol=1e-5)
 TOL_BAGS = dict(atol=1e-5, rtol=0.0)
+TOL_F32 = dict(atol=2e-5, rtol=1e-4)     # the reference's flash tolerances
+TOL_BF16 = dict(atol=4e-2, rtol=2e-2)     # bf16 kernel vs float32 oracle
+TOL_BF16_PLAIN = dict(atol=1e-3, rtol=1e-2)  # bf16 kernel vs bf16 plain
+# logits of the random-weight bf16 model (scale ~1) after 22 layers, one
+# path against another: bf16 rounding at different places
+TOL_LOGITS = 0.25
+PREFILL_B, PREFILL_S = 2, 4096          # TinyLlama's prefill shape here
 REPEATS = 25
 SEED = 0
 
@@ -104,9 +137,10 @@ class Timer:
         return statistics.median(samples)
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_flops: float,
+             flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / FP32_FLOP_PER_S * 1e3
+    t_ops = n_flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -252,6 +286,136 @@ def phase_kernels_vs_plain(torch, device, ops):
     return errs, gather_ops
 
 
+def phase_flash_vs_plain(torch, device):
+    """The flash-attention kernel against its plain version and the dense
+    oracle; returns the largest kernel-vs-plain difference and the
+    prefill-shape operands for the timing phase."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_kernel, flash_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention.ops import TILE_K, TILE_Q
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.lm.attention import dense_attention
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen).to(device=device,
+                                                    dtype=dtype)
+
+    def diff(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    err = 0.0
+    # tests/test_kernels.py's matrix, its block sweep's shape, and ragged
+    # lengths the kernel's 64-row tiles do not divide (block = S)
+    for s, d, causal, blk in [(128, 64, True, 64), (256, 64, True, 64),
+                              (128, 128, False, 64), (512, 32, True, 64),
+                              (256, 32, True, 32), (100, 64, True, 100),
+                              (100, 128, False, 100), (200, 32, True, 200)]:
+        q, k, v = randn(3, s, d), randn(3, s, d), randn(3, s, d)
+        got = flash_attention_kernel(q, k, v, causal, blk, blk)
+        want = flash_attention_plain(q[:, :, None], k[:, :, None],
+                                     v[:, :, None], causal, blk,
+                                     blk)[:, :, 0]
+        oracle = attention_ref(q, k, v, causal)
+        e = diff(got, want)
+        err = max(err, e)
+        require(torch.allclose(got, want, **TOL_F32),
+                f"flash s={s} d={d} causal={causal}: kernel vs plain {e:.3e}")
+        require(torch.allclose(got, oracle, **TOL_F32),
+                f"flash s={s} d={d} causal={causal}: kernel vs oracle "
+                f"{diff(got, oracle):.3e}")
+        log(f"flash f32 s={s} d={d} causal={causal}: max|kernel-plain|="
+            f"{e:.3e} max|kernel-oracle|={diff(got, oracle):.3e}")
+
+    # GQA over (B, S, H, D) views with non-packed head strides
+    qb, kb = randn(2, 128, 16, 32), randn(2, 128, 4, 32)
+    q, k, v = qb[:, :, :8], kb[:, :, :2], kb[:, :, 2:]
+    got = flash_attention(q, k, v, True, 64, 64)
+    want = flash_attention_plain(q, k, v, True, 64, 64)
+    dense = dense_attention(q, k, v, causal=True)
+    e = diff(got, want)
+    err = max(err, e)
+    require(torch.allclose(got, want, **TOL_F32), f"flash GQA: {e:.3e}")
+    require(torch.allclose(got, dense, **TOL_F32),
+            f"flash GQA vs dense_attention: {diff(got, dense):.3e}")
+    log(f"flash GQA (2,128,8,32)/(2,128,2,32), strided heads: "
+        f"max|kernel-plain|={e:.3e} max|kernel-dense|={diff(got, dense):.3e}")
+
+    # TinyLlama's prefill shape, the blocks the model path passes: float32
+    # (the long tile loop, the causal skip at large q0 and GQA, held
+    # tightly), then bf16 (the instance the model runs)
+    b, s, hq, hkv, d = PREFILL_B, PREFILL_S, 32, 4, 64
+
+    def heads(x):  # (B, S, H, D) -> (B*Hq, S, D) float32, KV heads repeated
+        x = x.float().repeat_interleave(hq // x.shape[2], dim=2)
+        return x.permute(0, 2, 1, 3).reshape(b * hq, s, d)
+
+    def oracle_of(q, k, v):
+        o = attention_ref(heads(q), heads(k), heads(v), True)
+        return o.reshape(b, hq, s, d).permute(0, 2, 1, 3)
+
+    def row_rel(a, b_):  # largest per-row relative L2 error
+        a, b_ = a.float(), b_.float()
+        return float(((a - b_).norm(dim=-1)
+                      / b_.norm(dim=-1).clamp_min(1e-30)).max())
+
+    q, k, v = randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
+    got = flash_attention(q, k, v, True, 128, 1024)
+    want = flash_attention_plain(q, k, v, True, 128, 1024)
+    e = diff(got, want)
+    err = max(err, e)
+    require(torch.allclose(got, want, **TOL_F32),
+            f"flash prefill f32: kernel vs plain {e:.3e}")
+    oracle = oracle_of(q, k, v)
+    e_or = diff(got, oracle)
+    require(torch.allclose(got, oracle, **TOL_F32),
+            f"flash prefill f32: kernel vs oracle {e_or:.3e}")
+    log(f"flash prefill f32 q={tuple(q.shape)} kv={tuple(k.shape)}: "
+        f"max|kernel-plain|={e:.3e} max|kernel-oracle|={e_or:.3e}")
+    del q, k, v, got, want, oracle
+
+    bf = torch.bfloat16
+    q, k, v = (randn(b, s, hq, d, dtype=bf), randn(b, s, hkv, d, dtype=bf),
+               randn(b, s, hkv, d, dtype=bf))
+    got = flash_attention(q, k, v, True, 128, 1024)
+    again = flash_attention(q, k, v, True, 128, 1024)
+    torch.cuda.synchronize()
+    require(torch.equal(got, again), "flash prefill: two launches differ")
+    # p's bf16 rounding depends on the running max, so on the tiling: the
+    # plain version runs the kernel's tiles
+    want = flash_attention_plain(q, k, v, True, TILE_Q, TILE_K)
+    e, rel = diff(got, want), row_rel(got, want)
+    err = max(err, e)
+    require(torch.allclose(got.float(), want.float(), **TOL_BF16_PLAIN),
+            f"flash prefill bf16: kernel vs plain {e:.3e} (row rel {rel:.3e})")
+    oracle = oracle_of(q, k, v)
+    e_or, rel_or = diff(got, oracle), row_rel(got, oracle)
+    require(torch.allclose(got.float(), oracle, **TOL_BF16),
+            f"flash prefill bf16: kernel vs f32 oracle {e_or:.3e}")
+    del oracle
+    log(f"flash prefill bf16 q={tuple(q.shape)} kv={tuple(k.shape)}: "
+        f"max|kernel-plain|={e:.3e} (row rel L2 {rel:.3e}), max|kernel-f32 "
+        f"oracle|={e_or:.3e} (row rel L2 {rel_or:.3e}), typical |o| "
+        f"{float(want.float().abs().median()):.3e}, bit-identical relaunch")
+    return err, (q, k, v)
+
+
+def device_time_by_name(prof) -> dict:
+    """{kernel or copy name: [device us, count]} from a profiler run."""
+    import collections
+
+    from torch.autograd import DeviceType
+
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name][0] += e.time_range.elapsed_us()
+            by_name[e.name][1] += 1
+    return by_name
+
+
 # ------------------------------------------------------------- phase 3
 def phase_main_path(torch, device):
     import numpy as np
@@ -362,7 +526,6 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
     host wall comes from the unprofiled steps."""
     import collections
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.store import MemoryBudget
@@ -416,11 +579,7 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
         for s in range(n_warm + n_each, n_warm + 2 * n_each):
             w.step(0, s)
         torch.cuda.synchronize()
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name][0] += e.time_range.elapsed_us()
-            by_name[e.name][1] += 1
+    by_name = device_time_by_name(prof)
     busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / n_each
     log(f"profile: device busy {busy_ms:.3f} ms/step, device idle share "
         f"{1.0 - busy_ms / wall_ms:.4f} of the unprofiled host wall")
@@ -433,6 +592,195 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
 
 
 # ------------------------------------------------------------- phase 4
+def same_choice(a, b):
+    """(argmax equal in every row, rows with equal argmax, max |a - b|)."""
+    exact = a.argmax(dim=-1) == b.argmax(dim=-1)
+    return bool(exact.all()), int(exact.sum()), float((a - b).abs().max())
+
+
+def phase_serving(torch, device):
+    """The LM serving path at full width, through the user's entry points,
+    with the launch counts zeroed just before and read just after."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.segment_mm import block_spmm
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import transformer as tf
+
+    cfg = get_arch("tinyllama-1.1b").make_config()
+    t0 = time.perf_counter()
+    params = tf.init(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in (params["embed"], params["lm_head"],
+                                       params["final_norm"],
+                                       *params["layers"].values()))
+    log(f"tinyllama-1.1b: {n_params / 1e9:.3f}B parameters ({cfg.dtype}) "
+        f"drawn on the card in {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator().manual_seed(SEED + 3)
+    prompts = torch.randint(0, cfg.vocab, (4, 8), generator=gen)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                           generator=gen).to(device)
+
+    block_spmm.launches = 0
+    embedding_bag.launches = 0
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    res = serve.run(cfg, batch=4, prompt_len=8, gen_len=16, device=device,
+                    prompts=prompts, params=params)
+    serve_s = time.perf_counter() - t0
+    after_serve = flash_attention.launches
+    t0 = time.perf_counter()
+    logits = tf.prefill(params, cfg, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = {"block_spmm": block_spmm.launches,
+              "embedding_bag": embedding_bag.launches,
+              "flash_attention": flash_attention.launches}
+    log(f"serving path: serve.run (batch 4, prompt 8, gen 16) {serve_s:.2f} s "
+        f"(decode {res.decode_s * 1e3 / 15:.2f} ms/step, "
+        f"{4 * 15 / res.decode_s:.0f} tok/s), prefill B={PREFILL_B} "
+        f"S={PREFILL_S} {prefill_s * 1e3:.1f} ms (first call), launches "
+        f"{counts}")
+    require(after_serve == 0, f"decode steps launched the flash kernel "
+            f"{after_serve} times")
+    require(counts["flash_attention"] == cfg.n_layers,
+            f"prefill launched the flash kernel {counts['flash_attention']} "
+            f"times, not once per layer ({cfg.n_layers})")
+    require(counts["block_spmm"] == 0 and counts["embedding_bag"] == 0,
+            "the serving path launched a trainer kernel")
+
+    # serve: the tokens, and the last prompt step's logits against prefill
+    require(tuple(res.tokens.shape) == (4, 16), "serve tokens shape")
+    require(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()),
+            "serve tokens out of range")
+    require(bool(torch.isfinite(res.prompt_logits).all()),
+            "serve logits not finite")
+    pre = tf.prefill(params, cfg, prompts.to(device)).float()
+    ok, exact, tol = same_choice(res.prompt_logits.float(), pre)
+    log(f"serve vs prefill (S=8, dense path): max|diff| {tol:.4f}, argmax "
+        f"equal in {exact}/4 rows; first sequence "
+        f"{res.tokens[0].tolist()}")
+    require(ok and tol <= TOL_LOGITS, "serve logits vs prefill")
+
+    # the S=4096 prefill through the flash kernel against the dense path
+    require(tuple(logits.shape) == (PREFILL_B, cfg.vocab), "prefill shape")
+    require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    dense_cfg = dataclasses.replace(cfg, blockwise_threshold=PREFILL_S + 1)
+    dense = tf.prefill(params, dense_cfg, tokens).float()
+    require(flash_attention.launches == counts["flash_attention"],
+            "the dense path launched the flash kernel")
+    ok, exact, tol = same_choice(logits.float(), dense)
+    log(f"prefill S={PREFILL_S}: flash vs dense path max|diff| {tol:.4f} "
+        f"(logits max |{float(dense.abs().max()):.3f}|), argmax equal in "
+        f"{exact}/{PREFILL_B} rows")
+    require(ok and tol <= TOL_LOGITS, "prefill flash vs dense path")
+    del dense
+    torch.cuda.empty_cache()
+    return counts, cfg, params, tokens
+
+
+def phase_profile_decode(torch, device, cfg, params, batch: int = 4,
+                         n_warm: int = 4, n_each: int = 8):
+    """Where a full-width decode step's time goes: ``n_each`` greedy steps
+    timed on the host clock, then ``n_each`` more under
+    ``torch.profiler`` for the device kernels per step and their busy
+    time, and the host ops that take the most CPU time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.lm import transformer as tf
+
+    cache = tf.init_cache(cfg, batch, n_warm + 2 * n_each, device=device)
+    state = {"tok": torch.zeros((batch, 1), dtype=torch.long, device=device),
+             "pos": 0}
+
+    def step():
+        logits, _ = tf.decode_step(params, cfg, state["tok"], cache,
+                                   state["pos"])
+        state["tok"] = logits.argmax(dim=-1)[:, None]
+        state["pos"] += 1
+
+    for _ in range(n_warm):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_each):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_each
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_each):
+            step()
+        torch.cuda.synchronize()
+    by_name = device_time_by_name(prof)
+    busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / n_each
+    n_kernels = sum(cnt for name, (_, cnt) in by_name.items()
+                    if not name.startswith("Mem")) / n_each
+    n_copies = sum(cnt for name, (_, cnt) in by_name.items()
+                   if name.startswith("Mem")) / n_each
+    log(f"profile decode (batch {batch}, {n_each} steps): host wall "
+        f"{wall_ms:.3f} ms/step (unprofiled), device busy {busy_ms:.3f} "
+        f"ms/step, idle share {1.0 - busy_ms / wall_ms:.4f}, "
+        f"{n_kernels:.1f} device kernels and {n_copies:.1f} copies/sets "
+        f"per step")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    for name, (us, cnt) in top:
+        log(f"  device {us / 1e3 / n_each:8.4f} ms/step x{cnt / n_each:6.1f}"
+            f"  {name[:80]}")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for e in host[:8]:
+        log(f"  host (profiled) {e.self_cpu_time_total / 1e3 / n_each:8.3f} "
+            f"ms/step x{e.count / n_each:6.1f}  {e.key[:70]}")
+    return wall_ms, busy_ms, n_kernels
+
+
+def phase_profile_prefill(torch, cfg, params, tokens):
+    """Where one full-width prefill's time goes: the flash kernel against
+    the matrix products and the rest, on the device, beside the host
+    wall of an unprofiled prefill."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.lm import transformer as tf
+
+    tf.prefill(params, cfg, tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tf.prefill(params, cfg, tokens)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tf.prefill(params, cfg, tokens)
+        torch.cuda.synchronize()
+    by_name = device_time_by_name(prof)
+    if not by_name:
+        log("profile prefill: the profiler reported no device time")
+        return
+    groups = {"flash kernel": 0.0, "matrix products": 0.0, "rest": 0.0}
+    for name, (us, _) in by_name.items():
+        low = name.lower()
+        if "flash_fwd_kernel" in low:
+            groups["flash kernel"] += us / 1e3
+        elif any(w in low for w in ("gemm", "gemv", "nvjet", "sm90_",
+                                    "cutlass", "xmma", "cublas")):
+            groups["matrix products"] += us / 1e3
+        else:
+            groups["rest"] += us / 1e3
+    busy = sum(groups.values())
+    log(f"profile prefill B={PREFILL_B} S={PREFILL_S}: host wall "
+        f"{wall_ms:.3f} ms (unprofiled), device busy {busy:.3f} ms, idle "
+        f"share {1.0 - busy / wall_ms:.4f}")
+    for name, ms in groups.items():
+        log(f"  {name:16s} {ms:9.3f} ms  share {ms / busy:.4f}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    for name, (us, cnt) in top:
+        log(f"  device {us / 1e3:9.3f} ms x{cnt:4d}  {name[:90]}")
+
+
+# ------------------------------------------------------------- phase 5
 def spmm_library_operand(torch, fmt):
     """The same adjacency as one CSR matrix, for torch.sparse.mm."""
     b, i, j = torch.nonzero(fmt.blocks, as_tuple=True)
@@ -528,6 +876,44 @@ def phase_timing(torch, device, ops, gather_ops, counts, n_steps):
     return rows
 
 
+def flash_timing_row(torch, device, operands, launches: int, err: float):
+    """The flash kernel at TinyLlama's prefill shape (one layer's call),
+    its plain version at the kernel's tiles, and
+    ``F.scaled_dot_product_attention`` (timed here only, never called by
+    the port) as the library yardstick."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    timer = Timer(torch, device)
+    q, k, v = operands
+    o = torch.empty_like(q)
+    ms = timer.ms(lambda: flash_ops.launch(q, k, v, o, True))
+    plain = timer.ms(lambda: flash_ops.flash_attention_plain(
+        q, k, v, True, flash_ops.TILE_Q, flash_ops.TILE_K))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = timer.ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    b, s, hq, d = q.shape
+    n_bytes = (q.numel() + k.numel() + v.numel() + o.numel()) * q.element_size()
+    # both products over the causal half: the key j <= query i pairs
+    n_flops = 4.0 * b * hq * d * (s * (s + 1) / 2)
+    b_ms, b_by = bound_ms(n_bytes, n_flops, BF16_FLOP_PER_S)
+    log(f"time flash_attention q={tuple(q.shape)} kv={tuple(k.shape)} bf16 "
+        f"causal: kernel {ms:.4f} ms ({n_flops / ms / 1e9:.2f} TFLOP/s), "
+        f"plain {plain:.4f} ms, F.scaled_dot_product_attention {lib:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}; {n_bytes / 1e6:.1f} MB, "
+        f"{n_flops:.4g} operations at the bf16 tensor-core peak)")
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
+        "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib,
+    }
+
+
 # ----------------------------------------------------------------- main
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
@@ -551,10 +937,18 @@ def main() -> int:
     ops = main_path_operands(torch, device)
     errs, gather_ops = phase_kernels_vs_plain(torch, device, ops)
     ops["errs"] = errs
+    flash_err, flash_operands = phase_flash_vs_plain(torch, device)
     counts, step_ms, n_steps = phase_main_path(torch, device)
     phase_card_vs_cpu(torch, device)
     phase_profile(torch, device)
+    lm_counts, cfg, params, tokens = phase_serving(torch, device)
+    phase_profile_prefill(torch, cfg, params, tokens)
+    phase_profile_decode(torch, device, cfg, params)
+    del params
+    torch.cuda.empty_cache()
     rows = phase_timing(torch, device, ops, gather_ops, counts, n_steps)
+    rows.append(flash_timing_row(torch, device, flash_operands,
+                                 lm_counts["flash_attention"], flash_err))
     log(f"median measured step: {step_ms:.4f} ms; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

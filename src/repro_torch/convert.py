@@ -1,10 +1,12 @@
 """Carry weights between the reference's numpy trees and the port.
 
 The reference stores SAGE parameters as ``{"layer_i": {"w_self",
-"w_neigh", "b"}}`` and the qnet as ``{"l1": {"w", "b"}, ...}``; the port
-keeps both layouts, as dicts of float32 tensors. JAX's PRNG cannot be
-reproduced in torch, so parity tests initialise in the reference and carry
-the arrays across with these functions.
+"w_neigh", "b"}}``, the qnet as ``{"l1": {"w", "b"}, ...}`` and the LM
+as ``{"embed", "lm_head", "final_norm", "layers": {...}}`` with the layers
+stacked along a leading axis; the port keeps all three layouts, as dicts of
+tensors. JAX's PRNG cannot be reproduced in torch, so parity tests
+initialise in the reference and carry the arrays across with these
+functions.
 """
 from __future__ import annotations
 
@@ -46,3 +48,33 @@ def qnet_from_jax(np_tree: dict, device="cpu") -> dict:
 def qnet_to_jax(qnet: dict) -> dict:
     """The port's qnet -> numpy arrays in the reference layout."""
     return _to_numpy(qnet)
+
+
+def lm_params_from_jax(np_tree: dict, device="cpu", dtype=None) -> dict:
+    """Reference LM parameters (numpy arrays) -> the port's tensors.
+
+    JAX hands numpy its bf16 arrays as ``ml_dtypes.bfloat16``, which torch
+    cannot read: every array goes through float32 (exact for bf16) and is
+    then cast to ``dtype``, or back to bf16 or float32 as it came."""
+    out = {}
+    for name, sub in np_tree.items():
+        if isinstance(sub, dict):
+            out[name] = lm_params_from_jax(sub, device, dtype)
+            continue
+        arr = np.asarray(sub)
+        dt = dtype or (torch.bfloat16 if arr.dtype.name == "bfloat16"
+                       else torch.float32)
+        out[name] = torch.tensor(arr.astype(np.float32)).to(
+            device=device, dtype=dt)
+    return out
+
+
+def lm_params_to_jax(params: dict) -> dict:
+    """The port's LM parameters -> float32 numpy arrays in the reference
+    layout (a bf16 tensor widens exactly; ``jnp.asarray(x, jnp.bfloat16)``
+    gives the reference's array back bit for bit)."""
+    return {
+        name: lm_params_to_jax(sub) if isinstance(sub, dict)
+        else sub.detach().float().cpu().numpy()
+        for name, sub in params.items()
+    }

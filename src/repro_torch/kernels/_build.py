@@ -32,10 +32,14 @@ NVCC_FLAGS = (
 
 # C entry points: name -> (source stem, ctypes argtypes). Every entry
 # returns cudaGetLastError() as an int.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 ENTRIES = {
     "block_spmm_f32": ("block_spmm", (_P, _P, _P, _P, _P, _I, _I, _P)),
     "embedding_bag_f32": ("embedding_bag", (_P, _P, _P, _P, _P, _I, _I, _P)),
+    # q, k, v, o, dtype code, D, B, Sq, Sk, Hq, Hkv, 12 strides, causal,
+    # stream
+    "flash_attention_fwd": ("flash_attention",
+                            (_P,) * 4 + (_I,) * 7 + (_L,) * 12 + (_I, _P)),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,166 @@
+"""FlashAttention-2 forward: the kernel wrappers and their plain version.
+
+Port of ``repro/kernels/flash_attention/{kernel,ops}.py``. The wrappers
+launch the hand-written CUDA kernel ``csrc/flash_attention.cu`` (which
+replaces ``repro/kernels/flash_attention/kernel.py::flash_attention_kernel``,
+body ``_flash_kernel``) for CUDA tensors, and take
+:func:`flash_attention_plain` only for CPU tensors:
+
+- :func:`flash_attention_kernel` on ``(BH, S, D)``, as the TPU kernel;
+- :func:`flash_attention` on ``(B, S, H, D)`` with GQA (``Hq = g * Hkv``,
+  q head ``h`` reads KV head ``h // g``), as the reference wrapper, but
+  without its transposes and KV-head repeats: the kernel takes the
+  ``(B, S, H, D)`` strides and maps the heads itself.
+
+Both compute what ``_flash_kernel`` computes: scores ``(q . k) * scale`` in
+float32 with ``scale = 1/sqrt(D)``, a causal mask from positions (query
+``i`` sees keys ``j <= i``), an online softmax with float32 running max,
+sum and accumulator, ``p`` rounded to v's dtype before ``p . V``, the
+``NEG_INF = -1e30`` guards that keep fully masked rows at zero, and the
+output ``acc / max(l, 1e-30)`` cast once to q's dtype. ``block_q`` and
+``block_k`` keep the reference's divisibility checks and set the plain
+version's tiles; the CUDA kernel runs its compiled 64 x 64 tiles
+(``TILE_Q``, ``TILE_K``) and masks a ragged tail itself. Both skip KV
+tiles wholly above the causal diagonal, which is exact: every query row
+sees key 0 in the first tile, so its running max is finite and a fully
+masked tile adds exactly zero.
+
+Bound at TinyLlama's prefill shape (B=2, S=4096, Hq=32, Hkv=4, D=64,
+bf16, causal): operations, 1.37e11 for the causal half of the two
+products against 75 MB of q, k, v and o. Design (note at the top of
+``csrc/flash_attention.cu``): one CTA per (batch * head, 64-row q tile)
+loops over the KV tiles in shared memory and runs both products as float32
+FMA on the CUDA cores, far from the tensor-core bound.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+TILE_Q = TILE_K = 64            # the CUDA kernel's compiled tiles
+HEAD_DIMS = (32, 64, 128)       # the CUDA kernel's template instances
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the C entry's dtype codes
+NEG_INF = -1e30
+
+
+def flash_attention_plain(q, k, v, causal: bool = True, block_q: int = 128,
+                          block_k: int = 128) -> torch.Tensor:
+    """Plain PyTorch version on ``(B, S, H, D)`` with GQA: the same online
+    softmax over ``block_q`` x ``block_k`` tiles with the same float32 state
+    and the same rounding of ``p``."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale = 1.0 / (d ** 0.5)
+    qg = q.reshape(b, sq, hkv, hq // hkv, d).float()
+    kf, vf = k.float(), v.float()
+    out = torch.empty((b, hkv, hq // hkv, sq, d), dtype=torch.float32,
+                      device=q.device)
+    for q0 in range(0, sq, block_q):
+        q1 = min(q0 + block_q, sq)
+        stat = (b, hkv, hq // hkv, q1 - q0)
+        m = torch.full(stat, NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros(stat, dtype=torch.float32, device=q.device)
+        acc = torch.zeros(stat + (d,), dtype=torch.float32, device=q.device)
+        # a tile wholly above the diagonal adds exactly zero: skip it
+        k_end = min(sk, q1) if causal else sk
+        for k0 in range(0, k_end, block_k):
+            k1 = min(k0 + block_k, sk)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qg[:, q0:q1],
+                             kf[:, k0:k1]) * scale
+            if causal:
+                qpos = torch.arange(q0, q1, device=q.device)
+                kpos = torch.arange(k0, k1, device=q.device)
+                s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            # rows still fully masked keep m = NEG_INF; zero their share
+            p = torch.where(m_new[..., None] > NEG_INF / 2, p, 0.0)
+            alpha = torch.where(m > NEG_INF / 2, torch.exp(m - m_new), 0.0)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), vf[:, k0:k1])
+            m = m_new
+        out[..., q0:q1, :] = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+
+
+def _check(q, k, v, block_q: int, block_k: int) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k, v must be (B, S, H, D)")
+    b, sq, hq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(
+            f"flash_attention: k {tuple(k.shape)} and v {tuple(v.shape)} "
+            f"must be (B, Sk, Hkv, D) with q's B and D {tuple(q.shape)}")
+    hkv = k.shape[2]
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"flash_attention: Hq={hq} is not a multiple of "
+                         f"Hkv={hkv}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention: q, k, v must all be float32 or "
+                        f"all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k, v must be on one device")
+    if block_q <= 0 or block_k <= 0 or sq % block_q or k.shape[1] % block_k:
+        raise ValueError(f"flash_attention: Sq={sq}, Sk={k.shape[1]} must be "
+                         f"multiples of block_q={block_q}, "
+                         f"block_k={block_k}")
+
+
+def check_kernel_operands(q, k, v) -> None:
+    """What the CUDA kernel takes beyond :func:`_check`: a compiled head
+    dim, unit stride along D, and at most 65535 q tiles."""
+    d = q.shape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: the CUDA kernel is compiled for "
+                         f"D in {HEAD_DIMS}, not D={d}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention: {name} must have unit "
+                             "stride along D")
+    if -(-q.shape[1] // TILE_Q) > 65535:
+        raise ValueError("flash_attention: Sq too long for the kernel grid")
+
+
+def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """(B, Sq, Hq, D) attention of q over k, v (B, Sk, Hkv, D), GQA."""
+    _check(q, k, v, block_q, block_k)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, block_q, block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    check_kernel_operands(q, k, v)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    launch(q, k, v, o, causal)
+    return o
+
+
+def flash_attention_kernel(q, k, v, causal: bool = True, block_q: int = 128,
+                           block_k: int = 128) -> torch.Tensor:
+    """(BH, Sq, D) attention of q over k, v (BH, Sk, D), the TPU kernel's
+    layout: each BH row is one head."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("flash_attention_kernel: q, k, v must be (BH, S, D)")
+    out = flash_attention(q[:, :, None], k[:, :, None], v[:, :, None],
+                          causal, block_q, block_k)
+    return out[:, :, 0]
+
+
+def launch(q, k, v, o, causal: bool) -> None:
+    """Launch the kernel on checked (B, S, H, D) operands (counts one
+    launch)."""
+    fn = _build.entry("flash_attention_fwd")
+    b, sq, hq, d = q.shape
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        DTYPES[q.dtype], d, b, sq, k.shape[1], hq, k.shape[2],
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        int(causal), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    flash_attention.launches += 1
+    _build.check("flash_attention_fwd", err)
+
+
+flash_attention.launches = 0
