@@ -9,7 +9,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
 
 1. Print the card (``nvidia-smi`` name and power limit) and build the CUDA
    kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (sm_90a),
-   one ``nvcc`` per source, all at once.
+   one ``nvcc`` per source, all at once. Read ptxas's report of the bf16
+   flash kernel (``flash_fwd_wgmma_kernel<D>``, D in 32, 64, 128): log
+   its registers and spills, and fail if it spills or if ptxas says
+   "wgmma.mma_async instructions are serialized".
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes its main path gives it. The trainer's kernels at the first
    mini-batch of the default ``reddit`` trace: block-SpMM for layer 0,
@@ -19,14 +22,19 @@ Phases, each of which ends the run with a non-zero exit on failure:
    gather bit-equal to ``table[idx]``, and weighted bags with empty bags
    (atol 1e-5). Flash attention: the reference's test matrix and ragged
    lengths in float32 (atol 2e-5, rtol 1e-4, against the plain version and
-   the dense oracle), GQA over strided heads, and TinyLlama's prefill shape
-   (B=2, S=4096, Hq=32, Hkv=4, D=64, causal): in float32 against the plain
-   version and the dense oracle (atol 2e-5, rtol 1e-4); in bf16 against the
-   plain version (atol 1e-3, rtol 1e-2: both round p the same way and cast
-   the output once, so they differ by about one bf16 ulp) and against the
-   float32 oracle (atol 4e-2, rtol 2e-2: p and the output rounded to bf16);
-   two bf16 launches bit-identical. The plain version runs the kernel's
-   own 64 x 64 tiles, so both round p at the same running max.
+   the dense oracle), GQA over strided heads; then the bf16 tensor-core
+   kernel over a matrix: D in {32, 64, 128}, causal and not, ragged S
+   (100, 200, 4000), Sk > Sq, GQA over strided head views, each against
+   the plain version (atol 1e-3, rtol 1e-2: both round p the same way and
+   cast the output once, so they differ by about one bf16 ulp) and the
+   float32 oracle (atol 4e-2, rtol 2e-2: p and the output rounded to
+   bf16), with its per-row relative L2 errors logged. Then TinyLlama's
+   prefill shape (B=2, S=4096, Hq=32, Hkv=4, D=64, causal): in float32
+   against the plain version and the dense oracle (atol 2e-5, rtol 1e-4);
+   in bf16 against the plain version and the float32 oracle at the same
+   tolerances as the matrix; two bf16 launches bit-identical. The plain
+   version runs the bf16 kernel's own ``TILE_Q`` x ``TILE_K`` tiles, so
+   both round p at the same running max.
 3. Run the trainer's main path, ``repro_torch.train.gnn_trainer.run``: the
    GreenDyGNN trainer with measured compute and the device payload tier,
    batch 2000, 3 epochs (2 of warmup) of 8 steps, a seeded untrained qnet.
@@ -47,10 +55,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
    and the S=4096 prefill against the same model through the dense
    attention path: finite, the same argmax in every row, max |diff| under
    ``TOL_LOGITS``. Then ``torch.profiler`` splits one prefill's device time
-   between the flash kernel, the matrix products and the rest, and a
-   window of decode steps into device kernels per step, device busy time
-   against the unprofiled host wall, and the host ops that take the most
-   CPU time.
+   between the flash kernel, the matrix products and the rest (and fails
+   unless every flash launch in it is ``flash_fwd_wgmma_kernel``, 22 of
+   them), and a window of decode steps into device kernels per step,
+   device busy time against the unprofiled host wall, and the host ops
+   that take the most CPU time.
 5. Time each kernel, its plain version and the equivalent library call
    with CUDA events (median of 25 launches, L2 flushed before each),
    beside the least time the card could take, and print one
@@ -164,7 +173,59 @@ def phase_card_and_build(torch):
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  ptxas[{stem}]: {line.strip()}")
+    check_wgmma_build(_build.build_log("flash_attention") or "")
     return smi
+
+
+def ptxas_functions(text: str) -> dict:
+    """{function: {"registers": n, "spill_stores": n, "spill_loads": n}}
+    from nvcc's ``-Xptxas -v`` report."""
+    import re
+
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        hit = (re.search(r"Compiling entry function '([^']+)'", line)
+               or re.search(r"Function properties for (\S+)", line))
+        if hit:
+            cur = funcs.setdefault(hit.group(1), {})
+            continue
+        if cur is None:
+            continue
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        line)
+        if hit:
+            cur["spill_stores"], cur["spill_loads"] = map(int, hit.groups())
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit:
+            cur["registers"] = int(hit.group(1))
+    return funcs
+
+
+def check_wgmma_build(text: str) -> None:
+    """The bf16 flash kernel's ptxas report: one instance per head dim, no
+    spills, and no wgmma that ptxas had to serialize (which it reports
+    when it cannot keep the asynchronous products in flight)."""
+    import re
+
+    serialized = [ln.strip() for ln in text.splitlines()
+                  if "wgmma.mma_async instructions are serialized" in ln]
+    for ln in serialized:
+        log(f"  ptxas[flash_attention] {ln}")
+    require(not serialized, "ptxas serialized the flash kernel's wgmma")
+    found = {}
+    for name, info in ptxas_functions(text).items():
+        if "flash_fwd_wgmma_kernel" in name:
+            d = int(re.search(r"ILi(\d+)E", name).group(1))
+            found[d] = info
+    require(sorted(found) == [32, 64, 128],
+            f"ptxas report lists wgmma flash instances for D={sorted(found)}"
+            ", not 32, 64 and 128 (is the build log missing?)")
+    for d, info in sorted(found.items()):
+        log(f"  ptxas[flash_attention] flash_fwd_wgmma_kernel<{d}>: "
+            f"{info.get('registers')} registers, {info.get('spill_stores')} "
+            f"bytes spill stores, {info.get('spill_loads')} bytes spill loads")
+        require(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
+                f"flash_fwd_wgmma_kernel<{d}> spills")
 
 
 # ------------------------------------------------------------- phase 2
@@ -293,7 +354,9 @@ def phase_flash_vs_plain(torch, device):
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_kernel, flash_attention_plain,
     )
-    from repro_torch.kernels.flash_attention.ops import TILE_K, TILE_Q
+    from repro_torch.kernels.flash_attention.ops import (
+        HEAD_DIMS, TILE_K, TILE_Q,
+    )
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models.lm.attention import dense_attention
 
@@ -308,7 +371,7 @@ def phase_flash_vs_plain(torch, device):
 
     err = 0.0
     # tests/test_kernels.py's matrix, its block sweep's shape, and ragged
-    # lengths the kernel's 64-row tiles do not divide (block = S)
+    # lengths the float32 kernel's 64-row tiles do not divide (block = S)
     for s, d, causal, blk in [(128, 64, True, 64), (256, 64, True, 64),
                               (128, 128, False, 64), (512, 32, True, 64),
                               (256, 32, True, 32), (100, 64, True, 100),
@@ -343,6 +406,56 @@ def phase_flash_vs_plain(torch, device):
     log(f"flash GQA (2,128,8,32)/(2,128,2,32), strided heads: "
         f"max|kernel-plain|={e:.3e} max|kernel-dense|={diff(got, dense):.3e}")
 
+    def row_rel(a, b_):  # largest per-row relative L2 error
+        a, b_ = a.float(), b_.float()
+        return float(((a - b_).norm(dim=-1)
+                      / b_.norm(dim=-1).clamp_min(1e-30)).max())
+
+    # bf16, the tensor-core kernel: every compiled D, causal or not, ragged
+    # S (100 and 200 below one q tile, 4000 not a multiple of TILE_Q),
+    # Sk > Sq, and GQA over strided head views. Against the plain version
+    # at the kernel's own tiles (p is rounded after the running max, which
+    # depends on the tiling) and the float32 oracle on the same bf16
+    # inputs (dense attention computed in float32).
+    bf = torch.bfloat16
+    cases = []
+    for d in HEAD_DIMS:
+        for causal in (True, False):
+            for s in (100, 200, 4000):
+                q, k, v = (randn(1, s, 4, d, dtype=bf),
+                           randn(1, s, 2, d, dtype=bf),
+                           randn(1, s, 2, d, dtype=bf))
+                cases.append((f"d={d} causal={causal} s={s}", q, k, v, causal))
+    for d in (64, 128):
+        for causal in (True, False):
+            q, k, v = (randn(2, 200, 4, d, dtype=bf),
+                       randn(2, 456, 1, d, dtype=bf),
+                       randn(2, 456, 1, d, dtype=bf))
+            cases.append((f"d={d} causal={causal} sq=200 sk=456", q, k, v,
+                          causal))
+    qb, kvb = randn(2, 300, 16, 64, dtype=bf), randn(2, 300, 4, 64,
+                                                     dtype=bf)
+    cases.append(("GQA strided heads q (2,300,8|16,64) kv (2,300,2|4,64)",
+                  qb[:, :, 4:12], kvb[:, :, :2], kvb[:, :, 2:], True))
+    for label, q, k, v, causal in cases:
+        got = flash_attention(q, k, v, causal, q.shape[1], k.shape[1])
+        want = flash_attention_plain(q, k, v, causal, TILE_Q, TILE_K)
+        oracle = dense_attention(q.float(), k.float(), v.float(),
+                                 causal=causal)
+        e, e_or = diff(got, want), diff(got, oracle)
+        rel, rel_or = row_rel(got, want), row_rel(got, oracle)
+        err = max(err, e)
+        log(f"flash bf16 {label}: max|kernel-plain|={e:.3e} (row rel L2 "
+            f"{rel:.3e}), max|kernel-f32 oracle|={e_or:.3e} (row rel L2 "
+            f"{rel_or:.3e})")
+        require(bool(torch.isfinite(got).all()),
+                f"flash bf16 {label}: not finite")
+        require(torch.allclose(got.float(), want.float(), **TOL_BF16_PLAIN),
+                f"flash bf16 {label}: kernel vs plain {e:.3e}")
+        require(torch.allclose(got.float(), oracle, **TOL_BF16),
+                f"flash bf16 {label}: kernel vs f32 oracle {e_or:.3e}")
+    del cases, qb, kvb
+
     # TinyLlama's prefill shape, the blocks the model path passes: float32
     # (the long tile loop, the causal skip at large q0 and GQA, held
     # tightly), then bf16 (the instance the model runs)
@@ -355,11 +468,6 @@ def phase_flash_vs_plain(torch, device):
     def oracle_of(q, k, v):
         o = attention_ref(heads(q), heads(k), heads(v), True)
         return o.reshape(b, hq, s, d).permute(0, 2, 1, 3)
-
-    def row_rel(a, b_):  # largest per-row relative L2 error
-        a, b_ = a.float(), b_.float()
-        return float(((a - b_).norm(dim=-1)
-                      / b_.norm(dim=-1).clamp_min(1e-30)).max())
 
     q, k, v = randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
     got = flash_attention(q, k, v, True, 128, 1024)
@@ -376,7 +484,6 @@ def phase_flash_vs_plain(torch, device):
         f"max|kernel-plain|={e:.3e} max|kernel-oracle|={e_or:.3e}")
     del q, k, v, got, want, oracle
 
-    bf = torch.bfloat16
     q, k, v = (randn(b, s, hq, d, dtype=bf), randn(b, s, hkv, d, dtype=bf),
                randn(b, s, hkv, d, dtype=bf))
     got = flash_attention(q, k, v, True, 128, 1024)
@@ -756,14 +863,15 @@ def phase_profile_prefill(torch, cfg, params, tokens):
         tf.prefill(params, cfg, tokens)
         torch.cuda.synchronize()
     by_name = device_time_by_name(prof)
-    if not by_name:
-        log("profile prefill: the profiler reported no device time")
-        return
+    require(bool(by_name), "profile prefill: no device time reported")
     groups = {"flash kernel": 0.0, "matrix products": 0.0, "rest": 0.0}
-    for name, (us, _) in by_name.items():
+    n_wgmma = n_flash = 0
+    for name, (us, cnt) in by_name.items():
         low = name.lower()
-        if "flash_fwd_kernel" in low:
+        if "flash_fwd" in low:
             groups["flash kernel"] += us / 1e3
+            n_flash += cnt
+            n_wgmma += cnt if "flash_fwd_wgmma" in low else 0
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "sm90_",
                                     "cutlass", "xmma", "cublas")):
             groups["matrix products"] += us / 1e3
@@ -778,6 +886,10 @@ def phase_profile_prefill(torch, cfg, params, tokens):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (us, cnt) in top:
         log(f"  device {us / 1e3:9.3f} ms x{cnt:4d}  {name[:90]}")
+    # every bf16 flash launch runs the tensor-core kernel, once per layer
+    require(n_wgmma == cfg.n_layers and n_flash == n_wgmma,
+            f"profile prefill: {n_wgmma} flash_fwd_wgmma launches of "
+            f"{n_flash} flash launches, not {cfg.n_layers}")
 
 
 # ------------------------------------------------------------- phase 5

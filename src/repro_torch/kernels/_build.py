@@ -96,10 +96,20 @@ def build_all() -> dict[str, float]:
             os.unlink(tmp)
             failed.append(f"{stem}.cu:\n{log}")
         else:
+            _lib_path(stem).with_suffix(".log").write_text(log)
             os.replace(tmp, _lib_path(stem))
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return secs
+
+
+def build_log(stem: str) -> str | None:
+    """nvcc's output (the ptxas -v report) for the library ``stem`` now
+    resolves to, kept beside it; None if it has not been built."""
+    if stem in build_logs:
+        return build_logs[stem]
+    path = _lib_path(stem).with_suffix(".log")
+    return path.read_text() if path.exists() else None
 
 
 def entry(name: str):

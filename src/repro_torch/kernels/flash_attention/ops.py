@@ -19,18 +19,28 @@ sum and accumulator, ``p`` rounded to v's dtype before ``p . V``, the
 ``NEG_INF = -1e30`` guards that keep fully masked rows at zero, and the
 output ``acc / max(l, 1e-30)`` cast once to q's dtype. ``block_q`` and
 ``block_k`` keep the reference's divisibility checks and set the plain
-version's tiles; the CUDA kernel runs its compiled 64 x 64 tiles
-(``TILE_Q``, ``TILE_K``) and masks a ragged tail itself. Both skip KV
-tiles wholly above the causal diagonal, which is exact: every query row
-sees key 0 in the first tile, so its running max is finite and a fully
-masked tile adds exactly zero.
+version's tiles; the CUDA kernel runs its compiled tiles and masks a
+ragged tail itself. Both skip KV tiles wholly above the causal diagonal,
+which is exact: every query row sees key 0 in the first tile, so its
+running max is finite and a fully masked tile adds exactly zero.
+
+The C entry chooses its kernel by dtype, explicitly and not as a
+fallback: bf16 runs the tensor-core kernel (``TILE_Q`` x ``TILE_K`` =
+128 x 64 tiles, two warpgroups of 64 q rows, ``wgmma`` for both
+products, p kept in registers, K/V tiles by ``cp.async`` into a
+two-stage ring); float32 runs the SIMT kernel (``F32_TILE`` = 64-row
+and 64-key tiles, FMA on the CUDA cores), because the tensor cores take
+float32 only as TF32, which cannot meet the float32 tolerance. Both
+count in ``flash_attention.launches``. Since bf16 ``p`` is rounded after
+subtracting the running max, which depends on the tiling, the plain
+version agrees with the bf16 kernel to one bf16 ulp only at the
+kernel's own tiles.
 
 Bound at TinyLlama's prefill shape (B=2, S=4096, Hq=32, Hkv=4, D=64,
 bf16, causal): operations, 1.37e11 for the causal half of the two
-products against 75 MB of q, k, v and o. Design (note at the top of
-``csrc/flash_attention.cu``): one CTA per (batch * head, 64-row q tile)
-loops over the KV tiles in shared memory and runs both products as float32
-FMA on the CUDA cores, far from the tensor-core bound.
+products against 75 MB of q, k, v and o: 0.139 ms at the bf16
+tensor-core peak. Design: the note at the top of
+``csrc/flash_attention.cu``.
 """
 from __future__ import annotations
 
@@ -38,7 +48,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-TILE_Q = TILE_K = 64            # the CUDA kernel's compiled tiles
+TILE_Q, TILE_K = 128, 64       # the bf16 (tensor-core) kernel's tiles
+F32_TILE = 64                   # the float32 (SIMT) kernel's tiles
 HEAD_DIMS = (32, 64, 128)       # the CUDA kernel's template instances
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the C entry's dtype codes
 NEG_INF = -1e30
@@ -109,8 +120,11 @@ def _check(q, k, v, block_q: int, block_k: int) -> None:
 
 
 def check_kernel_operands(q, k, v) -> None:
-    """What the CUDA kernel takes beyond :func:`_check`: a compiled head
-    dim, unit stride along D, and at most 65535 q tiles."""
+    """What the CUDA kernels take beyond :func:`_check`: a compiled head
+    dim, unit stride along D, at most 65535 q tiles, and for bf16 (16-byte
+    ``cp.async`` copies) 16-byte aligned ``data_ptr`` and (b, s, h)
+    strides. Plain checks on the operands' metadata: the wrapper calls
+    them for CUDA tensors only."""
     d = q.shape[-1]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: the CUDA kernel is compiled for "
@@ -119,13 +133,30 @@ def check_kernel_operands(q, k, v) -> None:
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name} must have unit "
                              "stride along D")
-    if -(-q.shape[1] // TILE_Q) > 65535:
+    tile_q = TILE_Q if q.dtype == torch.bfloat16 else F32_TILE
+    if -(-q.shape[1] // tile_q) > 65535:
         raise ValueError("flash_attention: Sq too long for the kernel grid")
+    if q.dtype != torch.bfloat16:
+        return
+    per_16 = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: bf16 {name} must start on a "
+                             "16-byte boundary")
+        if any(st % per_16 for st in t.stride()[:3]):
+            raise ValueError(f"flash_attention: bf16 {name}'s (b, s, h) "
+                             f"strides {t.stride()[:3]} must be multiples "
+                             f"of {per_16} elements (16 bytes)")
 
 
 def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
-    """(B, Sq, Hq, D) attention of q over k, v (B, Sk, Hkv, D), GQA."""
+    """(B, Sq, Hq, D) attention of q over k, v (B, Sk, Hkv, D), GQA.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    that the dtype selects (bf16: the ``wgmma`` kernel at ``TILE_Q`` x
+    ``TILE_K``; float32: the SIMT kernel) or raise. The choice is by
+    dtype, never a fallback."""
     _check(q, k, v, block_q, block_k)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, block_q, block_k)

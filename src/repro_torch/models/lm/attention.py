@@ -62,7 +62,7 @@ def blockwise_attention(q, k, v, causal: bool = True, block_k: int = 1024):
     sq, sk = q.shape[1], k.shape[1]
     assert sk % block_k == 0, (sk, block_k)
     # the plain version's q tile (the reference scans all of q at once;
-    # the CUDA kernel runs its own 64-row tiles)
+    # the CUDA kernel runs its own tiles)
     block_q = 128 if sq % 128 == 0 else sq
     return flash_attention(q, k, v, causal=causal, block_q=block_q,
                            block_k=block_k)

@@ -82,7 +82,10 @@ def test_matches_reference_kernel(s, d, causal):
                                _f32(oracle), **F32)
 
 
-@pytest.mark.parametrize("block_q,block_k", [(32, 32), (64, 128), (128, 64)])
+@pytest.mark.parametrize("block_q,block_k", [
+    (32, 32), (64, 128), (128, 64),
+    pytest.param(ops.TILE_Q, ops.TILE_K, id="bf16-kernel-tiles"),
+])
 def test_block_shape_sweep(block_q, block_k):
     q, k, v = _qkv(7, (2, 256, 32))
     got = flash_attention_kernel(*_t(q, k, v), causal=True,
@@ -103,6 +106,24 @@ def test_bf16():
                       block_q=64, block_k=64, interpret=True)
     np.testing.assert_allclose(_f32(got), _f32(want), **BF16)
     # against the float32 oracle on the same bf16-rounded inputs
+    qb, kb, vb = (np.asarray(x, np.float32)
+                  for x in _j(q, k, v, dtype=jnp.bfloat16))
+    oracle = ref_oracle(*_j(qb, kb, vb), causal=True)
+    np.testing.assert_allclose(_f32(got), _f32(oracle), **BF16)
+
+
+def test_bf16_at_the_kernel_tiles():
+    """The plain version at the bf16 CUDA kernel's own tiles (the tiles
+    at which the card holds the kernel against it) against the Pallas
+    kernel at the same tiles: both round p after the same running max."""
+    q, k, v = _qkv(29, (2, 256, 64))
+    bq, bk = ops.TILE_Q, ops.TILE_K
+    got = flash_attention_kernel(*_t(q, k, v, dtype=torch.bfloat16),
+                                 causal=True, block_q=bq, block_k=bk)
+    assert got.dtype == torch.bfloat16
+    want = ref_kernel(*_j(q, k, v, dtype=jnp.bfloat16), causal=True,
+                      block_q=bq, block_k=bk, interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), **BF16)
     qb, kb, vb = (np.asarray(x, np.float32)
                   for x in _j(q, k, v, dtype=jnp.bfloat16))
     oracle = ref_oracle(*_j(qb, kb, vb), causal=True)
@@ -180,3 +201,24 @@ def test_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError, match="unit stride"):
         ops.check_kernel_operands(strided, k, v)
     ops.check_kernel_operands(q, k, v)
+    # bf16 (16-byte cp.async copies): 16-byte aligned data_ptr and (b, s,
+    # h) strides; float32 takes any of them
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    ops.check_kernel_operands(qb, kb, vb)
+    ops.check_kernel_operands(qb[:, :, 1:3], kb[:, :, 1:], vb)  # 64 B apart
+    padded = torch.zeros(1, 64, 4, 36, dtype=torch.bfloat16)[..., :32]
+    with pytest.raises(ValueError, match="strides"):    # s, h: 144, 36
+        ops.check_kernel_operands(padded, kb, vb)
+    odd_b = torch.zeros(2 * 4100, dtype=torch.bfloat16).as_strided(
+        (2, 64, 2, 32), (4100, 64, 32, 1))              # b stride 4100
+    with pytest.raises(ValueError, match="strides"):
+        ops.check_kernel_operands(qb, odd_b, vb)
+    flat = torch.zeros(64 * 4 * 32 + 4, dtype=torch.bfloat16)
+    shifted = flat[4:].view(1, 64, 4, 32)                # 8 bytes off
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ops.check_kernel_operands(shifted, kb, vb)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ops.check_kernel_operands(qb, kb, flat[4:4 + 64 * 2 * 32].view(
+            1, 64, 2, 32))
+    ops.check_kernel_operands(padded.float(), k, v)     # float32: no rule
+    ops.check_kernel_operands(shifted.float(), k, v)
