@@ -12,13 +12,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
    one ``nvcc`` per source, all at once. Read ptxas's report of the bf16
    flash kernel (``flash_fwd_wgmma_kernel<D>``, D in 32, 64, 128): log
    its registers and spills, and fail if it spills or if ptxas says
-   "wgmma.mma_async instructions are serialized".
+   "wgmma.mma_async instructions are serialized". Likewise fail if an
+   instance of the CSR SpMM (``csr_spmm_kernel<G>``) spills.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes its main path gives it. The trainer's kernels at the first
-   mini-batch of the default ``reddit`` trace: block-SpMM for layer 0,
-   layer 1 and layer 1's transposed format (atol 1e-4, rtol 1e-5: fp32
-   summed in another order; two launches bit-identical), its autograd
-   backward against plain autograd (same tolerance), the EmbeddingBag
+   mini-batch of the default ``reddit`` trace: the CSR SpMM for layer 0,
+   layer 1 and layer 1's transposed CSR (atol 1e-4, rtol 1e-5: fp32
+   summed in another order; two launches bit-identical), each also
+   ``torch.equal`` to the dense-block kernel (``block_spmm``, the first
+   port, kept off the path as the witness) on the same adjacency, built
+   by ``to_block_sparse`` at the same buckets (both sum the same FFMAs in
+   ascending column order); ``Spmm``'s backward against plain autograd
+   (same tolerance), the EmbeddingBag
    gather bit-equal to ``table[idx]``, and weighted bags with empty bags
    (atol 1e-5). Flash attention: the reference's test matrix and ragged
    lengths in float32 (atol 2e-5, rtol 1e-4, against the plain version and
@@ -39,13 +44,15 @@ Phases, each of which ends the run with a non-zero exit on failure:
    GreenDyGNN trainer with measured compute and the device payload tier,
    batch 2000, 3 epochs (2 of warmup) of 8 steps, a seeded untrained qnet.
    Every launch count is zeroed just before and read just after; the run
-   must have launched both of its kernels, passed the block-path/scatter
-   parity check (< 2e-3), given finite losses and let the controller
-   decide after warmup. A short static-window run on the card is then
+   must have launched both of its kernels (the CSR SpMM 3 times a step
+   and twice in the parity check; the dense-block kernel never), passed
+   the CSR-path/scatter parity check (< 2e-3), given finite losses and
+   let the controller decide after warmup. A short static-window run on the card is then
    compared with the same run on the CPU through the plain versions
    (discrete streams equal, losses rtol 1e-4). Then ``torch.profiler``
    splits steady trainer steps into device time by kernel against the host
-   clock.
+   clock, and fails unless the steps' kernels include
+   ``csr_spmm_kernel`` and no ``block_spmm_kernel``.
 4. Run the LM serving path at full width: ``tinyllama-1.1b`` (22 layers,
    d_model 2048, bf16, seeded random weights). Counts zeroed, then
    ``repro_torch.launch.serve.run`` (batch 4, prompt 8, generation 16;
@@ -61,9 +68,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
    device busy time against the unprofiled host wall, and the host ops
    that take the most CPU time.
 5. Time each kernel, its plain version and the equivalent library call
-   with CUDA events (median of 25 launches, L2 flushed before each),
-   beside the least time the card could take, and print one
-   ``{"kernels": ...}`` line. TF32 is off throughout: float32 results are
+   with CUDA events (median of 25 launches, L2 flushed before each and
+   each queued behind a spin kernel so the host's enqueue time is not
+   counted), beside the least time the card could take, and print one
+   ``{"kernels": ...}`` line. The SpMM row also carries the dense-block
+   kernel's time on the same adjacency (``dense_ms``). TF32 is off throughout: float32 results are
    compared in full float32.
 6. The last line is ``{"ok": true, "device": {...}}``.
 
@@ -98,6 +107,9 @@ TOL_BF16_PLAIN = dict(atol=1e-3, rtol=1e-2)  # bf16 kernel vs bf16 plain
 TOL_LOGITS = 0.25
 PREFILL_B, PREFILL_S = 2, 4096          # TinyLlama's prefill shape here
 REPEATS = 25
+# a spin of about 0.5 ms on the device before each timed call, long enough
+# for the host to enqueue the events and the call behind it
+SPIN_CYCLES = 1_000_000
 SEED = 0
 
 MAIN_PATH = dict(
@@ -122,7 +134,12 @@ def log(msg: str) -> None:
 
 # ----------------------------------------------------------------- timing
 class Timer:
-    """Median CUDA-event time of a callable, L2 flushed before each run."""
+    """Median CUDA-event time of a callable, L2 flushed before each run.
+
+    Each run is queued behind a spin kernel, so the device reaches the
+    start event only after the host has enqueued the call and the end
+    event: the events time the device's work, not the host's enqueue
+    (which for a kernel of a few microseconds is the larger)."""
 
     def __init__(self, torch, device):
         self.torch = torch
@@ -136,6 +153,7 @@ class Timer:
         samples = []
         for _ in range(repeats):
             self.flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -174,6 +192,7 @@ def phase_card_and_build(torch):
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  ptxas[{stem}]: {line.strip()}")
     check_wgmma_build(_build.build_log("flash_attention") or "")
+    check_csr_build(_build.build_log("csr_spmm") or "")
     return smi
 
 
@@ -228,9 +247,37 @@ def check_wgmma_build(text: str) -> None:
                 f"flash_fwd_wgmma_kernel<{d}> spills")
 
 
+def check_csr_build(text: str) -> None:
+    """The CSR SpMM's ptxas report: one instance per group width G (F / 4
+    rounded up to a power of two, F <= 128), none spilling its batch
+    registers."""
+    import re
+
+    found = {}
+    for name, info in ptxas_functions(text).items():
+        hit = re.search(r"csr_spmm_kernelILi(\d+)E", name)
+        if hit:
+            found[int(hit.group(1))] = info
+    require(sorted(found) == [1, 2, 4, 8, 16, 32],
+            f"ptxas report lists csr_spmm_kernel instances for G="
+            f"{sorted(found)}, not 1 to 32 (is the build log missing?)")
+    for g, info in sorted(found.items()):
+        log(f"  ptxas[csr_spmm] csr_spmm_kernel<{g}>: "
+            f"{info.get('registers')} registers, {info.get('spill_stores')} "
+            f"bytes spill stores, {info.get('spill_loads')} bytes spill loads")
+        require(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
+                f"csr_spmm_kernel<{g}> spills")
+
+
 # ------------------------------------------------------------- phase 2
 def main_path_operands(torch, device):
-    """The kernels' operands as the main path's first step builds them."""
+    """The kernels' operands as the main path's first step builds them,
+    and the same adjacencies as dense blocks for the witness kernel."""
+    import numpy as np
+
+    from repro_torch.kernels.segment_mm import (
+        BlockFormat, to_block_sparse, transpose_block_sparse,
+    )
     from repro_torch.store import MemoryBudget
     from repro_torch.train import compute, gnn_trainer as gt
 
@@ -242,26 +289,39 @@ def main_path_operands(torch, device):
     eng = compute.ComputeEngine(graph, cfg)
     mb = mbs[0][0]
     layers, x_rows, n_edges = eng.prepare(mb)
+    dense = []
+    for blk, layer in zip(mb.blocks, layers):
+        fwd = layer["fwd"]
+        rows, cols, blocks, ndb, n_src_pad = to_block_sparse(
+            blk.edge_src, blk.edge_dst, fwd.n_rows, fwd.n_cols, 128, 128,
+            blk.edge_mask.astype(np.float32))
+        require((ndb * 128, n_src_pad) == (fwd.n_rows, fwd.n_cols),
+                "dense witness: blocks do not match the CSR's buckets")
+        dense.append(BlockFormat.from_numpy(rows, cols, blocks, ndb, device))
+        if layer["bwd"] is not None:
+            dense.append(BlockFormat.from_numpy(*transpose_block_sparse(
+                rows, cols, blocks, n_src_pad // 128), device))
     gen = torch.Generator().manual_seed(SEED)
     x0 = eng.pad_input(graph.features[mb.input_nodes], x_rows)
-    h1 = torch.randn((layers[0]["fwd"].n_dst_blocks * 128, 16),
-                     generator=gen).to(device)
-    dy1 = torch.randn((layers[1]["fwd"].n_dst_blocks * 128, 16),
-                      generator=gen).to(device)
+    h1 = torch.randn((layers[0]["fwd"].n_rows, 16), generator=gen).to(device)
+    dy1 = torch.randn((layers[1]["fwd"].n_rows, 16), generator=gen).to(device)
     n_feat = graph.features.shape[1]
     capacity = int(cfg.cache_frac * graph.n_nodes)
     remote = int((_owner[mb.input_nodes] != 0).sum())
-    return dict(layers=layers, x0=x0, h1=h1, dy1=dy1, n_edges=n_edges,
-                n_feat=n_feat, capacity=capacity, n_remote=remote)
+    return dict(layers=layers, dense=dense, x0=x0, h1=h1, dy1=dy1,
+                n_edges=n_edges, n_feat=n_feat, capacity=capacity,
+                n_remote=remote)
 
 
 def spmm_cases(ops):
-    """(label, format, x) for the three block-SpMM calls of one step."""
+    """(label, CSR format, dense witness format, x) for the three SpMM
+    calls of one step."""
     layers, x0, h1, dy1 = ops["layers"], ops["x0"], ops["h1"], ops["dy1"]
+    d0, d1, d1t = ops["dense"]
     return [
-        ("layer0", layers[0]["fwd"], x0),
-        ("layer1", layers[1]["fwd"], h1),
-        ("layer1^T", layers[1]["bwd"], dy1),
+        ("layer0", layers[0]["fwd"], d0, x0),
+        ("layer1", layers[1]["fwd"], d1, h1),
+        ("layer1^T", layers[1]["bwd"], d1t, dy1),
     ]
 
 
@@ -270,40 +330,48 @@ def phase_kernels_vs_plain(torch, device, ops):
         embedding_bag, embedding_bag_plain,
     )
     from repro_torch.kernels.segment_mm import (
-        BlockSpmm, block_spmm, block_spmm_plain,
+        Spmm, block_spmm, csr_spmm, csr_spmm_plain,
     )
 
-    errs = {"block_spmm": 0.0, "embedding_bag": 0.0}
-    for label, fmt, x in spmm_cases(ops):
-        args = (fmt.rows, fmt.cols, fmt.blocks, x, fmt.n_dst_blocks)
-        got = block_spmm(*args)
-        again = block_spmm(*args)
+    errs = {"csr_spmm": 0.0, "embedding_bag": 0.0}
+    for label, fmt, dense, x in spmm_cases(ops):
+        got = csr_spmm(fmt, x)
+        again = csr_spmm(fmt, x)
+        witness = block_spmm(dense.rows, dense.cols, dense.blocks, x,
+                             dense.n_dst_blocks)
         torch.cuda.synchronize()
-        want = block_spmm_plain(*args)
+        want = csr_spmm_plain(fmt.rowptr, fmt.col, fmt.val, x)
         err = float((got - want).abs().max())
-        errs["block_spmm"] = max(errs["block_spmm"], err)
+        errs["csr_spmm"] = max(errs["csr_spmm"], err)
+        d_wit = float((got - witness).abs().max())
+        log(f"csr_spmm {label}: nnz={fmt.col.shape[0]} x={tuple(x.shape)} "
+            f"y={tuple(got.shape)} max|kernel-plain|={err:.3e}, "
+            f"max|kernel-dense kernel|={d_wit:.3e} "
+            f"({dense.rows.shape[0]} blocks), torch.equal to the dense "
+            f"kernel: {torch.equal(got, witness)}, bit-identical relaunch: "
+            f"{torch.equal(got, again)}")
         require(torch.allclose(got, want, **TOL_SPMM),
-                f"block_spmm {label}: kernel vs plain max |diff| {err:.3e}")
+                f"csr_spmm {label}: kernel vs plain max |diff| {err:.3e}")
         require(torch.equal(got, again),
-                f"block_spmm {label}: two launches differ")
-        log(f"block_spmm {label}: nb={fmt.rows.shape[0]} x={tuple(x.shape)} "
-            f"y={tuple(got.shape)} max|kernel-plain|={err:.3e} "
-            "bit-identical relaunch")
+                f"csr_spmm {label}: two launches differ")
+        require(torch.equal(got, witness),
+                f"csr_spmm {label}: not bit-equal to the dense-block kernel "
+                f"(max |diff| {d_wit:.3e})")
 
     # autograd: dX = A^T dY through the kernel vs plain autograd
     lay = ops["layers"][1]
     h = ops["h1"].clone().requires_grad_(True)
-    y = BlockSpmm.apply(h, lay["fwd"], lay["bwd"])
+    y = Spmm.apply(h, lay["fwd"], lay["bwd"])
     (dx_k,) = torch.autograd.grad(y, h, grad_outputs=ops["dy1"])
     h_p = ops["h1"].clone().requires_grad_(True)
     f = lay["fwd"]
-    y_p = block_spmm_plain(f.rows, f.cols, f.blocks, h_p, f.n_dst_blocks)
+    y_p = csr_spmm_plain(f.rowptr, f.col, f.val, h_p)
     (dx_p,) = torch.autograd.grad(y_p, h_p, grad_outputs=ops["dy1"])
     err = float((dx_k - dx_p).abs().max())
-    errs["block_spmm"] = max(errs["block_spmm"], err)
+    errs["csr_spmm"] = max(errs["csr_spmm"], err)
     require(torch.allclose(dx_k, dx_p, **TOL_SPMM),
-            f"block_spmm backward vs plain autograd: {err:.3e}")
-    log(f"block_spmm backward: max|kernel-plain autograd|={err:.3e}")
+            f"Spmm backward vs plain autograd: {err:.3e}")
+    log(f"Spmm backward: max|kernel-plain autograd|={err:.3e}")
 
     # embedding_bag as the device tier's gather: L = 8192, one lookup per
     # bag, unit weights, pad bags weight 0; bit-equal to table[idx]
@@ -529,7 +597,7 @@ def phase_main_path(torch, device):
 
     from repro_torch.core import controller as ctl, dqn
     from repro_torch.kernels.embedding_bag import embedding_bag
-    from repro_torch.kernels.segment_mm import block_spmm
+    from repro_torch.kernels.segment_mm import block_spmm, csr_spmm
     from repro_torch.store import MemoryBudget
     from repro_torch.train import gnn_trainer as gt
 
@@ -547,13 +615,15 @@ def phase_main_path(torch, device):
                                                device_payloads=True),
                        device=str(device))
     bundle = gt.build_trace(cfg)
+    csr_spmm.launches = 0
     block_spmm.launches = 0
     embedding_bag.launches = 0
     t0 = time.perf_counter()
     res = gt.run(cfg, bundle)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"block_spmm": block_spmm.launches,
+    counts = {"csr_spmm": csr_spmm.launches,
+              "block_spmm": block_spmm.launches,
               "embedding_bag": embedding_bag.launches}
     rep = res.compute_report
     n_steps = cfg.n_epochs * cfg.steps_per_epoch
@@ -564,8 +634,11 @@ def phase_main_path(torch, device):
         f"decisions {decisions}")
     log(f"main path: losses {[round(x, 4) for x in rep['losses']]}")
     # 2 forward + 1 backward per step, and 2 forward in the parity check
-    require(counts["block_spmm"] == 3 * n_steps + 2,
-            f"block_spmm launches {counts['block_spmm']} != 3 per step + 2")
+    require(counts["csr_spmm"] == 3 * n_steps + 2,
+            f"csr_spmm launches {counts['csr_spmm']} != 3 per step + 2")
+    require(counts["block_spmm"] == 0,
+            f"the trainer launched the dense-block kernel "
+            f"{counts['block_spmm']} times")
     require(steps_with_hits > 0
             and counts["embedding_bag"] == steps_with_hits,
             f"embedding_bag launches {counts['embedding_bag']} != "
@@ -660,7 +733,7 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
                 spans[name] += time.perf_counter() - t
         return inner
 
-    w.engine.prepare = timed("prepare: numpy blocks + copies",
+    w.engine.prepare = timed("prepare: numpy CSR + copies",
                              w.engine.prepare)
     w.engine.pad_input = timed("input rows copy", w.engine.pad_input)
     w.engine._step_fn = timed("SAGE fwd/bwd/AdamW (host)",
@@ -690,12 +763,27 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
     busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / n_each
     log(f"profile: device busy {busy_ms:.3f} ms/step, device idle share "
         f"{1.0 - busy_ms / wall_ms:.4f} of the unprofiled host wall")
-    if not by_name:
-        log("profile: the profiler reported no device time")
+    require(bool(by_name), "profile: the profiler reported no device time")
+    copies = [(us, cnt) for name, (us, cnt) in by_name.items()
+              if name.startswith("Memcpy HtoD")]
+    log(f"profile: host-to-device copies "
+        f"{sum(us for us, _ in copies) / 1e3 / n_each:.4f} ms/step "
+        f"x{sum(cnt for _, cnt in copies) / n_each:.1f}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     for name, (us, cnt) in top:
         log(f"  device {us / 1e3 / n_each:8.4f} ms/step x{cnt / n_each:5.1f}"
             f"  {name[:80]}")
+    csr = [(us, cnt) for name, (us, cnt) in by_name.items()
+           if "csr_spmm_kernel" in name]
+    n_csr = sum(cnt for _, cnt in csr)
+    n_dense = sum(cnt for name, (_, cnt) in by_name.items()
+                  if "block_spmm_kernel" in name)
+    log(f"profile: {n_csr} csr_spmm_kernel launches in {n_each} steps, "
+        f"{sum(us for us, _ in csr) / 1e3 / n_each:.4f} ms/step of device "
+        f"time; {n_dense} block_spmm_kernel launches")
+    require(n_csr == 3 * n_each and n_dense == 0,
+            f"profile: {n_csr} csr_spmm_kernel launches (want {3 * n_each}) "
+            f"and {n_dense} block_spmm_kernel (want 0)")
 
 
 # ------------------------------------------------------------- phase 4
@@ -713,7 +801,7 @@ def phase_serving(torch, device):
     from repro_torch.configs import get_arch
     from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.segment_mm import block_spmm
+    from repro_torch.kernels.segment_mm import block_spmm, csr_spmm
     from repro_torch.launch import serve
     from repro_torch.models.lm import transformer as tf
 
@@ -731,6 +819,7 @@ def phase_serving(torch, device):
     tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
                            generator=gen).to(device)
 
+    csr_spmm.launches = 0
     block_spmm.launches = 0
     embedding_bag.launches = 0
     flash_attention.launches = 0
@@ -743,7 +832,8 @@ def phase_serving(torch, device):
     logits = tf.prefill(params, cfg, tokens)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    counts = {"block_spmm": block_spmm.launches,
+    counts = {"csr_spmm": csr_spmm.launches,
+              "block_spmm": block_spmm.launches,
               "embedding_bag": embedding_bag.launches,
               "flash_attention": flash_attention.launches}
     log(f"serving path: serve.run (batch 4, prompt 8, gen 16) {serve_s:.2f} s "
@@ -756,7 +846,8 @@ def phase_serving(torch, device):
     require(counts["flash_attention"] == cfg.n_layers,
             f"prefill launched the flash kernel {counts['flash_attention']} "
             f"times, not once per layer ({cfg.n_layers})")
-    require(counts["block_spmm"] == 0 and counts["embedding_bag"] == 0,
+    require(counts["csr_spmm"] == counts["block_spmm"]
+            == counts["embedding_bag"] == 0,
             "the serving path launched a trainer kernel")
 
     # serve: the tokens, and the last prompt step's logits against prefill
@@ -893,64 +984,63 @@ def phase_profile_prefill(torch, cfg, params, tokens):
 
 
 # ------------------------------------------------------------- phase 5
-def spmm_library_operand(torch, fmt):
-    """The same adjacency as one CSR matrix, for torch.sparse.mm."""
-    b, i, j = torch.nonzero(fmt.blocks, as_tuple=True)
-    r = fmt.rows.long()[b] * 128 + i
-    c = fmt.cols.long()[b] * 128 + j
-    vals = fmt.blocks[b, i, j]
-    n_rows = fmt.n_dst_blocks * 128
-    return r, c, vals, n_rows
-
-
 def phase_timing(torch, device, ops, gather_ops, counts, n_steps):
     import torch.nn.functional as F
 
     from repro_torch.kernels.embedding_bag import ops as bag_ops
-    from repro_torch.kernels.segment_mm import block_spmm_plain
     from repro_torch.kernels.segment_mm import ops as spmm_ops
 
     timer = Timer(torch, device)
     rows = []
-    per_step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+    per_step = {"ms": 0.0, "plain_ms": 0.0, "dense_ms": 0.0,
                 "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
-    for label, fmt, x in spmm_cases(ops):
-        rowptr = torch.searchsorted(
-            fmt.rows, torch.arange(fmt.n_dst_blocks + 1, dtype=torch.int32,
-                                   device=device), out_int32=True)
-        y = torch.empty((fmt.n_dst_blocks * 128, x.shape[1]), device=device)
-        ms = timer.ms(lambda: spmm_ops.launch(rowptr, fmt.cols, fmt.blocks,
-                                              x, y, fmt.n_dst_blocks))
-        plain = timer.ms(lambda: block_spmm_plain(
-            fmt.rows, fmt.cols, fmt.blocks, x, fmt.n_dst_blocks))
-        r, c, vals, n_rows = spmm_library_operand(torch, fmt)
-        csr = torch.sparse_coo_tensor(
-            torch.stack([r, c]), vals, (n_rows, x.shape[0])
-        ).coalesce().to_sparse_csr()
+    for label, fmt, dense, x in spmm_cases(ops):
+        y = torch.empty((fmt.n_rows, x.shape[1]), device=device)
+        ms = timer.ms(lambda: spmm_ops.csr_launch(fmt, x, y))
+        plain = timer.ms(lambda: spmm_ops.csr_spmm_plain(
+            fmt.rowptr, fmt.col, fmt.val, x))
+        csr = torch.sparse_csr_tensor(fmt.rowptr, fmt.col, fmt.val,
+                                      (fmt.n_rows, x.shape[0]),
+                                      check_invariants=True)
         lib = timer.ms(lambda: torch.sparse.mm(csr, x))
-        nnz = int(vals.numel())
-        n_bytes = (fmt.blocks.numel() * 4 + x.numel() * 4
-                   + fmt.rows.numel() * 8 + y.numel() * 4)
+        # the first port's design on the same adjacency, off the path
+        rowptr = torch.searchsorted(
+            dense.rows, torch.arange(dense.n_dst_blocks + 1,
+                                     dtype=torch.int32, device=device),
+            out_int32=True)
+        dense_ms = timer.ms(lambda: spmm_ops.launch(
+            rowptr, dense.cols, dense.blocks, x, y, dense.n_dst_blocks))
+        nnz = fmt.col.numel()
+        # the least the function moves: entries (col + val), row pointers,
+        # X read once, Y written once
+        n_bytes = (nnz * 8 + fmt.rowptr.numel() * 4 + x.numel() * 4
+                   + y.numel() * 4)
         n_flops = 2.0 * nnz * x.shape[1]
         b_ms, b_by = bound_ms(n_bytes, n_flops)
-        log(f"time block_spmm {label}: kernel {ms:.4f} ms, plain {plain:.4f} "
-            f"ms, torch.sparse.mm {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-            f"{n_bytes / 1e6:.1f} MB, nnz {nnz}, dense-block flops "
-            f"{2.0 * fmt.blocks.shape[0] * 128 * 128 * x.shape[1]:.3g})")
-        for k, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", b_ms),
+        log(f"time csr_spmm {label}: kernel {ms:.4f} ms, plain {plain:.4f} "
+            f"ms, torch.sparse.mm {lib:.4f} ms, dense-block kernel "
+            f"{dense_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{n_bytes / 1e6:.3f} MB, nnz {nnz}, {n_flops:.4g} operations; "
+            f"the dense blocks weigh {dense.blocks.numel() * 4 / 1e6:.1f} MB)")
+        for k, v in (("ms", ms), ("plain_ms", plain), ("dense_ms", dense_ms),
                      ("library_ms", lib), ("bytes", n_bytes),
                      ("flops", n_flops)):
             per_step[k] += v
     spmm_bound, spmm_by = bound_ms(per_step["bytes"], per_step["flops"])
+    log(f"time csr_spmm per step (3 calls): kernel {per_step['ms']:.4f} ms, "
+        f"plain {per_step['plain_ms']:.4f} ms, torch.sparse.mm "
+        f"{per_step['library_ms']:.4f} ms, dense-block kernel "
+        f"{per_step['dense_ms']:.4f} ms, bound {spmm_bound:.4f} ms")
     rows.append({
-        "name": "block_spmm", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/block_spmm.cu",
+        "name": "csr_spmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/csr_spmm.cu",
         "replaces": "src/repro/kernels/segment_mm/kernel.py:78",
-        "launches": counts["block_spmm"],
-        "max_abs_err": ops["errs"]["block_spmm"],
+        "launches": counts["csr_spmm"],
+        "max_abs_err": ops["errs"]["csr_spmm"],
         "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
         "bound_ms": spmm_bound, "bound_by": spmm_by,
         "library_ms": per_step["library_ms"],
+        "dense_ms": per_step["dense_ms"],
     })
 
     g = gather_ops
@@ -982,7 +1072,8 @@ def phase_timing(torch, device, ops, gather_ops, counts, n_steps):
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib,
     })
-    log(f"launches per step: block_spmm "
+    log(f"launches per step: csr_spmm "
+        f"{counts['csr_spmm'] / n_steps:.3f}, block_spmm "
         f"{counts['block_spmm'] / n_steps:.3f}, embedding_bag "
         f"{counts['embedding_bag'] / n_steps:.3f}")
     return rows

@@ -1,22 +1,32 @@
-"""Block-sparse SpMM: edge-list -> block format, the kernel wrapper, its
-plain version and its autograd.
+"""The GNN SpMM ``Y = A @ X``: edge list -> sparse format, the kernel
+wrappers, their plain versions and their autograd.
 
-Port of ``repro/kernels/segment_mm/ops.py``. ``to_block_sparse`` is the
-reference's numpy conversion, copied. ``block_spmm`` is the wrapper around
-the hand-written CUDA kernel ``csrc/block_spmm.cu`` (which replaces
-``repro/kernels/segment_mm/kernel.py::block_spmm_kernel``): it launches the
-kernel for CUDA tensors and takes the plain version, a port of
-``block_spmm_xla`` (a batched matmul plus ``index_add_`` over the row
-blocks), only for CPU tensors. ``BlockSpmm`` is the autograd function: its
-backward runs the same kernel over the transposed format
-(:func:`transpose_block_sparse`), ``dX = A^T dY``.
+Port of ``repro/kernels/segment_mm/ops.py``. ``A`` is the padded adjacency
+``(n_dst_pad, n_src_pad)`` with the weights of duplicate edges summed.
+Two formats carry it:
 
-Bound: bytes (the dense blocks; the 0.4%-full adjacency needs few
-operations), but the kernel executes the dense block products and runs
-on the fp32 FMA pipes far above that bound. Design (note at the top of
-``csrc/block_spmm.cu``): one CTA per output tile walking its row's
-blocks in order, no atomics, so the summation order is fixed and two
-launches are bit-identical.
+- **CSR, the trainer's path.** :func:`to_csr` builds it in numpy, unique
+  ``(dst, src)`` entries with columns strictly ascending in each row;
+  :func:`csr_spmm` wraps the hand-written CUDA kernel
+  ``csrc/csr_spmm.cu``, which replaces
+  ``repro/kernels/segment_mm/kernel.py::block_spmm_kernel``;
+  :class:`Spmm` is its autograd (``dX = A^T dY`` over
+  :func:`transpose_csr`). Bound: bytes, the entries (8 B each), the row
+  pointers, X and Y, about 2.8 MB at the trainer's layer 0, which the
+  card moves in under a microsecond: at these sizes a launch's latency,
+  not the bound, sets the time. Design (note at the top of
+  ``csrc/csr_spmm.cu``): a group of F/4 lanes owns a row, no atomics,
+  entries summed in ascending column order, so two launches are
+  bit-identical and agree bit for bit with the dense-block kernel.
+- **Dense 128 x 128 blocks, the witness.** :func:`to_block_sparse` is
+  the reference's numpy conversion, copied; :func:`block_spmm` wraps
+  ``csrc/block_spmm.cu``, the first port of the TPU kernel, which
+  executes the dense block products of a 0.2-0.4%-full adjacency. It is
+  off the trainer's path and kept to hold the CSR kernel against.
+
+Each wrapper launches its kernel for CUDA tensors and takes its plain
+PyTorch version (``csr_spmm_plain``, ``block_spmm_plain``) only for CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -234,3 +244,205 @@ class BlockSpmm(torch.autograd.Function):
         dx = block_spmm(bwd.rows, bwd.cols, bwd.blocks, dy.contiguous(),
                         bwd.n_dst_blocks)
         return dx, None, None
+
+
+# ------------------------------------------------------------------- CSR
+MAX_F = 128  # the CSR kernel's widest row: 32 lanes of one float4 each
+
+
+def to_csr(
+    edge_src: np.ndarray,
+    edge_dst: np.ndarray,
+    n_dst: int,
+    n_src: int,
+    edge_weight: np.ndarray | None = None,
+):
+    """The ``(n_dst, n_src)`` adjacency of an edge list as CSR.
+
+    Entries are the unique ``(dst, src)`` pairs, columns strictly
+    ascending within a row; the weights of duplicate edges are summed in
+    edge order (``np.add.at``, as :func:`to_block_sparse` sums them into
+    its blocks), so the densified CSR equals the scattered blocks bit for
+    bit. Returns ``(rowptr int32 (n_dst + 1,), col int32 (nnz,), val
+    float32 (nnz,))``.
+    """
+    src = np.asarray(edge_src, np.int64)
+    dst = np.asarray(edge_dst, np.int64)
+    if src.ndim != 1 or src.shape != dst.shape:
+        raise ValueError("to_csr: edge_src and edge_dst must be (E,)")
+    if src.size and not (0 <= src.min() and src.max() < n_src
+                         and 0 <= dst.min() and dst.max() < n_dst):
+        raise IndexError("to_csr: an edge lies outside (n_dst, n_src)")
+    w = (
+        np.asarray(edge_weight, np.float32)
+        if edge_weight is not None
+        else np.ones(len(src), np.float32)
+    )
+    if w.shape != src.shape:
+        raise ValueError("to_csr: edge_weight must be (E,)")
+    uniq, inv = np.unique(dst * n_src + src, return_inverse=True)
+    val = np.zeros(len(uniq), np.float32)
+    np.add.at(val, inv, w)
+    rowptr = np.zeros(n_dst + 1, np.int64)
+    np.cumsum(np.bincount(uniq // n_src, minlength=n_dst), out=rowptr[1:])
+    return (rowptr.astype(np.int32), (uniq % n_src).astype(np.int32), val)
+
+
+def transpose_csr(rowptr: np.ndarray, col: np.ndarray, val: np.ndarray,
+                  n_src: int):
+    """The CSR of ``A^T`` (``n_src`` rows): entries stably sorted by
+    column, so the original destination rows stay ascending within each
+    row of ``A^T``. Returns ``(rowptr, col, val)`` as :func:`to_csr`."""
+    rows = np.repeat(np.arange(len(rowptr) - 1, dtype=np.int32),
+                     np.diff(rowptr))
+    order = np.argsort(col, kind="stable")
+    t_rowptr = np.zeros(n_src + 1, np.int64)
+    np.cumsum(np.bincount(col, minlength=n_src), out=t_rowptr[1:])
+    return (t_rowptr.astype(np.int32), rows[order],
+            np.ascontiguousarray(val[order]))
+
+
+def _check_csr(rowptr: np.ndarray, col: np.ndarray, val: np.ndarray,
+              n_cols: int) -> None:
+    """Raise unless ``(rowptr, col, val)`` is a CSR matrix of ``n_cols``
+    columns with strictly ascending columns in each row."""
+    if rowptr.ndim != 1 or rowptr.size < 1 or rowptr[0] != 0:
+        raise ValueError("CSR: rowptr must be (n_rows + 1,) from 0")
+    nnz = col.size
+    if col.shape != (nnz,) or val.shape != (nnz,):
+        raise ValueError("CSR: col and val must be (nnz,)")
+    if (np.diff(rowptr) < 0).any() or rowptr[-1] != nnz:
+        raise ValueError("CSR: rowptr must be monotone and end at nnz")
+    if nnz and not (0 <= col.min() and col.max() < n_cols):
+        raise IndexError("CSR: a column lies outside [0, n_cols)")
+    starts = np.zeros(nnz, bool)
+    starts[rowptr[:-1][np.diff(rowptr) > 0]] = True
+    if (np.diff(col.astype(np.int64)) <= 0)[~starts[1:]].any():
+        raise ValueError("CSR: columns must ascend strictly within a row")
+
+
+@dataclasses.dataclass(frozen=True)
+class CsrFormat:
+    """One CSR operand on a device, checked once when it is made."""
+
+    rowptr: torch.Tensor   # (n_rows + 1,) int32
+    col: torch.Tensor      # (nnz,) int32, ascending within a row
+    val: torch.Tensor      # (nnz,) float32
+    n_cols: int
+
+    @property
+    def n_rows(self) -> int:
+        return self.rowptr.shape[0] - 1
+
+    @classmethod
+    def from_numpy(cls, rowptr, col, val, n_cols, device):
+        rowptr = np.asarray(rowptr, np.int32)
+        col = np.asarray(col, np.int32)
+        val = np.asarray(val, np.float32)
+        _check_csr(rowptr, col, val, int(n_cols))
+        return cls(
+            torch.as_tensor(rowptr).to(device),
+            torch.as_tensor(col).to(device),
+            torch.as_tensor(val).to(device),
+            int(n_cols),
+        )
+
+
+def csr_spmm_plain(rowptr, col, val, x):
+    """Plain PyTorch version: ``index_add_`` of ``val * x[col]`` over the
+    entries' rows."""
+    n_rows = rowptr.shape[0] - 1
+    rows = torch.repeat_interleave(
+        torch.arange(n_rows, device=x.device), (rowptr[1:] - rowptr[:-1]).long(),
+        output_size=col.shape[0],
+    )
+    y = torch.zeros((n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    return y.index_add_(0, rows, val[:, None] * x[col.long()])
+
+
+def _check_csr_operands(fmt: CsrFormat, x) -> None:
+    if not (fmt.rowptr.device == fmt.col.device == fmt.val.device
+            == x.device):
+        raise ValueError("csr_spmm: all operands must be on one device")
+    if fmt.val.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError("csr_spmm: val and x must be float32")
+    if fmt.rowptr.dtype != torch.int32 or fmt.col.dtype != torch.int32:
+        raise TypeError("csr_spmm: rowptr and col must be int32")
+    if x.dim() != 2:
+        raise ValueError("csr_spmm: x must be (M, F)")
+    if x.shape[0] < fmt.n_cols:
+        raise ValueError(
+            f"csr_spmm: x has {x.shape[0]} rows, A has {fmt.n_cols} columns")
+
+
+def check_kernel_operands(fmt: CsrFormat, x) -> None:
+    """What the CUDA kernel takes beyond the function: F a multiple of 4
+    up to ``MAX_F``, contiguous operands, x 16-byte aligned."""
+    f = x.shape[1]
+    if f % 4 != 0 or not 0 < f <= MAX_F:
+        raise ValueError(
+            f"csr_spmm: CUDA kernel takes F % 4 == 0, 0 < F <= {MAX_F}")
+    for name, t in (("rowptr", fmt.rowptr), ("col", fmt.col),
+                    ("val", fmt.val), ("x", x)):
+        if not t.is_contiguous():
+            raise ValueError(f"csr_spmm: {name} must be contiguous")
+    if x.data_ptr() % 16 != 0:
+        raise ValueError("csr_spmm: x must be 16-byte aligned")
+
+
+def csr_spmm(fmt: CsrFormat, x) -> torch.Tensor:
+    """Y (n_rows, F) = A @ X for A in CSR.
+
+    CUDA tensors launch ``csrc/csr_spmm.cu``; CPU tensors take
+    :func:`csr_spmm_plain`. The format was checked when it was made
+    (:meth:`CsrFormat.from_numpy`), so nothing is read back from the
+    device here."""
+    _check_csr_operands(fmt, x)
+    if x.device.type == "cpu":
+        return csr_spmm_plain(fmt.rowptr, fmt.col, fmt.val, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"csr_spmm: unsupported device {x.device}")
+    check_kernel_operands(fmt, x)
+    y = torch.empty((fmt.n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    csr_launch(fmt, x, y)
+    return y
+
+
+def csr_launch(fmt: CsrFormat, x, y) -> None:
+    """Launch the CSR kernel on checked operands (counts one launch)."""
+    fn = _build.entry("csr_spmm_f32")
+    err = fn(
+        fmt.rowptr.data_ptr(), fmt.col.data_ptr(), fmt.val.data_ptr(),
+        x.data_ptr(), y.data_ptr(), int(fmt.n_rows), int(x.shape[1]),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    csr_spmm.launches += 1
+    _build.check("csr_spmm_f32", err)
+
+
+csr_spmm.launches = 0
+
+
+class Spmm(torch.autograd.Function):
+    """Y = A @ X with dX = A^T @ dY, both through :func:`csr_spmm`.
+
+    ``fwd`` is A's :class:`CsrFormat`; ``bwd`` is A^T's (None when X needs
+    no gradient, as for the data fed to the first layer)."""
+
+    @staticmethod
+    def forward(ctx, x, fwd: CsrFormat, bwd: CsrFormat | None):
+        if bwd is not None and (bwd.n_rows != x.shape[0]
+                                or bwd.n_cols != fwd.n_rows):
+            raise ValueError("Spmm: bwd is not the transpose of fwd's shape")
+        ctx.bwd = bwd
+        return csr_spmm(fwd, x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        if ctx.bwd is None:
+            raise RuntimeError(
+                "Spmm: X needs a gradient but no transposed format was given"
+            )
+        return csr_spmm(ctx.bwd, dy.contiguous()), None, None

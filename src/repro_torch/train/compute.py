@@ -3,24 +3,24 @@
 Port of ``repro/train/compute.py::ComputeEngine``. Modeled mode charges
 ``CostModelParams.t_base`` for every trainer step; this engine replaces
 that constant with the time of a real forward/backward/AdamW step over the
-feature rows the step resolved, with neighbourhood aggregation through the
-``kernels.segment_mm`` block-sparse format: the CUDA kernel on the card,
-its plain version on the CPU.
+feature rows the step resolved, with neighbourhood aggregation through
+``kernels.segment_mm``'s CSR SpMM: the CUDA kernel on the card, its plain
+version on the CPU.
 
-``prepare`` converts a mini-batch's edge lists to the block format in
-numpy (``to_block_sparse``), buckets the source/destination row counts to
-powers of two, builds the transposed format the backward needs, and copies
-everything to the device: the copies happen here, outside the timed step,
-as ``jnp.asarray`` does in the reference. Prepared batches sit in a
-bounded LRU keyed by ``(epoch, step)``.
-
-Unlike the reference, the block count itself is not padded to a power of
-two. There the padding bounded XLA's compile signatures; eager PyTorch
-compiles nothing per shape, and the zero pad blocks all land on the last
-row-block, where they would serialise one row of CTAs on the GPU.
+``prepare`` converts a mini-batch's edge lists to CSR in numpy
+(``to_csr``: unique entries, duplicate weights summed), buckets the
+source/destination row counts to powers of two of 128-row tiles (the
+reference's block buckets, so the adjacency is the same padded matrix),
+builds the transposed CSR the backward needs, and copies everything to
+the device: the copies happen here, outside the timed step, as
+``jnp.asarray`` does in the reference. Where the reference densifies the
+adjacency into 128 x 128 blocks for the TPU's matrix unit (about 39 MB a
+step at the trainer's size, 0.2-0.4% of it nonzero), the CSR of a step is
+about 0.2 MB. Prepared batches sit in a bounded LRU keyed by
+``(epoch, step)``.
 
 The step is timed with CUDA events on the card and ``time.perf_counter``
-on the CPU. On the first step ``check_parity`` holds the block path
+on the CPU. On the first step ``check_parity`` holds the CSR path
 against the plain scatter path (``sage.apply_blocks``), tolerance 2e-3.
 """
 from __future__ import annotations
@@ -34,10 +34,10 @@ import torch
 from repro_torch.device import resolve
 from repro_torch.kernels.segment_mm import (
     TILE,
-    BlockFormat,
-    BlockSpmm,
-    to_block_sparse,
-    transpose_block_sparse,
+    CsrFormat,
+    Spmm,
+    to_csr,
+    transpose_csr,
 )
 from repro_torch.models.gnn import common, sage
 from repro_torch.optim import optimizers as optim
@@ -110,8 +110,8 @@ class ComputeEngine:
 
     # ------------------------------------------------------------ prepare
     def prepare(self, mb, key=None):
-        """Block-sparse conversion, bucketing and device copy for one
-        mini-batch: ``(layers, x_rows, n_edges)``, cached per ``key``."""
+        """CSR conversion, bucketing and device copy for one mini-batch:
+        ``(layers, x_rows, n_edges)``, cached per ``key``."""
         if key is not None and key in self._prep:
             self._prep.move_to_end(key)
             return self._prep[key]
@@ -131,25 +131,20 @@ class ComputeEngine:
         src_rows = n_src_rows
         for i, blk in enumerate(mb.blocks):
             n_dst_true = len(blk.dst_nodes)
-            n_dst_blocks = _bucket(-(-n_dst_true // t))
-            n_dst_pad = n_dst_blocks * t
-            w = blk.edge_mask.astype(np.float32)
-            rows, cols, blocks, ndb, n_src_pad = to_block_sparse(
-                blk.edge_src, blk.edge_dst, n_dst_pad, src_rows, t, t, w
-            )
-            if n_src_pad != src_rows or ndb != n_dst_blocks:
-                raise AssertionError("block format does not match buckets")
+            n_dst_pad = _bucket(-(-n_dst_true // t)) * t
+            csr = to_csr(blk.edge_src, blk.edge_dst, n_dst_pad, src_rows,
+                         blk.edge_mask.astype(np.float32))
             indeg = np.bincount(
                 blk.edge_dst[blk.edge_mask], minlength=n_dst_pad
             ).astype(np.float32)
             dst_pos = np.zeros(n_dst_pad, np.int64)
             dst_pos[:n_dst_true] = blk.dst_pos
             layer = {
-                "fwd": BlockFormat.from_numpy(rows, cols, blocks, ndb, dev),
+                "fwd": CsrFormat.from_numpy(*csr, src_rows, dev),
                 # layer 0 aggregates data, which needs no gradient
                 "bwd": (
-                    BlockFormat.from_numpy(*transpose_block_sparse(
-                        rows, cols, blocks, src_rows // t), dev)
+                    CsrFormat.from_numpy(*transpose_csr(*csr, src_rows),
+                                         n_dst_pad, dev)
                     if i > 0 else None
                 ),
                 "counts": torch.as_tensor(
@@ -176,12 +171,11 @@ class ComputeEngine:
 
     # ------------------------------------------------------------ forward
     def _forward(self, params, x_pad, layers):
-        """Block-path SAGE forward over prepared layers (padded rows)."""
+        """CSR-path SAGE forward over prepared layers (padded rows)."""
         h = x_pad
         for i, layer in enumerate(layers):
             lp = params[f"layer_{i}"]
-            agg = BlockSpmm.apply(h, layer["fwd"], layer["bwd"]) \
-                / layer["counts"]
+            agg = Spmm.apply(h, layer["fwd"], layer["bwd"]) / layer["counts"]
             h_new = h[layer["dst_pos"]] @ lp["w_self"] \
                 + agg @ lp["w_neigh"] + lp["b"]
             if i < len(layers) - 1:
@@ -240,10 +234,10 @@ class ComputeEngine:
     @torch.no_grad()
     def check_parity(self, mb, x_in: np.ndarray, tol: float | None = None,
                      _prep=None):
-        """Assert block-path forward == scatter reference on this batch.
+        """Assert CSR-path forward == scatter reference on this batch.
 
         The reference is ``sage.apply_blocks`` (per-edge gather + scatter
-        mean) on the UNPADDED blocks; the block path must agree on every
+        mean) on the UNPADDED blocks; the CSR path must agree on every
         valid dst row within float-accumulation tolerance.
         """
         tol = self._parity_tol if tol is None else tol
@@ -272,7 +266,7 @@ class ComputeEngine:
         self.parity_max_diff = float(diff.max()) if diff.size else 0.0
         if self.parity_max_diff > tol:
             raise AssertionError(
-                f"block-path/scatter parity violated: max |diff| "
+                f"CSR-path/scatter parity violated: max |diff| "
                 f"{self.parity_max_diff:.3e} > {tol:.0e}"
             )
         return self.parity_max_diff
