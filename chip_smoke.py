@@ -13,7 +13,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    flash kernel (``flash_fwd_wgmma_kernel<D>``, D in 32, 64, 128): log
    its registers and spills, and fail if it spills or if ptxas says
    "wgmma.mma_async instructions are serialized". Likewise fail if an
-   instance of the CSR SpMM (``csr_spmm_kernel<G>``) spills.
+   instance of the CSR SpMM (``csr_spmm_kernel<G>``) or of the
+   EmbeddingBag kernel (``embedding_bag_kernel<G, V, U>``, 24 of them)
+   spills.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes its main path gives it. The trainer's kernels at the first
    mini-batch of the default ``reddit`` trace: the CSR SpMM for layer 0,
@@ -23,9 +25,15 @@ Phases, each of which ends the run with a non-zero exit on failure:
    port, kept off the path as the witness) on the same adjacency, built
    by ``to_block_sparse`` at the same buckets (both sum the same FFMAs in
    ascending column order); ``Spmm``'s backward against plain autograd
-   (same tolerance), the EmbeddingBag
-   gather bit-equal to ``table[idx]``, and weighted bags with empty bags
-   (atol 1e-5). Flash attention: the reference's test matrix and ragged
+   (same tolerance). The EmbeddingBag
+   gather ``torch.equal`` to ``table[idx]`` at the padded L = 8192 shape
+   the gather ran until the port dropped the pad, and at the path's own
+   shape (one bag per hit, built by ``BagFormat.from_numpy`` as the device
+   tier builds it); weighted bags with 512 empty bags (atol 1e-5 against
+   the plain version), through the tensor wrapper and the format alike;
+   relaunches bit-identical; a row width D % 4 != 0 (602, reddit's) and
+   an unaligned table, which must run the scalar instance (kernel names
+   read from ``torch.profiler``). Flash attention: the reference's test matrix and ragged
    lengths in float32 (atol 2e-5, rtol 1e-4, against the plain version and
    the dense oracle), GQA over strided heads; then the bf16 tensor-core
    kernel over a matrix: D in {32, 64, 128}, causal and not, ragged S
@@ -52,7 +60,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
    (discrete streams equal, losses rtol 1e-4). Then ``torch.profiler``
    splits steady trainer steps into device time by kernel against the host
    clock, and fails unless the steps' kernels include
-   ``csr_spmm_kernel`` and no ``block_spmm_kernel``.
+   ``csr_spmm_kernel`` and no ``block_spmm_kernel``, and one
+   ``embedding_bag_kernel`` per step with hits and no
+   ``radixSortKVInPlace``; it logs the host spans (the device-tier
+   gather, the host feature rows, the input placement) and the copies
+   each way.
 4. Run the LM serving path at full width: ``tinyllama-1.1b`` (22 layers,
    d_model 2048, bf16, seeded random weights). Counts zeroed, then
    ``repro_torch.launch.serve.run`` (batch 4, prompt 8, generation 16;
@@ -72,7 +84,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
    each queued behind a spin kernel so the host's enqueue time is not
    counted), beside the least time the card could take, and print one
    ``{"kernels": ...}`` line. The SpMM row also carries the dense-block
-   kernel's time on the same adjacency (``dense_ms``). TF32 is off throughout: float32 results are
+   kernel's time on the same adjacency (``dense_ms``). The EmbeddingBag
+   row, at the path's shape, also carries the kernel's own device time
+   from ``torch.profiler`` (``kernel_ms``: L2 flushed before each call;
+   ``kernel_warm_ms``: back to back) and the event time at the padded
+   shape (``padded_ms``). TF32 is off throughout: float32 results are
    compared in full float32.
 6. The last line is ``{"ok": true, "device": {...}}``.
 
@@ -145,6 +161,7 @@ class Timer:
         self.torch = torch
         # larger than the 50 MB L2, rewritten before every timed launch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+        self._setup_names = None   # the flush's and the spin's kernels
 
     def ms(self, fn, repeats: int = REPEATS) -> float:
         torch = self.torch
@@ -162,6 +179,41 @@ class Timer:
             end.synchronize()
             samples.append(start.elapsed_time(end))
         return statistics.median(samples)
+
+    def kernel_ms(self, fn, repeats: int = REPEATS,
+                  warm_calls: int = 50) -> tuple[float, float]:
+        """The device time of ``fn``'s own kernels from ``torch.profiler``
+        (no launch latency, no event cost): (flushed, warm). Flushed: the
+        L2 zeroed and a spin queued before each of ``repeats`` calls, the
+        flush's and the spin's kernels left out. Warm: ``warm_calls``
+        calls back to back, their inputs in L2."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        if self._setup_names is None:
+            with profile(activities=acts) as prof:
+                for _ in range(3):
+                    self.flush.zero_()
+                    torch.cuda._sleep(SPIN_CYCLES)
+                torch.cuda.synchronize()
+            self._setup_names = set(device_time_by_name(prof))
+        for _ in range(3):
+            fn()
+        with profile(activities=acts) as prof:
+            for _ in range(repeats):
+                self.flush.zero_()
+                torch.cuda._sleep(SPIN_CYCLES)
+                fn()
+            torch.cuda.synchronize()
+        flushed = sum(us for name, (us, _) in device_time_by_name(prof).items()
+                      if name not in self._setup_names) / 1e3 / repeats
+        with profile(activities=acts) as prof:
+            for _ in range(warm_calls):
+                fn()
+            torch.cuda.synchronize()
+        warm = sum(us for us, _ in device_time_by_name(prof).values())
+        return flushed, warm / 1e3 / warm_calls
 
 
 def bound_ms(n_bytes: float, n_flops: float,
@@ -193,6 +245,7 @@ def phase_card_and_build(torch):
                 log(f"  ptxas[{stem}]: {line.strip()}")
     check_wgmma_build(_build.build_log("flash_attention") or "")
     check_csr_build(_build.build_log("csr_spmm") or "")
+    check_bag_build(_build.build_log("embedding_bag") or "")
     return smi
 
 
@@ -269,6 +322,55 @@ def check_csr_build(text: str) -> None:
                 f"csr_spmm_kernel<{g}> spills")
 
 
+def check_bag_build(text: str) -> None:
+    """The EmbeddingBag kernel's ptxas report: one instance per group
+    width G (1 to 32), row load (V = 4 float4, V = 1 scalar) and rows in
+    flight (U = 1 for exactly one lookup a bag, 8 for any other bags),
+    none spilling, the U = 1 ones in 32 registers (64 warps an SM)."""
+    import re
+
+    found = {}
+    for name, info in ptxas_functions(text).items():
+        hit = re.search(r"embedding_bag_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                        name)
+        if hit:
+            found[tuple(map(int, hit.groups()))] = info
+    want = [(g, v, u) for g in (1, 2, 4, 8, 16, 32) for v in (1, 4)
+            for u in (1, 8)]
+    require(sorted(found) == sorted(want),
+            f"ptxas report lists embedding_bag_kernel instances "
+            f"{sorted(found)}, not G = 1 to 32 by V = 1, 4 by U = 1, 8")
+    for (g, v, u), info in sorted(found.items()):
+        log(f"  ptxas[embedding_bag] embedding_bag_kernel<{g}, {v}, {u}>: "
+            f"{info.get('registers')} registers, {info.get('spill_stores')} "
+            f"bytes spill stores, {info.get('spill_loads')} bytes spill loads")
+        require(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
+                f"embedding_bag_kernel<{g}, {v}, {u}> spills")
+        require(u != 1 or info.get("registers", 99) <= 32,
+                f"embedding_bag_kernel<{g}, {v}, {u}> uses "
+                f"{info.get('registers')} registers, more than 32")
+
+
+def bag_instances(torch, fn) -> list:
+    """The (G, V, U) of every EmbeddingBag kernel ``fn`` launches, from
+    the kernel names ``torch.profiler`` reports."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = []
+    for name, (_, cnt) in device_time_by_name(prof).items():
+        hit = re.search(r"embedding_bag_kernel<(\d+),\s*(\d+),\s*(\d+)>",
+                        name)
+        if hit:
+            found += [tuple(map(int, hit.groups()))] * cnt
+    return found
+
+
 # ------------------------------------------------------------- phase 2
 def main_path_operands(torch, device):
     """The kernels' operands as the main path's first step builds them,
@@ -326,9 +428,6 @@ def spmm_cases(ops):
 
 
 def phase_kernels_vs_plain(torch, device, ops):
-    from repro_torch.kernels.embedding_bag import (
-        embedding_bag, embedding_bag_plain,
-    )
     from repro_torch.kernels.segment_mm import (
         Spmm, block_spmm, csr_spmm, csr_spmm_plain,
     )
@@ -373,8 +472,28 @@ def phase_kernels_vs_plain(torch, device, ops):
             f"Spmm backward vs plain autograd: {err:.3e}")
     log(f"Spmm backward: max|kernel-plain autograd|={err:.3e}")
 
-    # embedding_bag as the device tier's gather: L = 8192, one lookup per
-    # bag, unit weights, pad bags weight 0; bit-equal to table[idx]
+    errs["embedding_bag"] = phase_bags_vs_plain(torch, device, ops)
+    return errs
+
+
+def phase_bags_vs_plain(torch, device, ops):
+    """The EmbeddingBag kernel against ``table[idx]`` and its plain
+    version; keeps the gather's operands in ``ops`` for the timing phase
+    and returns the largest weighted-bag difference."""
+    import numpy as np
+
+    from repro_torch.kernels.embedding_bag import (
+        BagFormat, bag_plain, bag_sum, embedding_bag, embedding_bag_plain,
+    )
+
+    def fmt_of(idx, seg, n_bags, w=None):
+        return BagFormat.from_numpy(
+            idx.cpu().numpy(), seg.cpu().numpy(), n_bags,
+            None if w is None else w.cpu().numpy(), device)
+
+    # the device tier's gather. Padded, as it ran until the port dropped
+    # the pad: L = 8192, one lookup per bag, unit weights, pad bags weight
+    # 0, through the tensor wrapper; bit-equal to table[idx]
     gen = torch.Generator().manual_seed(SEED + 1)
     table = torch.randn((ops["capacity"], ops["n_feat"]),
                         generator=gen).to(device)
@@ -387,32 +506,92 @@ def phase_kernels_vs_plain(torch, device, ops):
     seg = torch.arange(L, dtype=torch.int32, device=device)
     got = embedding_bag(table, idx, seg, L, w)
     torch.cuda.synchronize()
-    require(torch.equal(got[:n], table[idx[:n].long()]),
+    want_rows = table[idx[:n].long()]
+    require(torch.equal(got[:n], want_rows),
             "embedding_bag gather is not bit-equal to table[idx]")
     require(bool((got[n:] == 0).all()), "embedding_bag pad bags not zero")
     want = embedding_bag_plain(table, idx, seg, w, L)
     require(torch.equal(got, want), "embedding_bag gather: kernel != plain")
-    log(f"embedding_bag gather: L={L} hits={n} table={tuple(table.shape)} "
-        "bit-equal to table[idx]")
-    gather_ops = dict(table=table, idx=idx, seg=seg, w=w, n_bags=L)
+    # the path's own shape: n bags of one unit-weight lookup, built in
+    # numpy and moved in one copy, as DevicePayloadTier.gather builds it
+    path = fmt_of(idx[:n], seg[:n], n)
+    got = bag_sum(path, table)
+    again = bag_sum(path, table)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want_rows),
+            "embedding_bag unpadded gather is not bit-equal to table[idx]")
+    require(torch.equal(got, again), "embedding_bag gather: relaunch differs")
+    inst = bag_instances(torch, lambda: bag_sum(path, table))
+    require(inst == [(16, 4, 1)],
+            f"embedding_bag gather ran instances {inst}, not (16, 4, 1)")
+    # one lookup or none a bag: the general instance, same rows
+    spare = fmt_of(idx[:n], seg[:n], n + 100)
+    got = bag_sum(spare, table)
+    torch.cuda.synchronize()
+    require(torch.equal(got[:n], want_rows) and not bool(got[n:].any()),
+            "embedding_bag gather with 100 empty bags: rows differ")
+    inst += bag_instances(torch, lambda: bag_sum(spare, table))
+    require(inst == [(16, 4, 1), (16, 4, 8)],
+            f"embedding_bag gathers ran instances {inst}, not (16, 4, 1) "
+            "and, with empty bags, (16, 4, 8)")
+    log(f"embedding_bag gather: L={L} (padded) and {n} bags (unpadded), "
+        f"table={tuple(table.shape)}: bit-equal to table[idx], relaunch "
+        f"bit-identical, instance (G, V, U) {inst[0]}; with 100 empty "
+        f"bags too {inst[1]}")
+    ops["bags"] = dict(table=table, padded=fmt_of(idx, seg, L, w),
+                       path=path)
 
-    # weighted bags, random order, some bags empty
+    # weighted bags, random order, 512 bags empty: the tensor wrapper and
+    # the numpy format give the same operands, so the same bits
+    err = 0.0
     n_bags = 4096
     seg_r = torch.randint(0, n_bags - 512, (L,), generator=gen,
                           dtype=torch.int32).to(device)
     w_r = torch.randn(L, generator=gen).to(device)
     got = embedding_bag(table, idx, seg_r, n_bags, w_r)
-    order = torch.sort(seg_r, stable=True).indices
-    want = embedding_bag_plain(table, idx[order], seg_r[order], w_r[order],
-                               n_bags)
-    err = float((got - want).abs().max())
-    errs["embedding_bag"] = max(errs["embedding_bag"], err)
+    fmt = fmt_of(idx, seg_r, n_bags, w_r)
+    got_f, again = bag_sum(fmt, table), bag_sum(fmt, table)
+    torch.cuda.synchronize()
+    want = bag_plain(fmt, table)
+    err = max(err, float((got - want).abs().max()))
     require(torch.allclose(got, want, **TOL_BAGS),
             f"embedding_bag weighted bags: {err:.3e}")
     require(bool((got[n_bags - 512:] == 0).all()), "empty bags not zero")
-    log(f"embedding_bag weighted: {n_bags} bags, 512 empty, "
-        f"max|kernel-plain|={err:.3e}")
-    return errs, gather_ops
+    require(torch.equal(got, got_f) and torch.equal(got_f, again),
+            "embedding_bag weighted: wrapper, format and relaunch differ")
+    inst = bag_instances(torch, lambda: bag_sum(fmt, table))
+    require(inst == [(16, 4, 8)],
+            f"embedding_bag weighted ran instances {inst}, not (16, 4, 8)")
+    log(f"embedding_bag weighted: {n_bags} bags, 512 empty, longest "
+        f"{fmt.max_len}, max|kernel-plain|={err:.3e}, relaunch "
+        f"bit-identical, instance (G, V, U) {inst}")
+
+    # the scalar instance: reddit's 602 features (D % 4 != 0), and a
+    # 64-wide table one float off 16-byte alignment
+    wide = torch.randn((ops["capacity"], 602), generator=gen).to(device)
+    flat = torch.randn(ops["capacity"] * ops["n_feat"] + 1,
+                       generator=gen).to(device)
+    skew = flat[1:].view(ops["capacity"], ops["n_feat"])
+    for label, tab in (("D=602", wide), ("unaligned", skew)):
+        got = bag_sum(path, tab)
+        got_w = bag_sum(fmt, tab)
+        torch.cuda.synchronize()
+        require(torch.equal(got, tab[idx[:n].long()]),
+                f"embedding_bag {label}: gather not bit-equal to table[idx]")
+        want = bag_plain(fmt, tab)
+        e = float((got_w - want).abs().max())
+        err = max(err, e)
+        require(torch.allclose(got_w, want, **TOL_BAGS),
+                f"embedding_bag {label} weighted: {e:.3e}")
+        inst = (bag_instances(torch, lambda: bag_sum(path, tab))
+                + bag_instances(torch, lambda: bag_sum(fmt, tab)))
+        require(inst == [(32, 1, 1), (32, 1, 8)],
+                f"embedding_bag {label}: ran {inst}, not the scalar "
+                "instances (32, 1, 1) and (32, 1, 8)")
+        log(f"embedding_bag {label} table={tuple(tab.shape)}: gather "
+            f"bit-equal, weighted max|kernel-plain|={e:.3e}, instances "
+            f"(G, V, U) {inst}")
+    return err
 
 
 def phase_flash_vs_plain(torch, device):
@@ -735,11 +914,13 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
 
     w.engine.prepare = timed("prepare: numpy CSR + copies",
                              w.engine.prepare)
-    w.engine.pad_input = timed("input rows copy", w.engine.pad_input)
+    w.engine.input_rows = timed("input rows: one copy + placement",
+                                w.engine.input_rows)
     w.engine._step_fn = timed("SAGE fwd/bwd/AdamW (host)",
                               w.engine._step_fn)
     w.device_tier.gather = timed("device-tier gather", w.device_tier.gather)
-    w._resolve_features = timed("feature rows (numpy)", w._resolve_features)
+    w._resolve_features = timed("feature rows (host rows, numpy)",
+                                w._resolve_features)
     t0 = time.perf_counter()
     for s in range(n_warm, n_warm + n_each):
         w.step(0, s)
@@ -759,6 +940,7 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
         for s in range(n_warm + n_each, n_warm + 2 * n_each):
             w.step(0, s)
         torch.cuda.synchronize()
+    steps_with_hits = sum(h > 0 for h in w.step_hits[-n_each:])
     by_name = device_time_by_name(prof)
     busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / n_each
     log(f"profile: device busy {busy_ms:.3f} ms/step, device idle share "
@@ -769,6 +951,10 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
     log(f"profile: host-to-device copies "
         f"{sum(us for us, _ in copies) / 1e3 / n_each:.4f} ms/step "
         f"x{sum(cnt for _, cnt in copies) / n_each:.1f}")
+    for name, (us, cnt) in sorted(by_name.items()):
+        if name.startswith("Memcpy DtoH"):
+            log(f"profile: device-to-host copies {us / 1e3 / n_each:.4f} "
+                f"ms/step x{cnt / n_each:.1f}  {name}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     for name, (us, cnt) in top:
         log(f"  device {us / 1e3 / n_each:8.4f} ms/step x{cnt / n_each:5.1f}"
@@ -784,6 +970,19 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
     require(n_csr == 3 * n_each and n_dense == 0,
             f"profile: {n_csr} csr_spmm_kernel launches (want {3 * n_each}) "
             f"and {n_dense} block_spmm_kernel (want 0)")
+    bags = [(us, cnt) for name, (us, cnt) in by_name.items()
+            if "embedding_bag_kernel" in name]
+    n_bags = sum(cnt for _, cnt in bags)
+    n_sort = sum(cnt for name, (_, cnt) in by_name.items()
+                 if "radixSort" in name)
+    log(f"profile: {n_bags} embedding_bag_kernel launches in {n_each} steps "
+        f"({steps_with_hits} with hits), "
+        f"{sum(us for us, _ in bags) / 1e3 / n_each:.4f} ms/step of device "
+        f"time; {n_sort} radixSort kernels")
+    require(steps_with_hits > 0 and n_bags == steps_with_hits,
+            f"profile: {n_bags} embedding_bag_kernel launches, want one per "
+            f"step with hits ({steps_with_hits})")
+    require(n_sort == 0, f"profile: {n_sort} radixSort kernels in the steps")
 
 
 # ------------------------------------------------------------- phase 4
@@ -984,7 +1183,7 @@ def phase_profile_prefill(torch, cfg, params, tokens):
 
 
 # ------------------------------------------------------------- phase 5
-def phase_timing(torch, device, ops, gather_ops, counts, n_steps):
+def phase_timing(torch, device, ops, counts, n_steps):
     import torch.nn.functional as F
 
     from repro_torch.kernels.embedding_bag import ops as bag_ops
@@ -1043,34 +1242,55 @@ def phase_timing(torch, device, ops, gather_ops, counts, n_steps):
         "dense_ms": per_step["dense_ms"],
     })
 
-    g = gather_ops
-    seg_s, order = torch.sort(g["seg"], stable=True)
-    idx_s, w_s = g["idx"][order].contiguous(), g["w"][order].contiguous()
-    offsets = torch.searchsorted(
-        seg_s, torch.arange(g["n_bags"] + 1, dtype=torch.int32,
-                            device=device), out_int32=True)
-    out = torch.empty((g["n_bags"], g["table"].shape[1]), device=device)
-    ms = timer.ms(lambda: bag_ops.launch(idx_s, w_s, offsets, g["table"],
-                                         out))
-    plain = timer.ms(lambda: bag_ops.embedding_bag_plain(
-        g["table"], idx_s, seg_s, w_s, g["n_bags"]))
-    lib = timer.ms(lambda: F.embedding_bag(
-        idx_s, g["table"], offsets[:-1], mode="sum",
-        per_sample_weights=w_s, include_last_offset=False))
-    L, d = idx_s.numel(), g["table"].shape[1]
-    n_bytes = L * d * 4 + out.numel() * 4 + L * 8 + offsets.numel() * 4
-    b_ms, b_by = bound_ms(n_bytes, 2.0 * L * d)
-    log(f"time embedding_bag gather L={L}: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, F.embedding_bag {lib:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}; {n_bytes / 1e6:.2f} MB)")
+    bags = ops["bags"]
+    table = bags["table"]
+    times = {}
+    for label in ("padded", "path"):
+        fmt = bags[label]
+        out = torch.empty((fmt.n_bags, table.shape[1]), device=device)
+        ms = timer.ms(lambda: bag_ops.bag_launch(fmt, table, out))
+        k_flushed, k_warm = timer.kernel_ms(
+            lambda: bag_ops.bag_launch(fmt, table, out))
+        plain = timer.ms(lambda: bag_ops.bag_plain(fmt, table))
+        lib = timer.ms(lambda: F.embedding_bag(
+            fmt.idx, table, fmt.offsets[:-1], mode="sum",
+            per_sample_weights=fmt.w, include_last_offset=False))
+        lib_flushed, lib_warm = timer.kernel_ms(lambda: F.embedding_bag(
+            fmt.idx, table, fmt.offsets[:-1], mode="sum",
+            per_sample_weights=fmt.w, include_last_offset=False))
+        n_look, d = fmt.idx.numel(), table.shape[1]
+        # rows read once per lookup, rows written, idx + w, offsets
+        n_bytes = (n_look * d * 4 + fmt.n_bags * d * 4 + n_look * 8
+                   + (fmt.n_bags + 1) * 4)
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * n_look * d)
+        times[label] = dict(ms=ms, kernel_ms=k_flushed, kernel_warm_ms=k_warm,
+                            plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                            bound_by=b_by)
+        log(f"time embedding_bag {label} L={n_look} bags={fmt.n_bags}: "
+            f"kernel {ms:.4f} ms (events), {k_flushed:.4f} ms flushed / "
+            f"{k_warm:.4f} ms warm (profiler); plain {plain:.4f} ms; "
+            f"F.embedding_bag {lib:.4f} ms (events), {lib_flushed:.4f} / "
+            f"{lib_warm:.4f} ms (profiler); bound {b_ms:.4f} ms ({b_by}; "
+            f"{n_bytes / 1e6:.2f} MB)")
+    empty = bag_ops.BagFormat.from_numpy([], [], 1, None, device)
+    one = torch.zeros((1, table.shape[1]), device=device)
+    out = torch.empty_like(one)
+
+    def floor():
+        bag_ops.bag_launch(empty, one, out)
+
+    f_ms = timer.ms(floor)
+    f_flushed, f_warm = timer.kernel_ms(floor)
+    log(f"time embedding_bag floor (one empty bag): {f_ms:.4f} ms (events), "
+        f"{f_flushed:.4f} / {f_warm:.4f} ms (profiler)")
+    path = times["path"]
     rows.append({
         "name": "embedding_bag", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_bag/kernel.py:48",
         "launches": counts["embedding_bag"],
         "max_abs_err": ops["errs"]["embedding_bag"],
-        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib,
+        **path, "padded_ms": times["padded"]["ms"],
     })
     log(f"launches per step: csr_spmm "
         f"{counts['csr_spmm'] / n_steps:.3f}, block_spmm "
@@ -1138,8 +1358,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_card_and_build(torch)
     ops = main_path_operands(torch, device)
-    errs, gather_ops = phase_kernels_vs_plain(torch, device, ops)
-    ops["errs"] = errs
+    ops["errs"] = phase_kernels_vs_plain(torch, device, ops)
     flash_err, flash_operands = phase_flash_vs_plain(torch, device)
     counts, step_ms, n_steps = phase_main_path(torch, device)
     phase_card_vs_cpu(torch, device)
@@ -1149,7 +1368,7 @@ def main() -> int:
     phase_profile_decode(torch, device, cfg, params)
     del params
     torch.cuda.empty_cache()
-    rows = phase_timing(torch, device, ops, gather_ops, counts, n_steps)
+    rows = phase_timing(torch, device, ops, counts, n_steps)
     rows.append(flash_timing_row(torch, device, flash_operands,
                                  lm_counts["flash_attention"], flash_err))
     log(f"median measured step: {step_ms:.4f} ms; total "

@@ -36,7 +36,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 ENTRIES = {
     "block_spmm_f32": ("block_spmm", (_P, _P, _P, _P, _P, _I, _I, _P)),
     "csr_spmm_f32": ("csr_spmm", (_P, _P, _P, _P, _P, _I, _I, _P)),
-    "embedding_bag_f32": ("embedding_bag", (_P, _P, _P, _P, _P, _I, _I, _P)),
+    # idx, w, offsets, table, out, n_bags, d, n_lookups, max_len, stream
+    "embedding_bag_f32": ("embedding_bag", (_P,) * 5 + (_I,) * 4 + (_P,)),
     # q, k, v, o, dtype code, D, B, Sq, Sk, Hq, Hkv, 12 strides, causal,
     # stream
     "flash_attention_fwd": ("flash_attention",

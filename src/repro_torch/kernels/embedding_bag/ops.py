@@ -1,24 +1,88 @@
-"""Sum-mode EmbeddingBag: the kernel wrapper and its plain version.
+"""Sum-mode EmbeddingBag: its operand format, the kernel wrapper and its
+plain version.
 
-Port of ``repro/kernels/embedding_bag/ops.py::embedding_bag_pallas``.
-``embedding_bag`` stable-sorts the lookups by bag, as the reference
-wrapper does, then launches the hand-written CUDA kernel
-``csrc/embedding_bag.cu`` (which replaces
-``repro/kernels/embedding_bag/kernel.py::embedding_bag_kernel``) for CUDA
-tensors, or takes :func:`embedding_bag_plain` for CPU tensors. Both give
-the TPU kernel's semantics: a bag's first lookup assigns, later ones add,
-and a bag with no lookups is zero. One lookup per bag with unit weight is
-therefore a bit-exact row gather.
+Port of ``repro/kernels/embedding_bag/ops.py::embedding_bag_pallas``. The
+hand-written CUDA kernel ``csrc/embedding_bag.cu`` replaces
+``repro/kernels/embedding_bag/kernel.py:48``
+(``embedding_bag_kernel``). Both give the TPU kernel's semantics: a bag's
+first lookup assigns, later ones add, the product is rounded before the
+sum, and a bag with no lookups is zero. One lookup per bag with unit
+weight is therefore a bit-exact row gather.
+
+The kernel takes its operands as a :class:`BagFormat`: the lookups
+stably sorted by bag, their weights and the bag offsets, built and range
+checked once in numpy (:meth:`BagFormat.from_numpy`) and moved to the
+device in one copy, so a launch reads nothing back from the device.
+:func:`bag_sum` launches the kernel for a CUDA table and takes
+:func:`bag_plain` for a CPU one. The tensor wrapper :func:`embedding_bag`
+sorts on the device instead, for callers that hold tensors.
 
 Bound: bytes (one table row read per lookup, one row written per bag).
-Design (note at the top of ``csrc/embedding_bag.cu``): one warp per bag
-over its run of sorted lookups, each warp load one coalesced row.
+Design (note at the top of ``csrc/embedding_bag.cu``): a group of D/4
+lanes owns a bag, one float4 a lane per row, one streaming store per
+lane; exactly one lookup per bag (the gather) runs an instance that
+reads no offsets and holds no row buffers, so every SM keeps 64 warps of
+bags in flight, and any other bags one that loads a batch of lookups at
+once with 8 rows in flight.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
+from repro_torch.device import to_device_packed
 from repro_torch.kernels import _build
+
+
+@dataclasses.dataclass(frozen=True)
+class BagFormat:
+    """Bag-sorted lookups on a device, checked when they were made."""
+
+    idx: torch.Tensor       # (L,) int32 table rows, stably sorted by bag
+    w: torch.Tensor         # (L,) float32 weights, in the same order
+    offsets: torch.Tensor   # (n_bags + 1,) int32: bag b owns [o[b], o[b+1])
+    n_rows: int             # rows the table needs: max(idx) + 1 (0 if L = 0)
+    max_len: int            # lookups in the longest bag (0 if L = 0)
+
+    @property
+    def n_bags(self) -> int:
+        return self.offsets.shape[0] - 1
+
+    @classmethod
+    def from_numpy(cls, indices, segment_ids, n_bags: int, weights,
+                   device) -> BagFormat:
+        """Sort (stably), offset and range-check ``(L,)`` lookups and their
+        bags in numpy, then move them to ``device`` in one copy.
+        ``weights`` None means unit weights."""
+        indices = np.asarray(indices)
+        segment_ids = np.asarray(segment_ids)
+        n_bags = int(n_bags)
+        if indices.ndim != 1 or segment_ids.shape != indices.shape:
+            raise ValueError("BagFormat: indices and segments must be (L,)")
+        if n_bags < 0:
+            raise ValueError("BagFormat: n_bags must be >= 0")
+        w = (np.ones(indices.shape, np.float32) if weights is None
+             else np.asarray(weights, np.float32))
+        if w.shape != indices.shape:
+            raise ValueError("BagFormat: weights must be (L,)")
+        n_rows = 0
+        if indices.size:
+            lo, hi = int(indices.min()), int(indices.max())
+            if lo < 0 or hi >= 2**31:
+                raise IndexError("embedding_bag: indices out of range")
+            if not (0 <= segment_ids.min() and segment_ids.max() < n_bags):
+                raise IndexError("embedding_bag: segment ids out of range")
+            n_rows = hi + 1
+        order = np.argsort(segment_ids, kind="stable")
+        offsets = np.searchsorted(segment_ids[order], np.arange(n_bags + 1),
+                                  side="left")
+        max_len = int(np.diff(offsets).max()) if indices.size else 0
+        idx, w, offsets = to_device_packed(
+            [indices[order].astype(np.int32), w[order],
+             offsets.astype(np.int32)], device)
+        return cls(idx, w, offsets, n_rows, max_len)
 
 
 def embedding_bag_plain(table, idx, seg, w, n_bags: int) -> torch.Tensor:
@@ -35,12 +99,88 @@ def embedding_bag_plain(table, idx, seg, w, n_bags: int) -> torch.Tensor:
     return out
 
 
+def bag_plain(fmt: BagFormat, table) -> torch.Tensor:
+    """:func:`embedding_bag_plain` over a :class:`BagFormat`."""
+    seg = torch.repeat_interleave(
+        torch.arange(fmt.n_bags, dtype=torch.int32, device=table.device),
+        (fmt.offsets[1:] - fmt.offsets[:-1]).long(),
+        output_size=fmt.idx.shape[0],
+    )
+    return embedding_bag_plain(table, fmt.idx, seg, fmt.w, fmt.n_bags)
+
+
+def _check_table(fmt: BagFormat, table) -> None:
+    if table.dtype != torch.float32 or table.dim() != 2:
+        raise TypeError("embedding_bag: table must be (R, D) float32")
+    if not (fmt.idx.device == fmt.w.device == fmt.offsets.device
+            == table.device):
+        raise ValueError("embedding_bag: all operands must be on one device")
+    if table.shape[0] < fmt.n_rows:
+        raise IndexError("embedding_bag: indices out of range of table")
+
+
+def bag_sum(fmt: BagFormat, table) -> torch.Tensor:
+    """(n_bags, D) bag sums of ``table`` rows: the CUDA kernel for a CUDA
+    table, :func:`bag_plain` for a CPU one. Reads nothing back from the
+    device."""
+    if table.device.type == "cpu":
+        _check_table(fmt, table)
+        return bag_plain(fmt, table)
+    out = torch.empty((fmt.n_bags, table.shape[1]), dtype=table.dtype,
+                      device=table.device)
+    bag_launch(fmt, table, out)
+    return out
+
+
+def bag_launch(fmt: BagFormat, table, out) -> None:
+    """Launch the kernel into ``out`` (counts one launch). Checks device,
+    dtype, shape and contiguity on the host; reads nothing on the
+    device."""
+    _check_table(fmt, table)
+    if table.device.type != "cuda":
+        raise ValueError(f"embedding_bag: kernel needs CUDA, got "
+                         f"{table.device}")
+    if out.dtype != torch.float32 or out.device != table.device \
+            or tuple(out.shape) != (fmt.n_bags, table.shape[1]):
+        raise ValueError("embedding_bag: out must be (n_bags, D) float32 "
+                         "on the table's device")
+    for name, t in (("table", table), ("out", out), ("idx", fmt.idx),
+                    ("w", fmt.w), ("offsets", fmt.offsets)):
+        if not t.is_contiguous():
+            raise ValueError(f"embedding_bag: {name} must be contiguous")
+    if fmt.n_bags == 0 or table.shape[1] == 0:
+        return  # nothing to launch
+    fn = _build.entry("embedding_bag_f32")
+    err = fn(
+        fmt.idx.data_ptr(), fmt.w.data_ptr(), fmt.offsets.data_ptr(),
+        table.data_ptr(), out.data_ptr(), int(fmt.n_bags),
+        int(table.shape[1]), int(fmt.idx.shape[0]), int(fmt.max_len),
+        torch.cuda.current_stream(table.device).cuda_stream,
+    )
+    embedding_bag.launches += 1
+    _build.check("embedding_bag_f32", err)
+
+
+def sort_bags(indices, segment_ids, n_bags: int, weights):
+    """The tensor wrapper's operands: lookups and weights stably sorted
+    by bag on their device, and the bag offsets by ``searchsorted``.
+    Returns ``(idx, w, offsets)``."""
+    seg_s, order = torch.sort(segment_ids, stable=True)
+    offsets = torch.searchsorted(
+        seg_s, torch.arange(n_bags + 1, dtype=torch.int32,
+                            device=seg_s.device), out_int32=True,
+    )
+    return indices[order].contiguous(), weights[order].contiguous(), offsets
+
+
 def embedding_bag(table, indices, segment_ids, n_bags: int,
                   weights=None) -> torch.Tensor:
     """(n_bags, D) sum-mode bags of ``table`` rows.
 
     ``indices``/``segment_ids`` are (L,) int32 lookups and their bags (any
-    order), ``weights`` an optional (L,) float32 per-lookup scale.
+    order), ``weights`` an optional (L,) float32 per-lookup scale. The
+    range check reads the extremes back to the host (a sync on the card);
+    the trainer's path builds a :class:`BagFormat` in numpy instead.
     """
     if not (table.device == indices.device == segment_ids.device):
         raise ValueError("embedding_bag: all operands must be on one device")
@@ -56,44 +196,22 @@ def embedding_bag(table, indices, segment_ids, n_bags: int,
     if weights.shape != indices.shape or weights.dtype != table.dtype \
             or weights.device != table.device:
         raise ValueError("embedding_bag: weights must be (L,) like table")
-    seg_s, order = torch.sort(segment_ids, stable=True)
-    idx_s = indices[order].contiguous()
-    w_s = weights[order].contiguous()
-    if table.device.type == "cpu":
-        return embedding_bag_plain(table, idx_s, seg_s, w_s, n_bags)
-    if table.device.type != "cuda":
+    if table.device.type not in ("cpu", "cuda"):
         raise ValueError(f"embedding_bag: unsupported device {table.device}")
-    if not table.is_contiguous():
-        raise ValueError("embedding_bag: table must be contiguous")
-    if idx_s.shape[0]:
-        lo_hi = torch.stack([
-            idx_s.min(), idx_s.max(), seg_s[0], seg_s[-1],
+    idx, w, offsets = sort_bags(indices, segment_ids, n_bags, weights)
+    n_rows = max_len = 0
+    if indices.shape[0]:
+        lo, hi, s_lo, s_hi = torch.stack([
+            indices.min(), indices.max(), segment_ids.min(),
+            segment_ids.max(),
         ]).tolist()
-        if not (0 <= lo_hi[0] and lo_hi[1] < table.shape[0]):
+        if not (0 <= lo and hi < table.shape[0]):
             raise IndexError("embedding_bag: indices out of range of table")
-        if not (0 <= lo_hi[2] and lo_hi[3] < n_bags):
+        if not (0 <= s_lo and s_hi < n_bags):
             raise IndexError("embedding_bag: segment ids out of range")
-    offsets = torch.searchsorted(
-        seg_s, torch.arange(n_bags + 1, dtype=torch.int32,
-                            device=seg_s.device), out_int32=True,
-    )
-    out = torch.empty((n_bags, table.shape[1]), dtype=table.dtype,
-                      device=table.device)
-    launch(idx_s, w_s, offsets, table, out)
-    return out
-
-
-def launch(idx, w, offsets, table, out) -> None:
-    """Launch the kernel on checked, bag-sorted operands (counts one
-    launch)."""
-    fn = _build.entry("embedding_bag_f32")
-    err = fn(
-        idx.data_ptr(), w.data_ptr(), offsets.data_ptr(), table.data_ptr(),
-        out.data_ptr(), int(out.shape[0]), int(out.shape[1]),
-        torch.cuda.current_stream(table.device).cuda_stream,
-    )
-    embedding_bag.launches += 1
-    _build.check("embedding_bag_f32", err)
+        n_rows = hi + 1
+        max_len = int((offsets[1:] - offsets[:-1]).max())
+    return bag_sum(BagFormat(idx, w, offsets, n_rows, max_len), table)
 
 
 embedding_bag.launches = 0

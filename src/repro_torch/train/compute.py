@@ -19,19 +19,26 @@ step at the trainer's size, 0.2-0.4% of it nonzero), the CSR of a step is
 about 0.2 MB. Prepared batches sit in a bounded LRU keyed by
 ``(epoch, step)``.
 
-The step is timed with CUDA events on the card and ``time.perf_counter``
-on the CPU. On the first step ``check_parity`` holds the CSR path
-against the plain scatter path (``sage.apply_blocks``), tolerance 2e-3.
+The step's input rows come as an :class:`InputRows`: the rows read on
+the host and the device tier's hits, already on the device, each with its
+positions. ``place_input`` writes both into the padded input with one
+host-to-device copy (the host rows and all positions, packed) and two
+``index_copy_``; the result is bit-equal to padding the host overlay of
+every row. The step is timed with CUDA events on the card and
+``time.perf_counter`` on the CPU. On the first step ``check_parity``
+holds the CSR path against the plain scatter path
+(``sage.apply_blocks``), tolerance 2e-3.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import OrderedDict
 
 import numpy as np
 import torch
 
-from repro_torch.device import resolve
+from repro_torch.device import resolve, to_device_packed
 from repro_torch.kernels.segment_mm import (
     TILE,
     CsrFormat,
@@ -45,6 +52,22 @@ from repro_torch.train import grad_compression as gc
 
 LEARNING_RATE = 3e-3  # the reference's measured and modeled lanes' lr
 PREP_CACHE_SIZE = 16  # prepared batches kept (a rebuild window's worth)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputRows:
+    """A step's input feature rows in two parts, each with its positions
+    in the input order: rows read on the host, and rows already on the
+    engine's device (the device tier's hits)."""
+
+    host_rows: np.ndarray              # (n_host, d_in) float32
+    host_pos: np.ndarray               # (n_host,) int64
+    device_rows: torch.Tensor | None   # (n_device, d_in) float32
+    device_pos: np.ndarray             # (n_device,) int64
+
+    @property
+    def n(self) -> int:
+        return len(self.host_pos) + len(self.device_pos)
 
 
 def _bucket(n: int) -> int:
@@ -169,6 +192,28 @@ class ComputeEngine:
         x[: len(x_in)] = x_in
         return torch.as_tensor(x).to(self.device)
 
+    def place_input(self, x_in: InputRows, x_rows: int) -> torch.Tensor:
+        """Zero-padded (x_rows, d_in) input on the device: the host rows
+        and every position in one copy, each part placed at its rows."""
+        n_host = len(x_in.host_pos)
+        pos, rows = to_device_packed(
+            [np.concatenate([x_in.host_pos, x_in.device_pos]).astype(np.int64),
+             np.asarray(x_in.host_rows, np.float32)], self.device)
+        x = torch.empty((x_rows, self.mcfg.d_in), dtype=torch.float32,
+                        device=self.device)
+        x[x_in.n:].zero_()
+        x.index_copy_(0, pos[:n_host], rows)
+        if len(x_in.device_pos):
+            x.index_copy_(0, pos[n_host:], x_in.device_rows)
+        return x
+
+    def input_rows(self, x_in, x_rows: int) -> torch.Tensor:
+        """The padded device input from an :class:`InputRows` or from the
+        host rows of every input node (an array)."""
+        if isinstance(x_in, InputRows):
+            return self.place_input(x_in, x_rows)
+        return self.pad_input(np.asarray(x_in, np.float32), x_rows)
+
     # ------------------------------------------------------------ forward
     def _forward(self, params, x_pad, layers):
         """CSR-path SAGE forward over prepared layers (padded rows)."""
@@ -204,15 +249,16 @@ class ComputeEngine:
         return loss
 
     # --------------------------------------------------------------- step
-    def step(self, mb, x_in: np.ndarray, key=None) -> float:
+    def step(self, mb, x_in, key=None) -> float:
         """One measured forward/backward/optimizer step over ``x_in``, the
-        resolved feature rows for ``mb.input_nodes``. Returns its measured
-        seconds; loss/edge-count/timing streams accumulate on the engine.
+        resolved feature rows for ``mb.input_nodes`` (an
+        :class:`InputRows` or an array). Returns its measured seconds;
+        loss/edge-count/timing streams accumulate on the engine.
         """
         layers, x_rows, n_edges = self.prepare(mb, key)
+        x_pad = self.input_rows(x_in, x_rows)
         if self.parity_max_diff is None:
-            self.check_parity(mb, x_in, _prep=(layers, x_rows))
-        x_pad = self.pad_input(np.asarray(x_in, np.float32), x_rows)
+            self.check_parity(mb, x_in, _prep=(layers, x_pad))
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -232,21 +278,21 @@ class ComputeEngine:
 
     # ------------------------------------------------------------- parity
     @torch.no_grad()
-    def check_parity(self, mb, x_in: np.ndarray, tol: float | None = None,
-                     _prep=None):
+    def check_parity(self, mb, x_in, tol: float | None = None, _prep=None):
         """Assert CSR-path forward == scatter reference on this batch.
 
         The reference is ``sage.apply_blocks`` (per-edge gather + scatter
-        mean) on the UNPADDED blocks; the CSR path must agree on every
-        valid dst row within float-accumulation tolerance.
+        mean) on the UNPADDED blocks, which index only the input's own
+        rows; the CSR path must agree on every valid dst row within
+        float-accumulation tolerance.
         """
         tol = self._parity_tol if tol is None else tol
         if _prep is None:
             layers, x_rows, _ = self.prepare(mb)
+            x_pad = self.input_rows(x_in, x_rows)
         else:
-            layers, x_rows = _prep
-        x_np = np.asarray(x_in, np.float32)
-        got = self._forward(self.params, self.pad_input(x_np, x_rows), layers)
+            layers, x_pad = _prep
+        got = self._forward(self.params, x_pad, layers)
         dev = self.device
         ref_blocks = [
             {
@@ -257,9 +303,7 @@ class ComputeEngine:
             }
             for b in mb.blocks
         ]
-        ref = sage.apply_blocks(
-            self.params, self.mcfg, torch.as_tensor(x_np).to(dev), ref_blocks,
-        )
+        ref = sage.apply_blocks(self.params, self.mcfg, x_pad, ref_blocks)
         n = ref.shape[0]
         valid = np.asarray(mb.blocks[-1].dst_mask, bool)
         diff = (got[:n] - ref).abs().cpu().numpy()[valid]

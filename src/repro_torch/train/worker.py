@@ -26,6 +26,7 @@ from repro_torch.core.energy import EnergyMeter, StepSample
 from repro_torch.core.windowed_cache import CacheStats, DoubleBufferedCache
 from repro_torch.device import resolve
 from repro_torch.graph.features import ShardedFeatureStore
+from repro_torch.train.compute import ComputeEngine, InputRows
 
 WINDOWED_METHODS = ("static_w", "heuristic", "greendygnn", "greendygnn_nocw")
 ADAPTIVE_METHODS = ("heuristic", "greendygnn", "greendygnn_nocw")
@@ -181,8 +182,6 @@ class TrainerWorker:
         if cfg.compute == "measured" and self.mbs is not None:
             # measured lane: a real SAGE step each trainer step; its time
             # replaces the modeled t_base charge below
-            from repro_torch.train.compute import ComputeEngine
-
             self.engine = ComputeEngine(graph, cfg)
 
         self.t_base = float(params.t_base)
@@ -337,12 +336,11 @@ class TrainerWorker:
 
         device_rows = None
         if self.device_tier is not None and len(remote_ids):
-            # hit path: real payload rows gathered from the device tier
-            # through the embedding_bag kernel (timings and the hit/miss
-            # stream above are untouched)
-            hit_mask, _rows = self.device_tier.gather(remote_ids)
-            self.store.tier_stats.device_hits += int(hit_mask.sum())
-            device_rows = (hit_mask, _rows)
+            # hit path: real payload rows gathered on the device tier
+            # through the embedding_bag kernel, left on the device
+            # (timings and the hit/miss stream above are untouched)
+            device_rows = self.device_tier.gather(remote_ids)
+            self.store.tier_stats.device_hits += int(device_rows[0].sum())
 
         gpu_overlap = 0.0
         if cfg.method in ("dgl", "bgl"):
@@ -451,20 +449,25 @@ class TrainerWorker:
 
     # ------------------------------------------------------------- features
     def _resolve_features(self, input_nodes, remote_ids, device_rows):
-        """Feature payload rows for the measured step: host rows from the
-        store's pure peek, with the remote ids resident on the device tier
-        overlaid by the rows the tier just gathered through the
-        embedding_bag kernel (bit-identical to the host rows)."""
+        """The measured step's input rows: the remote ids resident on the
+        device tier stay on the device, where the embedding_bag kernel
+        just gathered them (bit-equal to the store's rows), and only the
+        other rows are peeked from the store on the host."""
         ids = np.asarray(input_nodes, np.int64)
-        x = np.asarray(self.store.peek_rows(ids), np.float32)
+        dev_pos = np.empty(0, np.int64)
+        rows = None
         if device_rows is not None:
             hit_mask, rows = device_rows
-            if hit_mask.any():
-                # remote_ids is the order-preserving remote subset of
-                # input_nodes, so remote position k sits at rpos[k]
-                rpos = np.flatnonzero(self.owner[ids] != self.rank)
-                x[rpos[hit_mask]] = np.asarray(rows, np.float32)
-        return x
+            # remote_ids is the order-preserving remote subset of
+            # input_nodes, so remote position k sits at rpos[k]
+            dev_pos = np.flatnonzero(self.owner[ids] != self.rank)[hit_mask]
+        host = np.ones(len(ids), bool)
+        host[dev_pos] = False
+        host_pos = np.flatnonzero(host)
+        return InputRows(
+            np.asarray(self.store.peek_rows(ids[host_pos]), np.float32),
+            host_pos, rows, dev_pos,
+        )
 
     # --------------------------------------------------------------- result
     def result(self):
