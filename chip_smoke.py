@@ -13,8 +13,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    flash kernel (``flash_fwd_wgmma_kernel<D>``, D in 32, 64, 128): log
    its registers and spills, and fail if it spills or if ptxas says
    "wgmma.mma_async instructions are serialized". Likewise fail if an
-   instance of the CSR SpMM (``csr_spmm_kernel<G>``) or of the
-   EmbeddingBag kernel (``embedding_bag_kernel<G, V, U>``, 24 of them)
+   instance of the CSR SpMM (``csr_spmm_kernel<G, V>``, 12 of them) or of
+   the EmbeddingBag kernel (``embedding_bag_kernel<G, V, U>``, 24 of them)
    spills.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes its main path gives it. The trainer's kernels at the first
@@ -25,7 +25,14 @@ Phases, each of which ends the run with a non-zero exit on failure:
    port, kept off the path as the witness) on the same adjacency, built
    by ``to_block_sparse`` at the same buckets (both sum the same FFMAs in
    ascending column order); ``Spmm``'s backward against plain autograd
-   (same tolerance). The EmbeddingBag
+   (same tolerance). Then the CSR SpMM at any width: F = 6 and 130 (the
+   scalar instance) and 132 and 256 (float4, two column slabs) on the
+   layer-0 CSR, and F = 1,433 on full_graph_sm's layer-0 CSR from the
+   trainer's input rows (1,436 floats apart: float4, 12 slabs) and from
+   the same rows contiguous (scalar, 45 slabs); each against the plain
+   version (``TOL_SPMM``), relaunched bit-identical, the instance read
+   from the profiler's kernel names, and at F % 4 == 0 ``torch.equal`` to
+   the dense-block kernel. The EmbeddingBag
    gather ``torch.equal`` to ``table[idx]`` at the padded L = 8192 shape
    the gather ran until the port dropped the pad, and at the path's own
    shape (one bag per hit, built by ``BagFormat.from_numpy`` as the device
@@ -55,9 +62,23 @@ Phases, each of which ends the run with a non-zero exit on failure:
    must have launched both of its kernels (the CSR SpMM 3 times a step
    and twice in the parity check; the dense-block kernel never), passed
    the CSR-path/scatter parity check (< 2e-3), given finite losses and
-   let the controller decide after warmup. A short static-window run on the card is then
+   let the controller decide after warmup. Then more trainer paths
+   through ``gnn_trainer.run``, each with the counts zeroed just before
+   and read just after and held to the same launch rules: full_graph_sm
+   (d_in = 1,433, 6 measured steps); the congestion runs, the reddit
+   stand-in at the main path's widths and batch (5 epochs of 4 steps, 1
+   of warmup) for dgl, static_w, heuristic and greendygnn under the
+   event fabric's ``paper_schedule`` and ``bursty_markov``, one line a run
+   with its joules per epoch, windows, hits, misses, remote bytes and
+   launches, the adaptive methods required to decide; ooc_community
+   (96 features, streamed) under a host budget of 0.3 of its feature
+   matrix, which must fetch blocks and stay within the budget unless a
+   pin ran over it. A short static-window run on the card is then
    compared with the same run on the CPU through the plain versions
-   (discrete streams equal, losses rtol 1e-4). Then ``torch.profiler``
+   (discrete streams equal, losses rtol 1e-4), and static_w and heuristic
+   under both scenarios in the modeled lane with device payloads (the
+   card gathers through the EmbeddingBag kernel) with the CPU: every field
+   of the result digest, energy totals included, bit-equal. Then ``torch.profiler``
    splits steady trainer steps into device time by kernel against the host
    clock, and fails unless the steps' kernels include
    ``csr_spmm_kernel`` and no ``block_spmm_kernel``, and one
@@ -84,7 +105,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    each queued behind a spin kernel so the host's enqueue time is not
    counted), beside the least time the card could take, and print one
    ``{"kernels": ...}`` line. The SpMM row also carries the dense-block
-   kernel's time on the same adjacency (``dense_ms``). The EmbeddingBag
+   kernel's time on the same adjacency (``dense_ms``); a second SpMM row,
+   ``csr_spmm_f1433``, times full_graph_sm's layer 0 (F = 1,433) with its
+   bound from the entries, the X rows they reference and Y, and the
+   scalar instance's time on the same rows contiguous (``scalar_ms``). The EmbeddingBag
    row, at the path's shape, also carries the kernel's own device time
    from ``torch.profiler`` (``kernel_ms``: L2 flushed before each call;
    ``kernel_warm_ms``: back to back) and the event time at the padded
@@ -133,6 +157,21 @@ MAIN_PATH = dict(
     async_pipeline=False, trace=False, batch_size=2000, n_epochs=3,
     warmup_epochs=2, steps_per_epoch=8, seed=SEED,
 )
+
+# the other trainer paths, each through gnn_trainer.run with the measured
+# lane and device payloads: full_graph_sm (d_in 1,433) for a few steps,
+# the congestion runs (the reddit stand-in at MAIN_PATH's widths and batch
+# under each method and scenario), ooc_community under a host budget
+FULL_GRAPH = dict(method="static_w", dataset="full_graph_sm",
+                  compute="measured", batch_size=2000, n_epochs=2,
+                  warmup_epochs=1, steps_per_epoch=3, seed=SEED)
+# (5 epochs: the paper schedule congests from epoch 3 on)
+CONGESTION = dict(MAIN_PATH, n_epochs=5, warmup_epochs=1, steps_per_epoch=4,
+                  static_window=2)
+BUDGETED = dict(method="static_w", dataset="ooc_community",
+                compute="measured", scenario="clean", batch_size=2000,
+                n_epochs=2, warmup_epochs=1, steps_per_epoch=4,
+                static_window=2, seed=SEED)
 
 
 class SmokeError(RuntimeError):
@@ -225,11 +264,7 @@ def bound_ms(n_bytes: float, n_flops: float,
 
 # ------------------------------------------------------------- phase 1
 def phase_card_and_build(torch):
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    smi = smi_line()
     log(smi)
     log(f"device: {torch.cuda.get_device_name(0)} "
         f"(count {torch.cuda.device_count()}), torch {torch.__version__}, "
@@ -301,25 +336,27 @@ def check_wgmma_build(text: str) -> None:
 
 
 def check_csr_build(text: str) -> None:
-    """The CSR SpMM's ptxas report: one instance per group width G (F / 4
-    rounded up to a power of two, F <= 128), none spilling its batch
-    registers."""
+    """The CSR SpMM's ptxas report: one instance per group width G (1 to
+    32 lanes) and lane width V (4: float4, 1: scalar), none spilling its
+    batch registers."""
     import re
 
     found = {}
     for name, info in ptxas_functions(text).items():
-        hit = re.search(r"csr_spmm_kernelILi(\d+)E", name)
+        hit = re.search(r"csr_spmm_kernelILi(\d+)ELi(\d+)E", name)
         if hit:
-            found[int(hit.group(1))] = info
-    require(sorted(found) == [1, 2, 4, 8, 16, 32],
-            f"ptxas report lists csr_spmm_kernel instances for G="
-            f"{sorted(found)}, not 1 to 32 (is the build log missing?)")
-    for g, info in sorted(found.items()):
-        log(f"  ptxas[csr_spmm] csr_spmm_kernel<{g}>: "
+            found[tuple(map(int, hit.groups()))] = info
+    want = [(g, v) for g in (1, 2, 4, 8, 16, 32) for v in (1, 4)]
+    require(sorted(found) == want,
+            f"ptxas report lists csr_spmm_kernel instances (G, V) = "
+            f"{sorted(found)}, not G = 1 to 32 by V = 1, 4 (is the build "
+            "log missing?)")
+    for (g, v), info in sorted(found.items()):
+        log(f"  ptxas[csr_spmm] csr_spmm_kernel<{g}, {v}>: "
             f"{info.get('registers')} registers, {info.get('spill_stores')} "
             f"bytes spill stores, {info.get('spill_loads')} bytes spill loads")
         require(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
-                f"csr_spmm_kernel<{g}> spills")
+                f"csr_spmm_kernel<{g}, {v}> spills")
 
 
 def check_bag_build(text: str) -> None:
@@ -935,13 +972,28 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
     log(f"  host {wall_ms - sum(spans.values()) * 1e3 / n_each:8.3f} "
         "ms/step  rest of the trainer step")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from repro_torch.kernels.embedding_bag import embedding_bag
+
+    # a short spin and a pause lead the profiled window (the profiler can
+    # miss the device's first activity after it starts); the spin's
+    # kernel, learned from a profile of it alone, is left out
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as probe:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    lead = set(device_time_by_name(probe))
+    bags0 = embedding_bag.launches
+    with profile(activities=acts) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
         for s in range(n_warm + n_each, n_warm + 2 * n_each):
             w.step(0, s)
         torch.cuda.synchronize()
+    wrapper_bags = embedding_bag.launches - bags0
     steps_with_hits = sum(h > 0 for h in w.step_hits[-n_each:])
-    by_name = device_time_by_name(prof)
+    by_name = {name: v for name, v in device_time_by_name(prof).items()
+               if name not in lead}
     busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / n_each
     log(f"profile: device busy {busy_ms:.3f} ms/step, device idle share "
         f"{1.0 - busy_ms / wall_ms:.4f} of the unprofiled host wall")
@@ -976,13 +1028,365 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
     n_sort = sum(cnt for name, (_, cnt) in by_name.items()
                  if "radixSort" in name)
     log(f"profile: {n_bags} embedding_bag_kernel launches in {n_each} steps "
-        f"({steps_with_hits} with hits), "
+        f"({steps_with_hits} with hits, {wrapper_bags} counted by the "
+        f"wrapper), "
         f"{sum(us for us, _ in bags) / 1e3 / n_each:.4f} ms/step of device "
         f"time; {n_sort} radixSort kernels")
-    require(steps_with_hits > 0 and n_bags == steps_with_hits,
-            f"profile: {n_bags} embedding_bag_kernel launches, want one per "
-            f"step with hits ({steps_with_hits})")
+    require(steps_with_hits > 0
+            and n_bags == wrapper_bags == steps_with_hits,
+            f"profile: {n_bags} embedding_bag_kernel launches in the trace, "
+            f"{wrapper_bags} counted, want one per step with hits "
+            f"({steps_with_hits})")
     require(n_sort == 0, f"profile: {n_sort} radixSort kernels in the steps")
+
+
+# ------------------------------------------------------------- phase 3b
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def csr_instances(torch, fn) -> list:
+    """The (G, V) of every CSR SpMM kernel ``fn`` launches, from the
+    kernel names ``torch.profiler`` reports."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = []
+    for name, (_, cnt) in device_time_by_name(prof).items():
+        hit = re.search(r"csr_spmm_kernel<(\d+),\s*(\d+)>", name)
+        if hit:
+            found += [tuple(map(int, hit.groups()))] * cnt
+    return found
+
+
+def full_graph_operands(torch, device):
+    """full_graph_sm's first mini-batch as the trainer prepares it: the
+    layer-0 CSR and the input rows in the trainer's layout (rows 1,436
+    floats apart, the first 1,433 used)."""
+    from repro_torch.store import MemoryBudget
+    from repro_torch.train import compute, gnn_trainer as gt
+
+    cfg = gt.RunConfig(**dict(FULL_GRAPH, n_epochs=1, steps_per_epoch=1),
+                       mem_budget=MemoryBudget(), device=str(device))
+    graph, _owner, _traces, mbs = gt.build_trace(cfg)
+    eng = compute.ComputeEngine(graph, cfg)
+    mb = mbs[0][0]
+    layers, x_rows, _ = eng.prepare(mb)
+    x = eng.pad_input(graph.features[mb.input_nodes], x_rows)
+    return layers[0]["fwd"], x, len(mb.input_nodes)
+
+
+def phase_spmm_widths(torch, device, ops):
+    """The CSR SpMM at widths the kernel took no launch at before: F = 6,
+    130 (scalar instance), 132, 256 (float4, two slabs) on the reddit
+    layer-0 CSR, and F = 1,433 on full_graph_sm's layer-0 CSR, from the
+    trainer's padded-stride input (float4, twelve slabs) and from the same
+    rows contiguous (scalar, 45 slabs). Each against the plain version at
+    ``TOL_SPMM``, a relaunch bit-identical, and where F % 4 == 0
+    ``torch.equal`` to the dense witness."""
+    from repro_torch.kernels.segment_mm import (
+        block_spmm, csr_spmm, csr_spmm_plain,
+    )
+    from repro_torch.kernels.segment_mm import ops as spmm_ops
+
+    fmt0, dense0 = ops["layers"][0]["fwd"], ops["dense"][0]
+    gen = torch.Generator().manual_seed(SEED + 1)
+    cases = []
+    for f in (6, 130, 132, 256):
+        x = torch.randn((fmt0.n_cols, f), generator=gen).to(device)
+        cases.append((f"reddit layer0 F={f}", fmt0, x, dense0))
+    fmt_fg, x_fg, _ = full_graph_operands(torch, device)
+    cases.append(("full_graph_sm layer0 F=1433 trainer layout", fmt_fg, x_fg,
+                  None))
+    cases.append(("full_graph_sm layer0 F=1433 contiguous", fmt_fg,
+                  x_fg.contiguous(), None))
+    err_max = 0.0
+    for label, fmt, x, dense in cases:
+        f = x.shape[1]
+        got = csr_spmm(fmt, x)
+        again = csr_spmm(fmt, x)
+        torch.cuda.synchronize()
+        want = csr_spmm_plain(fmt.rowptr, fmt.col, fmt.val, x)
+        err = float((got - want).abs().max())
+        err_max = max(err_max, err)
+        vec = spmm_ops._rows_ok(x, f)
+        plan = spmm_ops.csr_plan(f, vec)
+        inst = csr_instances(torch, lambda: csr_spmm(fmt, x))
+        line = (f"csr_spmm {label}: x={tuple(x.shape)} stride={x.stride()} "
+                f"nnz={fmt.col.shape[0]} instance {inst} (plan G={plan.g} "
+                f"V={plan.v} slabs={plan.n_slabs}) max|kernel-plain|="
+                f"{err:.3e}, bit-identical relaunch: {torch.equal(got, again)}")
+        require(inst == [(plan.g, plan.v)],
+                f"csr_spmm {label}: launched {inst}, plan {plan}")
+        require(torch.allclose(got, want, **TOL_SPMM),
+                f"csr_spmm {label}: kernel vs plain max |diff| {err:.3e}")
+        require(torch.equal(got, again),
+                f"csr_spmm {label}: two launches differ")
+        if dense is not None and f % 4 == 0:
+            witness = block_spmm(dense.rows, dense.cols, dense.blocks,
+                                 x.contiguous(), dense.n_dst_blocks)
+            eq = torch.equal(got, witness)
+            line += f", torch.equal to the dense kernel: {eq}"
+            require(eq, f"csr_spmm {label}: not bit-equal to the dense "
+                    "kernel")
+        log(line)
+    require(spmm_ops._rows_ok(x_fg, 1433),
+            "the trainer's full_graph_sm input does not take the float4 "
+            "instance")
+    return err_max
+
+
+def counted_run(torch, cfg, bundle):
+    """``gnn_trainer.run`` with every launch count zeroed just before and
+    read just after: (result, counts, wall seconds)."""
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.segment_mm import block_spmm, csr_spmm
+    from repro_torch.train import gnn_trainer as gt
+
+    csr_spmm.launches = 0
+    block_spmm.launches = 0
+    embedding_bag.launches = 0
+    t0 = time.perf_counter()
+    res = gt.run(cfg, bundle)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, {"csr_spmm": csr_spmm.launches,
+                 "block_spmm": block_spmm.launches,
+                 "embedding_bag": embedding_bag.launches}, wall
+
+
+def require_path_counts(label, res, counts, measured=True):
+    """The main path's launch rules: 3 CSR launches a measured step and 2
+    in the parity check, no dense-block launch, one gather a step with
+    hits."""
+    n_steps = len(res.step_hits)
+    with_hits = int((res.step_hits > 0).sum())
+    if measured:
+        require(counts["csr_spmm"] == 3 * n_steps + 2,
+                f"{label}: csr_spmm launches {counts['csr_spmm']} != 3 per "
+                "step + 2")
+        rep = res.compute_report
+        require(rep["n_steps"] == n_steps, f"{label}: measured steps missing")
+        require(all(math.isfinite(v) for v in rep["losses"]),
+                f"{label}: non-finite loss")
+        require(rep["parity_max_diff"] is not None
+                and rep["parity_max_diff"] < 2e-3,
+                f"{label}: parity_max_diff {rep['parity_max_diff']}")
+    else:
+        require(counts["csr_spmm"] == 0, f"{label}: SpMM in a modeled run")
+    require(counts["block_spmm"] == 0,
+            f"{label}: the dense-block kernel ran {counts['block_spmm']} "
+            "times")
+    require(counts["embedding_bag"] == with_hits,
+            f"{label}: embedding_bag launches {counts['embedding_bag']} != "
+            f"{with_hits} steps with hits")
+
+
+def phase_full_graph(torch, device):
+    """A few measured trainer steps on full_graph_sm (d_in = 1,433) with
+    device payloads, through ``gnn_trainer.run``."""
+    from repro_torch.store import MemoryBudget
+    from repro_torch.train import gnn_trainer as gt
+
+    cfg = gt.RunConfig(**FULL_GRAPH,
+                       mem_budget=MemoryBudget(device_payloads=True),
+                       device=str(device))
+    res, counts, wall = counted_run(torch, cfg, gt.build_trace(cfg))
+    rep = res.compute_report
+    n_steps = cfg.n_epochs * cfg.steps_per_epoch
+    log(f"full_graph_sm: {n_steps} measured steps in {wall:.2f} s, hits "
+        f"{res.step_hits.tolist()}, misses {res.step_misses.tolist()}, "
+        f"launches {counts}, parity_max_diff {rep['parity_max_diff']:.3e}, "
+        f"losses {[round(v, 4) for v in rep['losses']]}, median measured "
+        f"step {statistics.median(rep['step_s']) * 1e3:.3f} ms")
+    require_path_counts("full_graph_sm", res, counts)
+    require(int((res.step_hits > 0).sum()) > 0, "full_graph_sm: no hits")
+    return counts
+
+
+def epoch_joules(res, epoch: int) -> float:
+    """The meter's joules in one epoch, over all its nodes."""
+    marks = res.meter.epoch_marks
+    prev = marks[epoch - 1] if epoch else {"gpu_j": 0.0, "cpu_j": 0.0}
+    return float((marks[epoch]["gpu_j"] + marks[epoch]["cpu_j"]
+                  - prev["gpu_j"] - prev["cpu_j"]) * res.meter.n_nodes)
+
+
+def phase_congestion(torch, device, smi):
+    """Each method under the paper schedule and a time-driven scenario,
+    measured lane, device payloads, 5 epochs of 4 steps (1 of warmup, W =
+    2 until a controller decides; the schedule congests epoch 3); one
+    line a run."""
+    from repro_torch.core import controller as ctl, dqn
+    from repro_torch.store import MemoryBudget
+    from repro_torch.train import gnn_trainer as gt
+
+    qnet = dqn.init_qnet(torch.Generator().manual_seed(SEED),
+                         ctl.state_dim(3), ctl.n_actions(3), device=device)
+    decisions = []
+    decide = ctl.AdaptiveController.decide
+
+    def counted_decide(self, stats):
+        decisions.append(1)
+        return decide(self, stats)
+
+    bundle = gt.build_trace(gt.RunConfig(**CONGESTION, device=str(device)))
+    ctl.AdaptiveController.decide = counted_decide
+    try:
+        for scenario in ("paper_schedule", "bursty_markov"):
+            for method in ("dgl", "static_w", "heuristic", "greendygnn"):
+                cfg = gt.RunConfig(
+                    **dict(CONGESTION, method=method, scenario=scenario),
+                    q_fn=dqn.q_fn_of(qnet) if method == "greendygnn"
+                    else None,
+                    mem_budget=MemoryBudget(device_payloads=True),
+                    device=str(device))
+                decisions.clear()
+                res, counts, wall = counted_run(torch, cfg, bundle)
+                joules = [round(epoch_joules(res, e), 4)
+                          for e in range(cfg.n_epochs)]
+                log(f"congestion {scenario} {method}: joules per epoch "
+                    f"{joules}, "
+                    f"windows {res.window_per_epoch.tolist()}, hits "
+                    f"{int(res.step_hits.sum())}, misses "
+                    f"{int(res.step_misses.sum())}, remote bytes "
+                    f"{res.meter.remote_bytes:.0f}, launches {counts}, "
+                    f"decisions {len(decisions)}, sigma "
+                    f"{res.sigma_trace.max():.4f} max, wall {wall:.2f} s; "
+                    f"{smi}")
+                require(res.scenario == scenario,
+                        f"congestion: the run used {res.scenario}")
+                require_path_counts(f"congestion {scenario} {method}", res,
+                                    counts)
+                if method in ("heuristic", "greendygnn"):
+                    require(len(decisions) >= 1,
+                            f"congestion {scenario} {method}: the "
+                            "controller never decided")
+    finally:
+        ctl.AdaptiveController.decide = decide
+
+
+def phase_budgeted_tier(torch, device):
+    """ooc_community (96 features, streamed) under a host budget of 0.3 of
+    its feature matrix, over the clean fabric, measured lane."""
+    from repro_torch.graph import datasets
+    from repro_torch.store import MemoryBudget
+    from repro_torch.train import gnn_trainer as gt
+
+    src = datasets.materialize("ooc_community", seed=0).feature_source
+    host = 0.3 * src.n_rows * src.bytes_per_row
+    cfg = gt.RunConfig(**BUDGETED, mem_budget=MemoryBudget(
+        host_bytes=host, chunk_rows=256, device_payloads=True),
+        device=str(device))
+    res, counts, wall = counted_run(torch, cfg, gt.build_trace(cfg))
+    tc = res.tier_counts
+    log(f"budgeted tier ooc_community: host budget {host:.0f} B, "
+        f"tier_counts {tc}, launches {counts}, wall {wall:.2f} s")
+    require_path_counts("budgeted tier", res, counts)
+    require(tc["block_fetches"] > 0, "budgeted tier: no block fetches")
+    require(tc["peak_resident_bytes"] <= host or tc["pinned_over_budget"] > 0,
+            f"budgeted tier: peak {tc['peak_resident_bytes']} B over the "
+            f"{host:.0f} B budget with no pin over budget")
+
+
+def phase_card_vs_cpu_fabric(torch, device):
+    """static_w and heuristic under the paper schedule and bursty_markov,
+    modeled lane with device payloads, on the card (the EmbeddingBag
+    kernel gathers the hits) and on the CPU (its plain version): every
+    field of the reference's result digest equal, bit for bit."""
+    import numpy as np
+
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.store import MemoryBudget
+    from repro_torch.train import gnn_trainer as gt
+
+    base = dict(CONGESTION, compute="modeled")
+    bundle = gt.build_trace(gt.RunConfig(**base, device="cpu"))
+    for scenario in ("paper_schedule", "bursty_markov"):
+        for method in ("static_w", "heuristic"):
+            out = []
+            for dev in (str(device), "cpu"):
+                cfg = gt.RunConfig(**dict(base, method=method,
+                                          scenario=scenario),
+                                   mem_budget=MemoryBudget(
+                                       device_payloads=True), device=dev)
+                embedding_bag.launches = 0
+                out.append((gt.run(cfg, bundle), embedding_bag.launches))
+            (a, launched), (b, _) = out
+            fields = []
+            for name in ("gpu_j", "cpu_j", "wall_s", "remote_bytes",
+                         "n_rpcs"):
+                fields.append((name, getattr(a.meter, name),
+                               getattr(b.meter, name)))
+            for name in ("step_hits", "step_misses", "fetched_rows_by_owner",
+                         "sigma_trace", "hit_rate_per_epoch",
+                         "window_per_epoch"):
+                fields.append((name, getattr(a, name), getattr(b, name)))
+            for name, x, y in fields:
+                require(np.asarray(x).tobytes() == np.asarray(y).tobytes(),
+                        f"card vs CPU {scenario} {method}: {name} differs")
+            require(a.tier_counts == b.tier_counts,
+                    f"card vs CPU {scenario} {method}: tier counts differ")
+            with_hits = int((a.step_hits > 0).sum())
+            require(launched == with_hits > 0,
+                    f"card vs CPU {scenario} {method}: {launched} gathers "
+                    f"on the card for {with_hits} steps with hits")
+            log(f"card vs CPU {scenario} {method} (modeled): digest fields "
+                f"equal, energy {float(a.meter.gpu_j + a.meter.cpu_j)!r} J, "
+                f"{launched} gathers on the card")
+
+
+def spmm_wide_timing_row(torch, device, launches: int, err: float):
+    """The CSR SpMM at full_graph_sm's layer 0 (F = 1,433, the trainer's
+    padded-stride input): kernel, plain version and ``torch.sparse.mm``
+    (timed here only, on the same rows made contiguous), beside the bytes
+    bound of the entries, the row pointers, the X rows the entries
+    reference and Y."""
+    from repro_torch.kernels.segment_mm import ops as spmm_ops
+
+    timer = Timer(torch, device)
+    fmt, x, _ = full_graph_operands(torch, device)
+    f = x.shape[1]
+    y = torch.empty((fmt.n_rows, -(-f // 4) * 4), device=device)[:, :f]
+    ms = timer.ms(lambda: spmm_ops.csr_launch(fmt, x, y))
+    plain = timer.ms(lambda: spmm_ops.csr_spmm_plain(
+        fmt.rowptr, fmt.col, fmt.val, x))
+    xc = x.contiguous()
+    yc = torch.empty((fmt.n_rows, f), device=device)
+    scalar = timer.ms(lambda: spmm_ops.csr_launch(fmt, xc, yc))
+    csr = torch.sparse_csr_tensor(fmt.rowptr, fmt.col, fmt.val,
+                                  (fmt.n_rows, x.shape[0]),
+                                  check_invariants=True)
+    lib = timer.ms(lambda: torch.sparse.mm(csr, xc))
+    nnz = fmt.col.numel()
+    n_x_rows = int(torch.unique(fmt.col).numel())
+    n_bytes = (nnz * 8 + fmt.rowptr.numel() * 4 + n_x_rows * f * 4
+               + fmt.n_rows * f * 4)
+    n_flops = 2.0 * nnz * f
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    log(f"time csr_spmm full_graph_sm layer0 F={f}: kernel {ms:.4f} ms "
+        f"(float4, the trainer's rows), {scalar:.4f} ms (scalar, the rows "
+        f"contiguous), plain {plain:.4f} ms, torch.sparse.mm {lib:.4f} ms, "
+        f"bound "
+        f"{b_ms:.4f} ms ({b_by}; {n_bytes / 1e6:.3f} MB: nnz {nnz}, "
+        f"{n_x_rows} X rows referenced, Y {fmt.n_rows} x {f})")
+    return {
+        "name": "csr_spmm_f1433", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/csr_spmm.cu",
+        "replaces": "src/repro/kernels/segment_mm/kernel.py:78",
+        "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib, "scalar_ms": scalar,
+    }
 
 
 # ------------------------------------------------------------- phase 4
@@ -1359,9 +1763,15 @@ def main() -> int:
     smi = phase_card_and_build(torch)
     ops = main_path_operands(torch, device)
     ops["errs"] = phase_kernels_vs_plain(torch, device, ops)
+    wide_err = phase_spmm_widths(torch, device, ops)
+    ops["errs"]["csr_spmm"] = max(ops["errs"]["csr_spmm"], wide_err)
     flash_err, flash_operands = phase_flash_vs_plain(torch, device)
     counts, step_ms, n_steps = phase_main_path(torch, device)
+    full_counts = phase_full_graph(torch, device)
+    phase_congestion(torch, device, smi)
+    phase_budgeted_tier(torch, device)
     phase_card_vs_cpu(torch, device)
+    phase_card_vs_cpu_fabric(torch, device)
     phase_profile(torch, device)
     lm_counts, cfg, params, tokens = phase_serving(torch, device)
     phase_profile_prefill(torch, cfg, params, tokens)
@@ -1369,6 +1779,8 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     rows = phase_timing(torch, device, ops, counts, n_steps)
+    rows.append(spmm_wide_timing_row(torch, device, full_counts["csr_spmm"],
+                                     wide_err))
     rows.append(flash_timing_row(torch, device, flash_operands,
                                  lm_counts["flash_attention"], flash_err))
     log(f"median measured step: {step_ms:.4f} ms; total "

@@ -131,8 +131,10 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
 
     def csr_call(fn, fmt, x, y):
+        # the float4 instance: every operand here is contiguous, F % 4 == 0
         err = fn(fmt.rowptr.data_ptr(), fmt.col.data_ptr(), fmt.val.data_ptr(),
-                 x.data_ptr(), y.data_ptr(), fmt.n_rows, x.shape[1], stream)
+                 x.data_ptr(), y.data_ptr(), fmt.n_rows, x.shape[1],
+                 x.stride(0), y.stride(0), 1, stream)
         if err:
             raise RuntimeError(f"CUDA error {err} at launch")
 

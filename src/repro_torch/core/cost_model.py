@@ -1,14 +1,17 @@
 """GreenDyGNN analytic cost model (paper Eq. 4) for the trainer's host side.
 
-Port of the parts of ``repro/core/cost_model.py`` that the P=1 trainer
-runs: the calibrated parameter set, the window action space, the Eq. 4 RPC
-closed forms, the measured-lane compute law and the congestion multiplier.
-The vectorised simulator laws (Eq. 1-3) come with the simulator port.
+Port of the parts of ``repro/core/cost_model.py`` that the P=1 trainer,
+the event fabric and the baseline policies run: the calibrated parameter
+set, the window action space, the Eq. 4 RPC closed forms, the measured-lane
+compute law, the congestion multiplier and its Eq. 8 inverse, and the
+Eq. 1-3 step laws (``step_time``, ``step_energy``) the oracle minimises.
 
-The reference evaluates ``sigma_from_delta`` in float32 with the Python
-constants weakly typed (cast to float32 before the arithmetic); this port
-reproduces exactly that in numpy so the trainer's sigma trace and the
-controller's observation stay bit-identical.
+The reference evaluates these in jnp float32, with Python constants weakly
+typed: an operation between two Python constants happens in float64 first
+(``remote_nodes * t_miss0``, ``p_gpu_active + p_cpu_base``), and the
+result is cast to float32 where it meets an array. This port repeats each
+operation in that order in numpy float32, so the sigma trace, the
+controller's observation and the policies' actions stay bit-identical.
 """
 from __future__ import annotations
 
@@ -34,6 +37,24 @@ SCENARIO_DELTA_MAX_MS = 50.0
 # DistTensor path a quarter RTT.
 PROP_RTT_BULK_S_PER_MS = 2e-3
 PROP_RTT_CHUNKED_S_PER_MS = 0.5e-3
+
+# Background-load ceiling: utilization is clipped here so the fluid service
+# factor (1 - u) never reaches zero (read by the event fabric).
+MAX_UTILIZATION = 0.95
+
+# Concavity exponent of hit rate vs per-owner capacity share.
+ALLOC_RHO = 0.45
+
+_F32 = np.float32
+
+
+def _powf(x, y) -> np.ndarray:
+    """float32 ``x ** y`` element by element through the scalar ``powf``
+    (numpy's array loop may take a vectorised pow that differs from it in
+    the last bit; the reference's XLA pow agrees with the scalar one)."""
+    x = np.asarray(x, _F32)
+    y = _F32(y)
+    return np.asarray([xi ** y for xi in x.ravel()], _F32).reshape(x.shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,3 +140,91 @@ def sigma_from_delta(params: CostModelParams, delta_ms) -> np.ndarray:
     reference's weakly-typed scalar is)."""
     slope = np.float32(params.gamma_c / params.beta)  # [1/ms]
     return np.float32(1.0) + slope * np.asarray(delta_ms, np.float32)
+
+
+def delta_from_sigma(params: CostModelParams, sigma) -> np.ndarray:
+    """Eq. (8) inverse mapping: delta_hat = (sigma - 1) * beta / gamma_c
+    (float32, left to right)."""
+    return ((np.asarray(sigma, _F32) - _F32(1.0)) * _F32(params.beta)
+            / _F32(params.gamma_c))
+
+
+def hit_rate(params: CostModelParams, window) -> np.ndarray:
+    """Eq. (2): logistic decay of cache hit rate with window size."""
+    w = np.asarray(window, _F32)
+    span = params.h_max - params.h_min            # two Python floats
+    return _F32(params.h_min) + _F32(span) / (
+        _F32(1.0) + _powf(w / _F32(params.w_half), params.gamma_h)
+    )
+
+
+def rebuild_time(params: CostModelParams, window) -> np.ndarray:
+    """T_rebuild(W) = a + b * W**c."""
+    w = np.asarray(window, _F32)
+    return _F32(params.rebuild_a) + _F32(params.rebuild_b) * _powf(
+        w, params.rebuild_c
+    )
+
+
+def allreduce_penalty(params: CostModelParams, sigma) -> np.ndarray:
+    """dT_AR = kappa_AR * max(max_o sigma_o - 1, 0)."""
+    s = np.asarray(sigma, _F32)
+    return _F32(params.kappa_ar) * np.maximum(
+        np.max(s, axis=-1) - _F32(1.0), _F32(0.0)
+    )
+
+
+def per_owner_hit_rates(params: CostModelParams, window, weights
+                        ) -> np.ndarray:
+    """Per-owner hit rate under capacity shares ``weights`` (sum to 1):
+    ``clip(h(W) * (weights * n_owners) ** ALLOC_RHO, 0, h_max)``."""
+    weights = np.asarray(weights, _F32)
+    n_owners = weights.shape[-1]
+    base = hit_rate(params, window)
+    scale = _powf(weights * _F32(n_owners), ALLOC_RHO)
+    return np.clip(base * scale, _F32(0.0), _F32(params.h_max))
+
+
+def step_time(params: CostModelParams, window, sigma, weights=None,
+              hit_rate_override=None) -> np.ndarray:
+    """Eq. (1) with congestion (Eq. 3), per-owner allocation and the
+    AllReduce straggler term; ``sigma`` and ``weights`` are (..., P-1)."""
+    sigma = np.asarray(sigma, _F32)
+    n_owners = sigma.shape[-1]
+    if weights is None:
+        weights = np.full((n_owners,), 1.0 / n_owners, _F32)
+    if hit_rate_override is not None:
+        h_o = np.broadcast_to(np.asarray(hit_rate_override, _F32),
+                              sigma.shape)
+    else:
+        h_o = per_owner_hit_rates(params, window, weights)
+    miss = _F32(params.remote_nodes * params.t_miss0) * np.max(
+        (_F32(1.0) - h_o) * sigma, axis=-1
+    )
+    rebuild = _F32(params.alpha_crit) * rebuild_time(params, window) \
+        / np.asarray(window, _F32)
+    return _F32(params.t_base) + allreduce_penalty(params, sigma) \
+        + rebuild + miss
+
+
+def step_energy(params: CostModelParams, window, sigma, weights=None,
+                hit_rate_override=None) -> np.ndarray:
+    """E_step ~= Pbar * T_step: the compute fraction at GPU-active power,
+    the communication/stall fraction at GPU-idle plus RPC-side CPU
+    power. Joules per step per node."""
+    t_total = step_time(params, window, sigma, weights, hit_rate_override)
+    t_comm = np.maximum(t_total - _F32(params.t_base), _F32(0.0))
+    e_compute = (params.p_gpu_active + params.p_cpu_base) * params.t_base
+    e_comm = _F32(params.p_gpu_idle + params.p_cpu_base + params.p_cpu_rpc) \
+        * t_comm
+    return _F32(e_compute) + e_comm
+
+
+def optimal_window(params: CostModelParams, sigma):
+    """Exhaustive argmin of ``step_energy`` over the discrete window set
+    (uniform allocation): ``(window, energy)`` as float32."""
+    windows = np.asarray(WINDOW_CHOICES, _F32)
+    energies = np.asarray([step_energy(params, w, sigma) for w in windows],
+                          _F32)
+    idx = int(np.argmin(energies))
+    return windows[idx], energies[idx]

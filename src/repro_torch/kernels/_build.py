@@ -35,7 +35,8 @@ NVCC_FLAGS = (
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 ENTRIES = {
     "block_spmm_f32": ("block_spmm", (_P, _P, _P, _P, _P, _I, _I, _P)),
-    "csr_spmm_f32": ("csr_spmm", (_P, _P, _P, _P, _P, _I, _I, _P)),
+    # rowptr, col, val, x, y, n_rows, f, ldx, ldy, vec, stream
+    "csr_spmm_f32": ("csr_spmm", (_P,) * 5 + (_I,) * 5 + (_P,)),
     # idx, w, offsets, table, out, n_bags, d, n_lookups, max_len, stream
     "embedding_bag_f32": ("embedding_bag", (_P,) * 5 + (_I,) * 4 + (_P,)),
     # q, k, v, o, dtype code, D, B, Sq, Sk, Hq, Hkv, 12 strides, causal,

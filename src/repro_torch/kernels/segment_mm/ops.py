@@ -11,13 +11,16 @@ Two formats carry it:
   ``csrc/csr_spmm.cu``, which replaces
   ``repro/kernels/segment_mm/kernel.py::block_spmm_kernel``;
   :class:`Spmm` is its autograd (``dX = A^T dY`` over
-  :func:`transpose_csr`). Bound: bytes, the entries (8 B each), the row
-  pointers, X and Y, about 2.8 MB at the trainer's layer 0, which the
-  card moves in under a microsecond: at these sizes a launch's latency,
-  not the bound, sets the time. Design (note at the top of
-  ``csrc/csr_spmm.cu``): a group of F/4 lanes owns a row, no atomics,
-  entries summed in ascending column order, so two launches are
-  bit-identical and agree bit for bit with the dense-block kernel.
+  :func:`transpose_csr`). It takes any width F >= 1 in one launch:
+  :func:`csr_plan` cuts a row into column slabs of at most 128 (float4
+  lanes, where X and Y allow them) or 32 (one float a lane). Bound:
+  bytes, the entries (8 B each), the row pointers, X and Y, about 2.8 MB
+  at the reddit trainer's layer 0, which the card moves in under a
+  microsecond: at these sizes a launch's latency, not the bound, sets
+  the time. Design (note at the top of ``csrc/csr_spmm.cu``): a group of
+  lanes owns a row's slab, no atomics, entries summed in ascending column
+  order, so two launches are bit-identical and agree bit for bit with the
+  dense-block kernel.
 - **Dense 128 x 128 blocks, the witness.** :func:`to_block_sparse` is
   the reference's numpy conversion, copied; :func:`block_spmm` wraps
   ``csrc/block_spmm.cu``, the first port of the TPU kernel, which
@@ -247,7 +250,60 @@ class BlockSpmm(torch.autograd.Function):
 
 
 # ------------------------------------------------------------------- CSR
-MAX_F = 128  # the CSR kernel's widest row: 32 lanes of one float4 each
+MAX_SLABS = 65535  # the kernel's grid.y: slabs of one row
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-int(n) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmmPlan:
+    """How the CSR kernel covers a row of F columns: ``n_slabs`` slabs of
+    ``g`` lanes, each lane ``v`` consecutive floats (4: one float4, 1: one
+    float), so a slab is ``g * v`` columns wide (at most 128 or 32)."""
+
+    v: int
+    g: int
+    n_slabs: int
+
+    @property
+    def slab(self) -> int:
+        return self.g * self.v
+
+
+def csr_plan(f: int, vec: bool) -> SpmmPlan:
+    """The launch the kernel makes for width ``f`` (``csrc/csr_spmm.cu``
+    ``launch_v``): float4 lanes when ``vec``, else one float a lane; one
+    slab of the fewest power-of-two lanes when F fits, else slabs of 32
+    lanes."""
+    v = 4 if vec else 1
+    n_slabs = -(-int(f) // (32 * v))
+    lanes = 32 if n_slabs > 1 else -(-int(f) // v)
+    return SpmmPlan(v, 1 << max(lanes - 1, 0).bit_length(), n_slabs)
+
+
+def _ld(t, f: int) -> int:
+    """The row stride the kernel is given for ``t`` (any stride of at
+    least F rounded up to 4 for a tensor of at most one row)."""
+    return int(t.stride(0)) if t.shape[0] > 1 else _round_up(f, 4)
+
+
+def _rows_ok(t, f: int) -> bool:
+    """``t``'s rows take the float4 instance: 16-byte aligned, a row
+    stride of a multiple of 4 floats, and every row's first ``f`` rounded
+    up to 4 floats inside ``t``'s storage."""
+    return (
+        t.shape[0] == 0
+        or t.data_ptr() % 16 == 0 and _ld(t, f) % 4 == 0
+        and t.storage_offset() + (t.shape[0] - 1) * _ld(t, f)
+        + _round_up(f, 4) <= t.untyped_storage().nbytes() // t.element_size()
+    )
+
+
+def _unit_columns(t, f: int) -> bool:
+    return t.shape[0] <= 1 or f == 1 or (t.stride(1) == 1
+                                         and t.stride(0) >= f)
 
 
 def to_csr(
@@ -376,44 +432,59 @@ def _check_csr_operands(fmt: CsrFormat, x) -> None:
 
 
 def check_kernel_operands(fmt: CsrFormat, x) -> None:
-    """What the CUDA kernel takes beyond the function: F a multiple of 4
-    up to ``MAX_F``, contiguous operands, x 16-byte aligned."""
+    """What the CUDA kernel takes beyond the function: F >= 1 in at most
+    ``MAX_SLABS`` slabs, contiguous CSR arrays, and X's rows at unit
+    column stride (any row stride of at least F)."""
     f = x.shape[1]
-    if f % 4 != 0 or not 0 < f <= MAX_F:
+    if not 0 < f <= MAX_SLABS * 32:
         raise ValueError(
-            f"csr_spmm: CUDA kernel takes F % 4 == 0, 0 < F <= {MAX_F}")
+            f"csr_spmm: CUDA kernel takes 0 < F <= {MAX_SLABS * 32}")
     for name, t in (("rowptr", fmt.rowptr), ("col", fmt.col),
-                    ("val", fmt.val), ("x", x)):
+                    ("val", fmt.val)):
         if not t.is_contiguous():
             raise ValueError(f"csr_spmm: {name} must be contiguous")
-    if x.data_ptr() % 16 != 0:
-        raise ValueError("csr_spmm: x must be 16-byte aligned")
+    if not _unit_columns(x, f):
+        raise ValueError(
+            "csr_spmm: x's rows must be at unit column stride, a row stride "
+            "of at least F apart")
 
 
 def csr_spmm(fmt: CsrFormat, x) -> torch.Tensor:
-    """Y (n_rows, F) = A @ X for A in CSR.
+    """Y (n_rows, F) = A @ X for A in CSR, any F >= 1.
 
     CUDA tensors launch ``csrc/csr_spmm.cu``; CPU tensors take
     :func:`csr_spmm_plain`. The format was checked when it was made
     (:meth:`CsrFormat.from_numpy`), so nothing is read back from the
-    device here."""
+    device here. Where X's rows take the float4 instance (see
+    :func:`_rows_ok`), Y is allocated with its rows padded to a multiple
+    of 4 floats and its first F columns are returned (a view)."""
     _check_csr_operands(fmt, x)
     if x.device.type == "cpu":
         return csr_spmm_plain(fmt.rowptr, fmt.col, fmt.val, x)
     if x.device.type != "cuda":
         raise ValueError(f"csr_spmm: unsupported device {x.device}")
     check_kernel_operands(fmt, x)
-    y = torch.empty((fmt.n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
-    csr_launch(fmt, x, y)
-    return y
+    f = x.shape[1]
+    ld = _round_up(f, 4) if _rows_ok(x, f) else f
+    y = torch.empty((fmt.n_rows, ld), dtype=x.dtype, device=x.device)
+    csr_launch(fmt, x, y[:, :f])
+    return y[:, :f]
 
 
 def csr_launch(fmt: CsrFormat, x, y) -> None:
-    """Launch the CSR kernel on checked operands (counts one launch)."""
+    """Launch the CSR kernel on checked operands (counts one launch): the
+    float4 instance when both X's and Y's rows take it, else the scalar
+    one."""
+    f = x.shape[1]
+    if tuple(y.shape) != (fmt.n_rows, f) or not _unit_columns(y, f):
+        raise ValueError("csr_spmm: y must be (n_rows, F) rows at unit "
+                         "column stride")
+    vec = _rows_ok(x, f) and _rows_ok(y, f)
     fn = _build.entry("csr_spmm_f32")
     err = fn(
         fmt.rowptr.data_ptr(), fmt.col.data_ptr(), fmt.val.data_ptr(),
-        x.data_ptr(), y.data_ptr(), int(fmt.n_rows), int(x.shape[1]),
+        x.data_ptr(), y.data_ptr(), int(fmt.n_rows), int(f),
+        _ld(x, f), _ld(y, f), int(vec),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     csr_spmm.launches += 1

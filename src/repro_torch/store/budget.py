@@ -10,7 +10,9 @@ eviction, no extra fabric calls).
 
 ``TierStats`` is the deterministic per-tier counter block the acceptance
 harness compares across same-seed runs (device hits / host hits / block
-fetches / evictions / peak residency).
+fetches / evictions / peak residency). Port of ``repro/store/budget.py``;
+the cross-worker ``merge_tier_counts``/``TierStats.merge`` come with the
+cluster (ROADMAP queue 1, cluster).
 """
 from __future__ import annotations
 
@@ -36,6 +38,17 @@ class MemoryBudget:
     chunk_rows: int = 2048
     host_read_factor: float = 0.25
     device_payloads: bool = True
+
+    @property
+    def unlimited(self) -> bool:
+        return self.host_bytes is None
+
+    def budget_blocks(self, bytes_per_row: float) -> int | None:
+        """Block-count budget for a given row width (floor, min 1)."""
+        if self.host_bytes is None:
+            return None
+        block_bytes = max(self.chunk_rows * bytes_per_row, 1.0)
+        return max(int(self.host_bytes // block_bytes), 1)
 
 
 @dataclasses.dataclass

@@ -24,7 +24,10 @@ the host and the device tier's hits, already on the device, each with its
 positions. ``place_input`` writes both into the padded input with one
 host-to-device copy (the host rows and all positions, packed) and two
 ``index_copy_``; the result is bit-equal to padding the host overlay of
-every row. The step is timed with CUDA events on the card and
+every row. The input's rows lie ``d_in`` rounded up to 4 floats apart (a
+view of the first ``d_in`` columns), so that the SpMM kernel reads them as
+float4 at any width (``full_graph_sm``'s 1,433 included); the pad columns
+are never read into a result. The step is timed with CUDA events on the card and
 ``time.perf_counter`` on the CPU. On the first step ``check_parity``
 holds the CSR path against the plain scatter path
 (``sage.apply_blocks``), tolerance 2e-3.
@@ -186,11 +189,21 @@ class ComputeEngine:
             src_rows = n_dst_pad
         return tuple(layers), n_src_rows, n_edges
 
+    def _input_buffer(self, x_rows: int) -> torch.Tensor:
+        """An uninitialised (x_rows, d_in) input on the device whose rows
+        lie ``d_in`` rounded up to 4 floats apart."""
+        d_in = self.mcfg.d_in
+        ld = -(-d_in // 4) * 4
+        return torch.empty((x_rows, ld), dtype=torch.float32,
+                           device=self.device)[:, :d_in]
+
     def pad_input(self, x_in: np.ndarray, x_rows: int) -> torch.Tensor:
         """Zero-padded (x_rows, d_in) input rows, copied to the device."""
         x = np.zeros((x_rows, self.mcfg.d_in), np.float32)
         x[: len(x_in)] = x_in
-        return torch.as_tensor(x).to(self.device)
+        out = self._input_buffer(x_rows)
+        out.copy_(torch.as_tensor(x))
+        return out
 
     def place_input(self, x_in: InputRows, x_rows: int) -> torch.Tensor:
         """Zero-padded (x_rows, d_in) input on the device: the host rows
@@ -199,8 +212,7 @@ class ComputeEngine:
         pos, rows = to_device_packed(
             [np.concatenate([x_in.host_pos, x_in.device_pos]).astype(np.int64),
              np.asarray(x_in.host_rows, np.float32)], self.device)
-        x = torch.empty((x_rows, self.mcfg.d_in), dtype=torch.float32,
-                        device=self.device)
+        x = self._input_buffer(x_rows)
         x[x_in.n:].zero_()
         x.index_copy_(0, pos[:n_host], rows)
         if len(x_in.device_pos):

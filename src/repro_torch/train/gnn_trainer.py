@@ -3,23 +3,24 @@ P=1.
 
 Port of ``repro/train/gnn_trainer.py``: real graph -> METIS-like partition
 -> presampled mini-batch trace -> per-step feature resolution (local /
-cache-hit / remote miss) -> Eq. 4 network time + energy accounting ->
-per-boundary control (static or RL) -> reports. With
+cache-hit / remote miss) -> network time (the Eq. 4 closed form, or the
+``net/`` event fabric of ``RunConfig.scenario``) + energy accounting ->
+per-boundary control (static, heuristic or RL) -> reports. With
 ``compute="measured"`` every step also runs a real GraphSAGE
 forward/backward/AdamW step on ``device`` (``train/compute.py``), through
-the hand-written block-SpMM kernel; with a ``MemoryBudget`` whose
+the hand-written CSR SpMM kernel; with a ``MemoryBudget`` whose
 ``device_payloads`` is set, cache hits are served by the EmbeddingBag
-kernel.
+kernel, and one whose ``host_bytes`` is set budgets the host tier.
 
 Methods (paper Section VI-A + ablations VI-H):
   dgl          on-demand per-layer fetching, no cache
   bgl          prefetch-overlap pipeline, no adaptive cache
   rapidgnn     epoch-level static cache (presample once per epoch)
   static_w     windowed cache at fixed W (w/o-RL ablation at W=16)
+  heuristic    windowed cache + Eq. 7 threshold rule
   greendygnn   windowed cache + Double-DQN controller (full system)
   greendygnn_nocw   RL for W only, uniform allocation (w/o cost weights)
-``heuristic`` (Eq. 7 threshold rule) waits for ``core/policies.py``; see
-``worker.check_supported`` for every configuration not ported yet.
+See ``worker.check_supported`` for every configuration not ported yet.
 """
 from __future__ import annotations
 
@@ -59,8 +60,11 @@ class RunConfig:
                                      # override: constant injected delay [ms]
                                      # on every owner link (scalar) or per
                                      # owner (length-(P-1) vector)
-    scenario: str | None = None      # None/"closed_form": the analytic Eq. 4
-                                     # law (the net/ fabric is not ported)
+    scenario: str | None = None      # net/ fabric scenario: "clean",
+                                     # "paper_schedule", "bursty_markov",
+                                     # "incast", "trace:<path>", ...
+                                     # None/"closed_form" keeps the analytic
+                                     # Eq. 4 law (congested/fixed_delta_ms)
     static_window: int = 16
     warmup_epochs: int = 2
     batch_divisor: int = 10          # bench graphs are ~10x scaled: keep the
@@ -106,6 +110,7 @@ class RunResult:
     tier_counts: dict | None = None  # TierStats.counts() of a tiered store
     compute_report: dict | None = None  # ComputeEngine.report() when
                                      # compute="measured"
+    scenario: str = "closed_form"    # the network substrate the run used
 
     def totals(self) -> dict:
         return self.meter.totals_kj()
@@ -214,13 +219,22 @@ def _chunked_fetch_time(params, per_owner_rows: np.ndarray,
 
 def run(cfg: RunConfig, trace_bundle=None) -> RunResult:
     """Single-trainer entry point: one :class:`TrainerWorker` (partition
-    0) driven through its epochs in a plain loop."""
+    0) over the scenario's event fabric, or the closed form, driven
+    through its epochs in a plain loop."""
+    from repro_torch.net import CLOSED_FORM, build_scenario
     from repro_torch.train.worker import TrainerWorker, check_supported
 
     check_supported(cfg)
     if trace_bundle is None:
         trace_bundle = build_trace(cfg)
-    worker = TrainerWorker(cfg, trace_bundle, rank=0)
+    fabric = None
+    if cfg.scenario not in CLOSED_FORM:
+        fabric = build_scenario(
+            cfg.scenario, params=cfg.params, n_owners=cfg.n_parts - 1,
+            seed=cfg.seed, n_epochs=cfg.n_epochs,
+            steps_per_epoch=cfg.steps_per_epoch,
+        )
+    worker = TrainerWorker(cfg, trace_bundle, rank=0, fabric=fabric)
     for epoch in range(cfg.n_epochs):
         worker.begin_epoch(epoch)
         for step in range(cfg.steps_per_epoch):

@@ -6,15 +6,23 @@ energy meter, device payload tier and measured compute engine), assembled
 from small pure builders, with explicit per-epoch/per-step methods that
 ``gnn_trainer.run`` drives in a plain loop.
 
-This slice ports the synchronous rebuild path over the closed-form Eq. 4
-network. Not ported yet, and refused with ``NotImplementedError`` naming
-the ROADMAP item that ports them: the event fabric (a ``scenario`` other
-than closed form), the threaded pipeline (``async_pipeline=True``),
-greentrace (``trace=True``), the heuristic policy, a budgeted host tier,
-and the cluster's shared-fabric mode.
+The worker runs the synchronous rebuild path at P=1 over either network
+substrate: the closed-form Eq. 4 law, or the ``net/`` event fabric of a
+``RunConfig.scenario`` (delta and sigma refreshed every step from the
+worker's virtual clock, transfers queueing on the owner links). It runs
+every method, the heuristic (Eq. 7) among them, and a budgeted host tier
+(``MemoryBudget.host_bytes``): block residency charged on the network
+substrate, pinned at each rebuild, observed by the controller as
+headroom. Not ported yet, and refused with ``NotImplementedError`` naming
+its ROADMAP item: the threaded pipeline (``async_pipeline=True``),
+greentrace (``trace=True``), the modeled-lane model runner
+(``run_model=True`` with ``compute="modeled"``), the compressed gradient
+schemes, and the cluster's shared-fabric mode.
 
 The worker keeps a virtual clock (``meter.wall_s``); nothing here reads
-the OS clock on the timing path except the measured compute lane.
+the OS clock on the timing path except the measured compute lane, whose
+step time advances that clock (so a measured run's time-driven
+congestion depends on the machine, as the reference's does).
 """
 from __future__ import annotations
 
@@ -26,29 +34,20 @@ from repro_torch.core.energy import EnergyMeter, StepSample
 from repro_torch.core.windowed_cache import CacheStats, DoubleBufferedCache
 from repro_torch.device import resolve
 from repro_torch.graph.features import ShardedFeatureStore
+from repro_torch.net.fabric import NetClock
+from repro_torch.train import grad_compression as gc
 from repro_torch.train.compute import ComputeEngine, InputRows
 
 WINDOWED_METHODS = ("static_w", "heuristic", "greendygnn", "greendygnn_nocw")
 ADAPTIVE_METHODS = ("heuristic", "greendygnn", "greendygnn_nocw")
-CLOSED_FORM = (None, "closed_form")
 
 
 def check_supported(cfg) -> None:
     """Refuse the configurations this slice does not port yet."""
-    if cfg.method == "heuristic":
-        raise NotImplementedError(
-            "method='heuristic' needs core/policies.py, not ported yet "
-            "(ROADMAP queue 1: host tier and policies)"
-        )
-    if cfg.scenario not in CLOSED_FORM:
-        raise NotImplementedError(
-            f"scenario={cfg.scenario!r} needs the net/ event fabric, not "
-            "ported yet (ROADMAP queue 1: network); use scenario=None"
-        )
     if cfg.async_pipeline:
         raise NotImplementedError(
             "async_pipeline=True needs pipeline/, not ported yet "
-            "(ROADMAP queue 1: pipeline)"
+            "(ROADMAP queue 1: the threaded pipeline)"
         )
     if cfg.trace:
         raise NotImplementedError(
@@ -62,8 +61,10 @@ def check_supported(cfg) -> None:
     if cfg.run_model and cfg.compute != "measured":
         raise NotImplementedError(
             "run_model=True runs the modeled-lane model runner, not ported "
-            "yet (ROADMAP queue 1: modeled-lane model); use compute='measured'"
+            "yet (ROADMAP queue 1: compression and the modeled-lane model); "
+            "use compute='measured'"
         )
+    gc.check_scheme(cfg.grad_compression)
 
 
 # --------------------------------------------------------------------------
@@ -80,8 +81,17 @@ def build_store(graph, owner: np.ndarray, rank: int, n_parts: int,
         return ShardedFeatureStore(graph.features, owner, rank, n_parts)
     from repro_torch.store import TieredFeatureStore
 
+    # locality storage layout: rows sorted by (owner, community) so one
+    # window's working set lands in few contiguous host-tier blocks
+    layout = None
+    labels = getattr(graph, "labels", None)
+    if labels is not None:
+        layout = np.lexsort((
+            np.arange(graph.n_nodes), np.asarray(labels), np.asarray(owner),
+        ))
     return TieredFeatureStore(
         graph.features, owner, rank, n_parts, budget=budget, source=source,
+        layout=layout,
     )
 
 
@@ -95,11 +105,23 @@ def build_cache(cfg, graph, owner_idx_map: np.ndarray
     return DoubleBufferedCache(capacity, owner_idx_map, cfg.n_parts - 1)
 
 
-def build_controller(cfg, params, n_owners: int
+def build_controller(cfg, params, n_owners: int,
+                     observe_headroom: bool = False
                      ) -> ctl.AdaptiveController | None:
-    """Per-boundary W/weights controller over a trained DQN's q_fn."""
+    """Per-boundary W/weights controller (the Eq. 7 heuristic rule or a
+    trained DQN's q_fn). ``observe_headroom=True`` (budgeted tiered store)
+    appends the cache-headroom entry to the state; a DQN's q_fn must then
+    be sized for ``state_dim(n_owners, headroom=True)``."""
     if cfg.method not in ADAPTIVE_METHODS:
         return None
+    if cfg.method == "heuristic":
+        from repro_torch.core import policies as pol
+
+        policy = pol.heuristic_policy(params, cfg.static_window, n_owners)
+        q_fn = pol.as_q_fn(policy, ctl.n_actions(n_owners))
+        return ctl.AdaptiveController(
+            q_fn, params, n_owners, observe_headroom=observe_headroom
+        )
     if cfg.q_fn is None:
         raise ValueError("greendygnn methods need a trained q_fn")
     if cfg.method == "greendygnn_nocw":
@@ -113,7 +135,9 @@ def build_controller(cfg, params, n_owners: int
             return q
     else:
         q_fn = cfg.q_fn
-    return ctl.AdaptiveController(q_fn, params, n_owners)
+    return ctl.AdaptiveController(
+        q_fn, params, n_owners, observe_headroom=observe_headroom
+    )
 
 
 def build_meter(cfg) -> EnergyMeter:
@@ -125,7 +149,7 @@ class TrainerWorker:
 
     Drive it as::
 
-        w = TrainerWorker(cfg, bundle, rank=0)
+        w = TrainerWorker(cfg, bundle, rank=0, fabric=fabric)
         for epoch in range(cfg.n_epochs):
             w.begin_epoch(epoch)
             for step in range(cfg.steps_per_epoch):
@@ -134,11 +158,14 @@ class TrainerWorker:
         result = w.result()
     """
 
-    def __init__(self, cfg, trace_bundle, rank: int = 0):
+    def __init__(self, cfg, trace_bundle, rank: int = 0, fabric=None):
         check_supported(cfg)
         self.cfg = cfg
         self.rank = int(rank)
         self.device = resolve(cfg.device)
+        # the one requester of a P=1 run ticks the fabric's own clock
+        self.fabric = fabric
+        self.requester = 0
 
         graph, owner, traces, mbs = trace_bundle
         self.graph, self.owner = graph, owner
@@ -151,12 +178,18 @@ class TrainerWorker:
         self.store = build_store(
             graph, owner, self.rank, cfg.n_parts, budget=self.mem_budget
         )
+        # tiered = the host tier is budgeted (an unlimited budget keeps the
+        # monolithic accounting bit for bit: no touches, no block traffic,
+        # a constant 1.0 headroom that is never observed)
+        self.tiered = getattr(self.store, "host", None) is not None
         self.owner_idx_map = self.store.owner_index(np.arange(graph.n_nodes))
         self.bytes_per_row = self.store.bytes_per_row
 
         self.windowed = cfg.method in WINDOWED_METHODS
         self.cache = build_cache(cfg, graph, self.owner_idx_map)
-        self.controller = build_controller(cfg, params, self.n_owners)
+        self.controller = build_controller(
+            cfg, params, self.n_owners, observe_headroom=self.tiered
+        )
         self.meter = build_meter(cfg)
 
         # device payload tier: real capacity-bounded rows over the hot
@@ -205,31 +238,100 @@ class TrainerWorker:
         self.fetched_rows_by_owner = np.zeros(self.n_owners, np.float64)
 
         # per-epoch scratch
+        self._clk = NetClock()
         self.delta = np.zeros(self.n_owners)
         self.sigma_true = np.ones(self.n_owners)
         self.epoch_stats = CacheStats()
         self.epoch_windows: list = []
+        self.epoch_sigmas: list = []
         self._wall0 = 0.0
+
+    # --------------------------------------------------------------- clocks
+    def _tick(self, gstep: int, epoch: int) -> NetClock:
+        """Advance the worker's virtual network clock to its meter's wall
+        time and tick the fabric with it."""
+        clk = NetClock(self.meter.wall_s, gstep, epoch)
+        self._clk = clk
+        self.fabric.tick(clk.t_s, clk.step, clk.epoch)
+        return clk
 
     # ------------------------------------------------------ network substrate
     def _net_bulk(self, per_owner_rows, delta):
-        """ONE consolidated bulk RPC per owner (closed-form Eq. 4).
-        Returns (raw, cpu, bytes, n_rpcs)."""
+        """ONE consolidated bulk RPC per owner through the active substrate.
+
+        Returns (raw, cpu, bytes, n_rpcs, per_owner_s): ``per_owner_s`` is
+        the fabric's per-owner wall latency (None on the closed form, which
+        reconstructs it from Eq. 4 where needed)."""
         from repro_torch.train import gnn_trainer as gt
 
         rows = np.asarray(per_owner_rows, np.float64)
-        return gt._fetch_time(self.params, rows, delta, self.bytes_per_row)
+        if self.fabric is not None:
+            tr = self.fabric.transfer(
+                rows, self.bytes_per_row,
+                requester=self.requester, clock=self._clk,
+            )
+            return (*tr.astuple(), tr.per_owner_s)
+        return (
+            *gt._fetch_time(self.params, rows, delta, self.bytes_per_row),
+            None,
+        )
 
-    def _net_chunked(self, per_owner_rows, delta):
-        """Fine-grained DistTensor round (DGL/BGL), closed form."""
+    def _net_chunked(self, per_owner_rows, delta, at_s=None):
+        """Fine-grained DistTensor round (DGL/BGL) through the substrate;
+        ``at_s`` issues it at a later virtual time on the fabric."""
         from repro_torch.train import gnn_trainer as gt
 
         cfg = self.cfg
         rows = np.asarray(per_owner_rows, np.float64)
-        return gt._chunked_fetch_time(
-            self.params, rows, delta, self.bytes_per_row,
-            cfg.dgl_chunk, cfg.dgl_concurrency,
+        if self.fabric is not None:
+            tr = self.fabric.transfer(
+                rows, self.bytes_per_row, at_s=at_s,
+                chunk=cfg.dgl_chunk, concurrency=cfg.dgl_concurrency,
+                requester=self.requester, clock=self._clk,
+            )
+            return (*tr.astuple(), tr.per_owner_s)
+        return (
+            *gt._chunked_fetch_time(
+                self.params, rows, delta, self.bytes_per_row,
+                cfg.dgl_chunk, cfg.dgl_concurrency,
+            ),
+            None,
         )
+
+    def _block_charge(self, node_ids, delta, raw=0.0, cpu=0.0, nbytes=0.0,
+                      nrpc=0):
+        """Stage ``node_ids``'s host-tier blocks and add their traffic to
+        the running (raw, cpu, bytes, n_rpcs): remote blocks as one bulk
+        fetch on the substrate, then local blocks as a host read at
+        ``host_read_factor`` of the wire byte cost, in the reference's
+        order of additions."""
+        charge = self.store.touch(node_ids)
+        if charge is not None and not charge.empty:
+            if charge.per_owner_rows.any():
+                braw, bcpu, bb, br, _ = self._net_bulk(
+                    charge.per_owner_rows, delta
+                )
+                raw += braw
+                cpu += bcpu
+                nbytes += bb
+                nrpc += br
+            if charge.local_rows:
+                t_local = (
+                    charge.local_rows * self.bytes_per_row
+                    * float(self.params.beta)
+                    * float(self.mem_budget.host_read_factor)
+                )
+                raw += t_local
+                cpu += t_local
+        return raw, cpu, nbytes, nrpc
+
+    def _stage_plan(self, plan, delta, raw, cpu, nbytes, nrpc):
+        """Pin the plan's blocks FIRST (so staging its own fetch rows can
+        never evict them), then stage the fetched rows' blocks, adding
+        their traffic to the rebuild's."""
+        self.store.pin_window(plan.hot_nodes)
+        return self._block_charge(plan.hot_nodes[plan.fetched], delta,
+                                  raw, cpu, nbytes, nrpc)
 
     # ------------------------------------------------------------- controller
     def _decide(self, exposed_stall: float, step: int):
@@ -247,6 +349,7 @@ class TrainerWorker:
             step, cfg.steps_per_epoch, self.n_owners,
             snapshot=self.meter_snapshot,
             rebuild_stall=exposed_stall,
+            headroom=(self.store.headroom() if self.tiered else 1.0),
         )
         w, ww, _action = self.controller.decide(stats)
         if cfg.method == "greendygnn_nocw":
@@ -258,11 +361,20 @@ class TrainerWorker:
         from repro_torch.train import gnn_trainer as gt
 
         cfg = self.cfg
-        self.delta = gt._closed_form_delta(cfg, epoch, self.n_owners)
-        self.sigma_true = np.asarray(
-            [float(cm.sigma_from_delta(self.params, d)) for d in self.delta]
-        )
-        self.sigma_log.append(self.sigma_true)
+        if self.fabric is not None:
+            # fabric path: delta/sigma vary within the epoch; refreshed per
+            # step, the epoch log gets the step mean
+            clk = self._tick(epoch * cfg.steps_per_epoch, epoch)
+            self.delta = self.fabric.delta_ms(clk, requester=self.requester)
+            self.sigma_true = self.fabric.sigma(clk, requester=self.requester)
+            self.epoch_sigmas = []
+        else:
+            self.delta = gt._closed_form_delta(cfg, epoch, self.n_owners)
+            self.sigma_true = np.asarray(
+                [float(cm.sigma_from_delta(self.params, d))
+                 for d in self.delta]
+            )
+            self.sigma_log.append(self.sigma_true)
         self.epoch_stats = CacheStats()
         self.epoch_windows = []
         self._wall0 = self.meter.wall_s
@@ -272,9 +384,13 @@ class TrainerWorker:
             # epoch-level rebuild from the full presampled epoch trace
             remote = [self.store.remote_ids_of(t) for t in trace]
             plan = self.cache.plan_window(remote, self.weights)
-            raw, cpu_rb, nbytes, nrpc = self._net_bulk(
+            raw, cpu_rb, nbytes, nrpc, _ = self._net_bulk(
                 plan.per_owner_fetched.astype(np.float64), self.delta
             )
+            if self.tiered:
+                raw, cpu_rb, nbytes, nrpc = self._stage_plan(
+                    plan, self.delta, raw, cpu_rb, nbytes, nrpc
+                )
             if self.device_tier is not None:
                 self.device_tier.load(plan, self.store.peek_rows)
             self.meter.record_background(cpu_rb, nbytes, nrpc)
@@ -287,6 +403,11 @@ class TrainerWorker:
     def end_epoch(self, epoch: int) -> None:
         cfg = self.cfg
         self.meter.mark_epoch()
+        if self.fabric is not None:
+            self.sigma_log.append(
+                np.mean(self.epoch_sigmas, axis=0)
+                if self.epoch_sigmas else self.sigma_true
+            )
         self.hit_rates.append(self.epoch_stats.hit_rate())
         self.windows_log.append(
             float(np.mean(self.epoch_windows)) if self.epoch_windows else 0
@@ -307,6 +428,14 @@ class TrainerWorker:
         trace = self.traces[epoch]
         input_nodes = trace[step]
         remote_ids = self.store.remote_ids_of(input_nodes)
+
+        if self.fabric is not None:
+            # advance the virtual network clock; congestion state is a
+            # function of (this worker's wall time, global step) only
+            clk = self._tick(epoch * cfg.steps_per_epoch + step, epoch)
+            self.delta = self.fabric.delta_ms(clk, requester=self.requester)
+            self.sigma_true = self.fabric.sigma(clk, requester=self.requester)
+            self.epoch_sigmas.append(self.sigma_true)
         delta, sigma_true = self.delta, self.sigma_true
 
         # ---- windowed rebuild boundary ----
@@ -342,14 +471,38 @@ class TrainerWorker:
             device_rows = self.device_tier.gather(remote_ids)
             self.store.tier_stats.device_hits += int(device_rows[0].sum())
 
+        # ---- host tier: stage this step's working set ----
+        # blocks are touched for the rows the step reads from host memory
+        # (local rows + remote misses; device hits stay on the device); the
+        # block traffic is issued BEFORE the miss fetch, so memory pressure
+        # queues on the same owner links as the misses
+        blk_raw = blk_cpu = blk_bytes = 0.0
+        blk_rpcs = 0
+        if self.tiered:
+            local_ids = input_nodes[
+                self.owner[np.asarray(input_nodes)] == self.rank
+            ]
+            blk_raw, blk_cpu, blk_bytes, blk_rpcs = self._block_charge(
+                np.concatenate([np.asarray(local_ids, np.int64),
+                                np.asarray(miss_ids, np.int64)]),
+                delta,
+            )
+
         gpu_overlap = 0.0
         if cfg.method in ("dgl", "bgl"):
             # fine-grained per-layer rounds of small DistTensor RPCs;
             # the second layer round issues after the first completes
             rows1 = np.floor(per_owner * 0.5)
-            s1, c1, b1, r1 = self._net_chunked(rows1, delta)
-            s2, c2, b2, r2 = self._net_chunked(per_owner - rows1, delta)
+            s1, c1, b1, r1, po1 = self._net_chunked(rows1, delta)
+            s2, c2, b2, r2, po2 = self._net_chunked(
+                per_owner - rows1, delta,
+                at_s=(
+                    (self.meter.wall_s + s1)
+                    if self.fabric is not None else None
+                ),
+            )
             raw, cpu, nbytes, nrpc = s1 + s2, c1 + c2, b1 + b2, r1 + r2
+            per_owner_s = po1 + po2 if po1 is not None else None
             if cfg.method == "bgl":
                 # BGL prefetches during sampling: part of the latency is
                 # hidden, and GPU idle energy drops further (Section II-B)
@@ -360,10 +513,14 @@ class TrainerWorker:
         else:
             # consolidated bulk fetch of misses; the Stage-3 async queue
             # (depth Q) hides up to Q * t_base of latency (Section II-B)
-            raw, cpu, nbytes, nrpc = self._net_bulk(per_owner, delta)
+            raw, cpu, nbytes, nrpc, per_owner_s = self._net_bulk(
+                per_owner, delta
+            )
             slack = cfg.prefetch_depth * self.t_base
 
-        stall = max(0.0, raw - slack)
+        # block staging extends the exposed fetch path: the miss fetch
+        # cannot complete before its blocks are resident
+        stall = max(0.0, raw + blk_raw - slack)
         rebuild_stall = (
             self.pending_rebuild_cost / max(self.window, 1)
             if self.windowed else 0.0
@@ -385,26 +542,31 @@ class TrainerWorker:
             StepSample(
                 t_compute=t_compute,
                 t_stall=stall + rebuild_stall + ar_penalty,
-                t_cpu_comm=cpu,
-                remote_bytes=nbytes,
-                n_rpcs=nrpc,
+                t_cpu_comm=cpu + blk_cpu,
+                remote_bytes=nbytes + blk_bytes,
+                n_rpcs=nrpc + blk_rpcs,
                 gpu_overlap=gpu_overlap,
             )
         )
 
         # feed the fetch-time deque (per-owner per-RPC observations,
-        # including the raw injected RTT so Eq. 8 can see congestion)
+        # including the raw injected RTT so Eq. 8 can see congestion); the
+        # fabric path uses its per-owner wall latency, so queueing delays
+        # are visible to the controller too
         if self.controller is not None:
             for o in range(self.n_owners):
                 if per_owner[o] > 0:
-                    payload_o = per_owner[o] * self.bytes_per_row
-                    t_o = cm.rpc_wall_s(
-                        float(self.params.alpha_rpc),
-                        float(self.params.beta),
-                        float(self.params.gamma_c),
-                        payload_o,
-                        delta[o],
-                    )
+                    if per_owner_s is not None:
+                        t_o = float(per_owner_s[o])
+                    else:
+                        payload_o = per_owner[o] * self.bytes_per_row
+                        t_o = cm.rpc_wall_s(
+                            float(self.params.alpha_rpc),
+                            float(self.params.beta),
+                            float(self.params.gamma_c),
+                            payload_o,
+                            delta[o],
+                        )
                     self.controller.deque.append(
                         o, t_o / max(per_owner[o], 1)
                     )
@@ -413,7 +575,9 @@ class TrainerWorker:
 
     # ------------------------------------------------------ rebuild boundary
     def _rebuild_sync(self, adaptive_now, epoch, step, delta) -> None:
-        """Analytic double-buffer model (alpha_crit leak)."""
+        """Analytic double-buffer model (alpha_crit leak). On the fabric the
+        rebuild's wire time also occupies the owner links, so the next miss
+        fetches queue behind it."""
         cfg = self.cfg
         if adaptive_now:
             self.window, self.weights = self._decide(
@@ -432,12 +596,16 @@ class TrainerWorker:
             for t in trace[step : step + self.window]
         ]
         plan = self.cache.plan_window(upcoming, self.weights)
-        raw_rb, cpu_rb, nbytes, nrpc = self._net_bulk(
+        raw_rb, cpu_rb, nbytes, nrpc, _ = self._net_bulk(
             plan.per_owner_fetched.astype(np.float64), delta
         )
         # the fetch runs on a hypothetical builder thread (background CPU
         # energy); alpha_crit of it leaks onto the critical path, amortized
         # over the window
+        if self.tiered:
+            raw_rb, cpu_rb, nbytes, nrpc = self._stage_plan(
+                plan, delta, raw_rb, cpu_rb, nbytes, nrpc
+            )
         if self.device_tier is not None:
             # payload assembly must see the OLD active buffer (persisted
             # rows are copied device-to-device), so load before swap
@@ -492,5 +660,8 @@ class TrainerWorker:
             fetched_rows_by_owner=self.fetched_rows_by_owner,
             compute_report=(
                 self.engine.report() if self.engine is not None else None
+            ),
+            scenario=(
+                "closed_form" if self.fabric is None else self.cfg.scenario
             ),
         )

@@ -28,8 +28,17 @@ from repro_torch.kernels.segment_mm import (
     to_csr,
     transpose_csr,
 )
-from repro_torch.kernels.segment_mm.ops import check_kernel_operands
+from repro_torch.kernels.segment_mm.ops import (
+    _rows_ok,
+    check_kernel_operands,
+    csr_plan,
+)
 from test_torch_kernels import SPMM_CASES, TOL, _graph, _pad_rows
+
+
+# widths the kernel covers: narrow, ragged, one slab, just past it, several
+# slabs, and full_graph_sm's d_in
+WIDE_F = (1, 3, 4, 5, 64, 127, 128, 129, 130, 256, 1433)
 
 
 def _densify_csr(rowptr, col, val, n_cols):
@@ -234,14 +243,16 @@ class TestWrapper:
             csr_spmm(meta, x.to("meta"))
 
     def test_kernel_operand_checks(self):
-        """What a CUDA launch refuses, checked on CPU tensors: F % 4, F
-        beyond one warp's float4s, a strided x, a misaligned x."""
+        """What a CUDA launch takes and refuses, checked on CPU tensors:
+        any F >= 1, any row stride of at least F (padded, misaligned), and
+        no F = 0 or column stride other than 1."""
         fmt = self._fmt()
-        check_kernel_operands(fmt, torch.zeros((4, 64)))
-        check_kernel_operands(fmt, torch.zeros((4, 128)))
-        for bad in (torch.zeros((4, 70)), torch.zeros((4, 132)),
-                    torch.zeros((4, 0)), torch.zeros((4, 16))[:, ::2],
-                    torch.zeros(4 * 8 + 1)[1:].view(4, 8)):
+        for f in WIDE_F:
+            check_kernel_operands(fmt, torch.zeros((4, f)))
+        check_kernel_operands(fmt, torch.zeros((4, 1436))[:, :1433])
+        check_kernel_operands(fmt, torch.zeros(4 * 8 + 1)[1:].view(4, 8))
+        for bad in (torch.zeros((4, 0)), torch.zeros((4, 16))[:, ::2],
+                    torch.zeros((8, 4)).t()):
             with pytest.raises(ValueError):
                 check_kernel_operands(fmt, bad)
 
@@ -280,3 +291,84 @@ def test_engine_prepare_densifies_to_the_block_format():
             np.testing.assert_array_equal(_bits(got_t), _bits(want.T))
         src_rows = fmt.n_rows
     assert eng.check_parity(mb, graph.features[mb.input_nodes]) < 2e-3
+
+
+def _lane_columns(plan, f):
+    """(first column, real columns) of every active lane, slab by slab, as
+    the kernel assigns them (``c0 = (blockIdx.y * G + lane) * V``, active
+    while ``c0 < F``; a lane's columns past F are the row's pad)."""
+    out = []
+    for s in range(plan.n_slabs):
+        for lane in range(plan.g):
+            c0 = (s * plan.g + lane) * plan.v
+            if c0 < f:
+                out.append((c0, min(plan.v, f - c0)))
+    return out
+
+
+class TestSlabPlan:
+    """``csr_plan``: the launch ``csrc/csr_spmm.cu`` makes at each F."""
+
+    @pytest.mark.parametrize("vec", [True, False], ids=["float4", "scalar"])
+    @pytest.mark.parametrize("f", WIDE_F)
+    def test_lanes_cover_every_column_once(self, f, vec):
+        plan = csr_plan(f, vec)
+        assert plan.slab <= (128 if vec else 32)
+        assert plan.g & (plan.g - 1) == 0 and 1 <= plan.g <= 32
+        assert plan.n_slabs == -(-f // plan.slab)
+        cols = np.zeros(f, np.int64)
+        for c0, n in _lane_columns(plan, f):
+            cols[c0:c0 + n] += 1
+            assert n == plan.v or c0 + n == f       # only the last is short
+            # a float4 lane starts 16 bytes into an aligned row
+            assert plan.v == 1 or (c0 * 4) % 16 == 0
+        np.testing.assert_array_equal(cols, np.ones(f, np.int64))
+
+    def test_narrow_widths_keep_the_old_groups(self):
+        """F % 4 == 0 up to 128 launches one slab of F / 4 lanes rounded up
+        to a power of two, the kernel's former only shape."""
+        for f, g in ((4, 1), (8, 2), (16, 4), (64, 16), (100, 32), (128, 32)):
+            assert csr_plan(f, True) == type(csr_plan(f, True))(4, g, 1)
+
+    def test_float4_instance_needs_aligned_padded_rows(self):
+        """The trainer's input layout (rows 1,436 floats apart, first 1,433
+        used) takes the float4 instance; a contiguous (M, 1433) x, a
+        misaligned x or a last row without its pad takes the scalar one."""
+        buf = torch.zeros((6, 1436))
+        assert _rows_ok(buf[:, :1433], 1433)
+        assert _rows_ok(torch.zeros((6, 64)), 64)
+        assert not _rows_ok(torch.zeros((6, 1433)), 1433)
+        assert not _rows_ok(torch.zeros(6 * 64 + 1)[1:].view(6, 64), 64)
+        assert not _rows_ok(torch.zeros(5 * 1436 + 1433)
+                            .as_strided((6, 1433), (1436, 1)), 1433)
+
+
+def test_full_graph_sm_layer0_matches_reference():
+    """full_graph_sm's layer 0 at F = 1,433 on the CPU: the trainer's
+    padded-stride input through ``csr_spmm`` against the reference's
+    ``block_spmm_xla`` at the same CSR (``TOL``), and the same input
+    contiguous giving the same bits."""
+    from repro_torch.store import MemoryBudget
+    from repro_torch.train import compute, gnn_trainer as gt
+
+    cfg = gt.RunConfig(method="static_w", dataset="full_graph_sm",
+                       compute="measured", batch_size=600, n_epochs=1,
+                       warmup_epochs=0, steps_per_epoch=1,
+                       mem_budget=MemoryBudget(), device="cpu")
+    graph, _, _, mbs = gt.build_trace(cfg)
+    eng = compute.ComputeEngine(graph, cfg)
+    mb = mbs[0][0]
+    layers, x_rows, _ = eng.prepare(mb)
+    x = eng.pad_input(graph.features[mb.input_nodes], x_rows)
+    assert x.shape[1] == 1433 and x.stride(0) == 1436
+    fmt = layers[0]["fwd"]
+    got = csr_spmm(fmt, x)
+    blk = mb.blocks[0]
+    rows, cols, blocks, ndb, _ = ref_to_block_sparse(
+        blk.edge_src, blk.edge_dst, fmt.n_rows, fmt.n_cols, 128, 128,
+        blk.edge_mask.astype(np.float32))
+    want = np.asarray(block_spmm_xla(
+        jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(blocks),
+        jnp.asarray(x.contiguous().numpy()), ndb))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert torch.equal(got, csr_spmm(fmt, x.contiguous()))

@@ -75,6 +75,56 @@ def measured_runs():
     return ref, _drive(pw, pcfg)
 
 
+@pytest.fixture(scope="module")
+def measured_fabric_runs():
+    """static_w, measured, over the paper schedule's fabric (its delta
+    follows the step count, not the measured clock), the reference's
+    parameters carried over."""
+    kw = dict(MOTIVATION, method="static_w", compute="measured",
+              scenario="paper_schedule", n_epochs=5, steps_per_epoch=2,
+              warmup_epochs=1)
+    cfg = rgt.RunConfig(**kw, mem_budget=RefBudget(device_payloads=False))
+    rw = RefWorker(cfg, rgt.build_trace(cfg), fabric=_fabric(cfg, "ref"))
+    params = jax.tree.map(np.asarray, rw.engine.params)
+    ref = _drive(rw, cfg)
+    pcfg = pgt.RunConfig(**kw, mem_budget=MemoryBudget(device_payloads=False),
+                         device="cpu")
+    pw = TrainerWorker(pcfg, pgt.build_trace(pcfg),
+                       fabric=_fabric(pcfg, "port"))
+    pw.engine.load_params(params)
+    return ref, _drive(pw, pcfg)
+
+
+def _fabric(cfg, side):
+    from repro.net import build_scenario as ref_build
+    from repro_torch.net import build_scenario as port_build
+
+    build = ref_build if side == "ref" else port_build
+    return build(cfg.scenario, params=cfg.params, n_owners=cfg.n_parts - 1,
+                 seed=cfg.seed, n_epochs=cfg.n_epochs,
+                 steps_per_epoch=cfg.steps_per_epoch)
+
+
+class TestMeasuredUnderFabric:
+    def test_discrete_streams_equal(self, measured_fabric_runs):
+        ref, port = measured_fabric_runs
+        for name in ("step_hits", "step_misses", "fetched_rows_by_owner",
+                     "window_per_epoch", "hit_rate_per_epoch"):
+            np.testing.assert_array_equal(getattr(port, name),
+                                          getattr(ref, name), err_msg=name)
+        # the schedule congests epochs 3 on: sigma above 1 there
+        assert port.sigma_trace.shape == (5, 3)
+        assert (port.sigma_trace[3] > 1).any()
+        np.testing.assert_array_equal(port.sigma_trace, ref.sigma_trace)
+
+    def test_losses_within_tolerance(self, measured_fabric_runs):
+        ref, port = measured_fabric_runs
+        np.testing.assert_allclose(port.compute_report["losses"],
+                                   ref.compute_report["losses"], rtol=1e-4)
+        assert port.compute_report["step_edges"] \
+            == ref.compute_report["step_edges"]
+
+
 class TestModeledGreenDyGNN:
     def test_result_digest_equal(self, modeled_runs):
         ref, port = modeled_runs
