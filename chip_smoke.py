@@ -60,7 +60,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    batch 2000, 3 epochs (2 of warmup) of 8 steps, a seeded untrained qnet.
    Every launch count is zeroed just before and read just after; the run
    must have launched both of its kernels (the CSR SpMM 3 times a step
-   and twice in the parity check; the dense-block kernel never), passed
+   and twice in the parity check; the dense-block kernel never; the
+   EmbeddingBag kernel once a step with hits and once a rebuild that keeps
+   rows of the active table, its persisted-row gather), passed
    the CSR-path/scatter parity check (< 2e-3), given finite losses and
    let the controller decide after warmup. Then more trainer paths
    through ``gnn_trainer.run``, each with the counts zeroed just before
@@ -86,6 +88,27 @@ Phases, each of which ends the run with a non-zero exit on failure:
    ``radixSortKVInPlace``; it logs the host spans (the device-tier
    gather, the host feature rows, the input placement) and the copies
    each way.
+   Then the threaded pipeline (``async_pipeline=True``) at the main path's
+   widths and batch, static_w: at W = 4 and W = 7 (windows straddling
+   epochs), 3 epochs of 8 steps, the synchronous and the threaded run
+   through ``gnn_trainer.run`` give equal hit and miss streams, windows and
+   fetched rows per owner, under the same launch rules (threaded, every
+   persisted-row gather is counted on the builder thread); at every swap of
+   the threaded W = 4 run the table the builder made on its own stream,
+   and the gather of every active slot, are ``torch.equal`` to the host
+   payload (the checks' launches taken off the count). The host wall per
+   step, split into the consumer's time at rebuild boundaries and the
+   rest, synchronous, threaded, and threaded with the prefetcher's
+   resolver a no-op, in turns ((sync, async, async-noprefetch,
+   async-noprefetch, async, sync) twice), and the ``PipelineReport``
+   (builder wall, exposed wait, overlap
+   efficiency, swap latency) are printed. ``torch.profiler`` over two
+   threaded windows must show the builds' uploads as pinned copies on a
+   stream other than the compute stream, the persisted-row gathers there
+   too, and no pageable copy the size of a payload table. greendygnn
+   threaded under the paper schedule must rebuild and decide windows in
+   the action set; ooc_community threaded under a host budget of 0.3 of its
+   matrix must give the CPU's ``tier_counts``.
 4. Run the LM serving path at full width: ``tinyllama-1.1b`` (22 layers,
    d_model 2048, bf16, seeded random weights). Counts zeroed, then
    ``repro_torch.launch.serve.run`` (batch 4, prompt 8, generation 16;
@@ -112,14 +135,17 @@ Phases, each of which ends the run with a non-zero exit on failure:
    row, at the path's shape, also carries the kernel's own device time
    from ``torch.profiler`` (``kernel_ms``: L2 flushed before each call;
    ``kernel_warm_ms``: back to back) and the event time at the padded
-   shape (``padded_ms``). TF32 is off throughout: float32 results are
-   compared in full float32.
+   shape (``padded_ms``). A second EmbeddingBag row,
+   ``embedding_bag_persisted``, times the persisted-row gather at the
+   threaded run's median rebuild. TF32 is off throughout: float32 results
+   are compared in full float32.
 6. The last line is ``{"ok": true, "device": {...}}``.
 
 Kernel builds land in ``build/kernels/`` (listed in ``.gitignore``).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -168,6 +194,10 @@ FULL_GRAPH = dict(method="static_w", dataset="full_graph_sm",
 # (5 epochs: the paper schedule congests from epoch 3 on)
 CONGESTION = dict(MAIN_PATH, n_epochs=5, warmup_epochs=1, steps_per_epoch=4,
                   static_window=2)
+# the threaded pipeline at MAIN_PATH's widths and batch: static_w, W = 4
+# (W = 7 too, so that windows straddle epochs)
+PIPELINE = dict(MAIN_PATH, method="static_w", static_window=4)
+PIPELINE_FEAT = 64                      # the reddit stand-in's features
 BUDGETED = dict(method="static_w", dataset="ooc_community",
                 compute="measured", scenario="clean", batch_size=2000,
                 n_epochs=2, warmup_epochs=1, steps_per_epoch=4,
@@ -260,6 +290,22 @@ def bound_ms(n_bytes: float, n_flops: float,
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bag_bytes(torch, fmt, d: int) -> int:
+    """The bytes a sum-mode bag function over ``fmt`` must move at width
+    ``d``: each distinct table row a lookup of non-zero weight reads,
+    once; each bag's row, written once; the int32 indices; the weights,
+    unless all are 1; the offsets, unless every bag holds exactly one
+    lookup (bag b is then lookup b)."""
+    n_look = fmt.idx.numel()
+    read = torch.unique(fmt.idx[fmt.w != 0]).numel()
+    n_bytes = (read + fmt.n_bags) * d * 4 + n_look * 4
+    if not bool((fmt.w == 1).all()):
+        n_bytes += n_look * 4
+    if not (fmt.n_bags == n_look and fmt.max_len == 1):
+        n_bytes += (fmt.n_bags + 1) * 4
+    return n_bytes
 
 
 # ------------------------------------------------------------- phase 1
@@ -831,22 +877,25 @@ def phase_main_path(torch, device):
                                                device_payloads=True),
                        device=str(device))
     bundle = gt.build_trace(cfg)
-    csr_spmm.launches = 0
-    block_spmm.launches = 0
-    embedding_bag.launches = 0
-    t0 = time.perf_counter()
-    res = gt.run(cfg, bundle)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {"csr_spmm": csr_spmm.launches,
-              "block_spmm": block_spmm.launches,
-              "embedding_bag": embedding_bag.launches}
+    with plans_swapped() as plans:
+        csr_spmm.launches = 0
+        block_spmm.launches = 0
+        embedding_bag.launches = 0
+        t0 = time.perf_counter()
+        res = gt.run(cfg, bundle)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"csr_spmm": csr_spmm.launches,
+                  "block_spmm": block_spmm.launches,
+                  "embedding_bag": embedding_bag.launches}
+    kept = persisted_builds(plans)
     rep = res.compute_report
     n_steps = cfg.n_epochs * cfg.steps_per_epoch
     steps_with_hits = int((res.step_hits > 0).sum())
     log(f"main path: {n_steps} steps in {wall:.2f} s, windows "
         f"{res.window_per_epoch.tolist()}, hits {int(res.step_hits.sum())}, "
         f"misses {int(res.step_misses.sum())}, launches {counts}, "
+        f"{len(plans)} rebuilds ({kept} carrying persisted rows), "
         f"decisions {decisions}")
     log(f"main path: losses {[round(x, 4) for x in rep['losses']]}")
     # 2 forward + 1 backward per step, and 2 forward in the parity check
@@ -855,10 +904,13 @@ def phase_main_path(torch, device):
     require(counts["block_spmm"] == 0,
             f"the trainer launched the dense-block kernel "
             f"{counts['block_spmm']} times")
+    # one gather a step with hits, one persisted-row gather a rebuild
+    # that keeps rows of the active table
     require(steps_with_hits > 0
-            and counts["embedding_bag"] == steps_with_hits,
+            and counts["embedding_bag"] == steps_with_hits + kept,
             f"embedding_bag launches {counts['embedding_bag']} != "
-            f"{steps_with_hits} steps with hits")
+            f"{steps_with_hits} steps with hits + {kept} rebuilds with "
+            "persisted rows")
     require(rep["n_steps"] == n_steps, "measured steps missing")
     require(rep["parity_max_diff"] is not None
             and rep["parity_max_diff"] < 2e-3,
@@ -1145,29 +1197,66 @@ def phase_spmm_widths(torch, device, ops):
     return err_max
 
 
+@contextlib.contextmanager
+def plans_swapped():
+    """Log every rebuild plan the cache swaps to, with the active nodes
+    it was diffed against, for as long as the context is open."""
+    from repro_torch.core.windowed_cache import DoubleBufferedCache
+
+    swap = DoubleBufferedCache.swap
+    plans = []
+
+    def logged(self, plan):
+        plans.append((self.active_nodes, plan))
+        return swap(self, plan)
+
+    DoubleBufferedCache.swap = logged
+    try:
+        yield plans
+    finally:
+        DoubleBufferedCache.swap = swap
+
+
+def persisted_builds(plans) -> int:
+    """Rebuilds that keep rows of the active table: with device payloads
+    each gathers them device-to-device, one EmbeddingBag launch."""
+    return sum(bool(plan.persisted.any()) for _, plan in plans)
+
+
 def counted_run(torch, cfg, bundle):
     """``gnn_trainer.run`` with every launch count zeroed just before and
-    read just after: (result, counts, wall seconds)."""
+    read just after: (result, counts, wall seconds, the plans swapped to
+    with the active nodes each was diffed against). ``counts`` also holds
+    the EmbeddingBag launches made on the pipeline's builder thread (the
+    thread named ``cache-builder``), as the wrapper counted them."""
     from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.segment_mm import block_spmm, csr_spmm
     from repro_torch.train import gnn_trainer as gt
 
-    csr_spmm.launches = 0
-    block_spmm.launches = 0
-    embedding_bag.launches = 0
-    t0 = time.perf_counter()
-    res = gt.run(cfg, bundle)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return res, {"csr_spmm": csr_spmm.launches,
-                 "block_spmm": block_spmm.launches,
-                 "embedding_bag": embedding_bag.launches}, wall
+    with plans_swapped() as plans:
+        for wrapper in (csr_spmm, block_spmm, embedding_bag):
+            wrapper.launches = 0
+            wrapper.launches_by_thread = {}
+        t0 = time.perf_counter()
+        res = gt.run(cfg, bundle)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"csr_spmm": csr_spmm.launches,
+                  "block_spmm": block_spmm.launches,
+                  "embedding_bag": embedding_bag.launches,
+                  "embedding_bag_builder":
+                      embedding_bag.launches_by_thread.get("cache-builder", 0)}
+    return res, counts, wall, plans
 
 
-def require_path_counts(label, res, counts, measured=True):
+def require_path_counts(label, res, counts, plans, measured=True):
     """The main path's launch rules: 3 CSR launches a measured step and 2
     in the parity check, no dense-block launch, one gather a step with
-    hits."""
+    hits and one persisted-row gather for each rebuild in ``plans`` that
+    keeps rows of the active table; with the threaded pipeline, every
+    persisted-row gather is launched on the builder thread, and no other
+    gather is."""
+    kept = persisted_builds(plans)
     n_steps = len(res.step_hits)
     with_hits = int((res.step_hits > 0).sum())
     if measured:
@@ -1186,9 +1275,14 @@ def require_path_counts(label, res, counts, measured=True):
     require(counts["block_spmm"] == 0,
             f"{label}: the dense-block kernel ran {counts['block_spmm']} "
             "times")
-    require(counts["embedding_bag"] == with_hits,
+    require(counts["embedding_bag"] == with_hits + kept,
             f"{label}: embedding_bag launches {counts['embedding_bag']} != "
-            f"{with_hits} steps with hits")
+            f"{with_hits} steps with hits + {kept} rebuilds with persisted "
+            "rows")
+    on_builder = kept if res.pipeline is not None else 0
+    require(counts["embedding_bag_builder"] == on_builder,
+            f"{label}: {counts['embedding_bag_builder']} embedding_bag "
+            f"launches on the builder thread, not {on_builder}")
 
 
 def phase_full_graph(torch, device):
@@ -1200,7 +1294,7 @@ def phase_full_graph(torch, device):
     cfg = gt.RunConfig(**FULL_GRAPH,
                        mem_budget=MemoryBudget(device_payloads=True),
                        device=str(device))
-    res, counts, wall = counted_run(torch, cfg, gt.build_trace(cfg))
+    res, counts, wall, plans = counted_run(torch, cfg, gt.build_trace(cfg))
     rep = res.compute_report
     n_steps = cfg.n_epochs * cfg.steps_per_epoch
     log(f"full_graph_sm: {n_steps} measured steps in {wall:.2f} s, hits "
@@ -1208,7 +1302,7 @@ def phase_full_graph(torch, device):
         f"launches {counts}, parity_max_diff {rep['parity_max_diff']:.3e}, "
         f"losses {[round(v, 4) for v in rep['losses']]}, median measured "
         f"step {statistics.median(rep['step_s']) * 1e3:.3f} ms")
-    require_path_counts("full_graph_sm", res, counts)
+    require_path_counts("full_graph_sm", res, counts, plans)
     require(int((res.step_hits > 0).sum()) > 0, "full_graph_sm: no hits")
     return counts
 
@@ -1251,7 +1345,7 @@ def phase_congestion(torch, device, smi):
                     mem_budget=MemoryBudget(device_payloads=True),
                     device=str(device))
                 decisions.clear()
-                res, counts, wall = counted_run(torch, cfg, bundle)
+                res, counts, wall, plans = counted_run(torch, cfg, bundle)
                 joules = [round(epoch_joules(res, e), 4)
                           for e in range(cfg.n_epochs)]
                 log(f"congestion {scenario} {method}: joules per epoch "
@@ -1266,7 +1360,7 @@ def phase_congestion(torch, device, smi):
                 require(res.scenario == scenario,
                         f"congestion: the run used {res.scenario}")
                 require_path_counts(f"congestion {scenario} {method}", res,
-                                    counts)
+                                    counts, plans)
                 if method in ("heuristic", "greendygnn"):
                     require(len(decisions) >= 1,
                             f"congestion {scenario} {method}: the "
@@ -1287,11 +1381,11 @@ def phase_budgeted_tier(torch, device):
     cfg = gt.RunConfig(**BUDGETED, mem_budget=MemoryBudget(
         host_bytes=host, chunk_rows=256, device_payloads=True),
         device=str(device))
-    res, counts, wall = counted_run(torch, cfg, gt.build_trace(cfg))
+    res, counts, wall, plans = counted_run(torch, cfg, gt.build_trace(cfg))
     tc = res.tier_counts
     log(f"budgeted tier ooc_community: host budget {host:.0f} B, "
         f"tier_counts {tc}, launches {counts}, wall {wall:.2f} s")
-    require_path_counts("budgeted tier", res, counts)
+    require_path_counts("budgeted tier", res, counts, plans)
     require(tc["block_fetches"] > 0, "budgeted tier: no block fetches")
     require(tc["peak_resident_bytes"] <= host or tc["pinned_over_budget"] > 0,
             f"budgeted tier: peak {tc['peak_resident_bytes']} B over the "
@@ -1319,9 +1413,12 @@ def phase_card_vs_cpu_fabric(torch, device):
                                           scenario=scenario),
                                    mem_budget=MemoryBudget(
                                        device_payloads=True), device=dev)
-                embedding_bag.launches = 0
-                out.append((gt.run(cfg, bundle), embedding_bag.launches))
-            (a, launched), (b, _) = out
+                with plans_swapped() as plans:
+                    embedding_bag.launches = 0
+                    res = gt.run(cfg, bundle)
+                    out.append((res, embedding_bag.launches,
+                                persisted_builds(plans)))
+            (a, launched, kept), (b, _, _) = out
             fields = []
             for name in ("gpu_j", "cpu_j", "wall_s", "remote_bytes",
                          "n_rpcs"):
@@ -1337,12 +1434,538 @@ def phase_card_vs_cpu_fabric(torch, device):
             require(a.tier_counts == b.tier_counts,
                     f"card vs CPU {scenario} {method}: tier counts differ")
             with_hits = int((a.step_hits > 0).sum())
-            require(launched == with_hits > 0,
+            require(with_hits > 0 and launched == with_hits + kept,
                     f"card vs CPU {scenario} {method}: {launched} gathers "
-                    f"on the card for {with_hits} steps with hits")
+                    f"on the card for {with_hits} steps with hits and "
+                    f"{kept} rebuilds with persisted rows")
             log(f"card vs CPU {scenario} {method} (modeled): digest fields "
                 f"equal, energy {float(a.meter.gpu_j + a.meter.cpu_j)!r} J, "
                 f"{launched} gathers on the card")
+
+
+# ------------------------------------------------------------- phase 3c
+def pipeline_cfg(device, **kw):
+    """PIPELINE with device payloads over an unlimited host tier."""
+    from repro_torch.store import MemoryBudget
+    from repro_torch.train import gnn_trainer as gt
+
+    return gt.RunConfig(**dict(PIPELINE, **kw),
+                        mem_budget=MemoryBudget(device_payloads=True),
+                        device=str(device))
+
+
+def require_parity(label, sync, asyn):
+    """The threaded run's hit and miss streams, windows and per-owner
+    fetched rows equal the synchronous run's (the reference's parity
+    criterion, with the windows added)."""
+    import numpy as np
+
+    from repro_torch.pipeline.parity import compare_runs
+
+    rep = compare_runs(sync, asyn)
+    require(rep.ok, f"{label}: threaded run differs from the synchronous "
+            f"one\n{rep.describe()}")
+    require(np.array_equal(sync.window_per_epoch, asyn.window_per_epoch),
+            f"{label}: windows differ")
+
+
+@contextlib.contextmanager
+def tier_invariant(torch, stats):
+    """At every swap, once the pointer has flipped: the active table, and
+    every active slot gathered through the EmbeddingBag kernel, are
+    ``torch.equal`` to the host payload. The checks' own launches are
+    tallied in ``stats["launches"]``, to be taken off the run's count (a
+    swap runs on the consumer thread with no build in flight, so nothing
+    else launches meanwhile)."""
+    import numpy as np
+
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.store import DevicePayloadTier
+
+    install = DevicePayloadTier.install
+
+    def checked(self, pending):
+        install(self, pending)
+        torch.cuda.synchronize()
+        host = torch.from_numpy(self._payload)
+        n0 = embedding_bag.launches
+        rows = self.gather_rows(np.arange(len(host)))
+        torch.cuda.synchronize()
+        stats["launches"] += embedding_bag.launches - n0
+        require(torch.equal(self._table.cpu(), host),
+                f"tier invariant: swap {stats['swaps']}: the table built on "
+                "the builder's stream differs from the host payload")
+        require(torch.equal(rows.cpu(), host),
+                f"tier invariant: swap {stats['swaps']}: the gather of the "
+                "active slots differs from the host payload")
+        stats["swaps"] += 1
+        stats["rows"] += len(host)
+
+    DevicePayloadTier.install = checked
+    try:
+        yield stats
+    finally:
+        DevicePayloadTier.install = install
+
+
+@contextlib.contextmanager
+def builds_logged():
+    """Log every build the consumer waits for: (plan s, fetch s, submit
+    to publish s, exposed wait s), the first being the cold start."""
+    from repro_torch.pipeline import CacheBuilder
+
+    wait = CacheBuilder.wait
+    builds = []
+
+    def logged(self, ticket):
+        buf, exposed = wait(self, ticket)
+        builds.append((buf.t_plan_s, buf.t_fetch_s, buf.t_total_s, exposed))
+        return buf, exposed
+
+    CacheBuilder.wait = logged
+    try:
+        yield builds
+    finally:
+        CacheBuilder.wait = wait
+
+
+@contextlib.contextmanager
+def prefetch_resolve_off():
+    """The prefetcher's resolver made a no-op: every scheduled batch
+    resolves to None at once. The run keeps its prefetch thread, queue
+    and accounting, but reads none of the rows whose payload the step
+    discards."""
+    from repro_torch.pipeline import PrefetchQueue
+
+    init = PrefetchQueue.__init__
+
+    def off(self, resolve_fn, depth, sanitize=None):
+        init(self, lambda item: None, depth, sanitize)
+
+    PrefetchQueue.__init__ = off
+    try:
+        yield
+    finally:
+        PrefetchQueue.__init__ = init
+
+
+@contextlib.contextmanager
+def boundaries_timed():
+    """The consumer's host seconds at rebuild boundaries, summed in
+    ``spent[0]``: the whole synchronous rebuild, or the threaded one's
+    wait, swap and next submit."""
+    from repro_torch.train.worker import TrainerWorker
+
+    spent = [0.0]
+    originals = {name: getattr(TrainerWorker, name)
+                 for name in ("_rebuild_sync", "_rebuild_async")}
+
+    def timed(fn):
+        def run(self, *args):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *args)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        return run
+
+    for name, fn in originals.items():
+        setattr(TrainerWorker, name, timed(fn))
+    try:
+        yield spent
+    finally:
+        for name, fn in originals.items():
+            setattr(TrainerWorker, name, fn)
+
+
+def timed_steps(torch, cfg, bundle):
+    """Drive a TrainerWorker through ``cfg``'s steps as
+    ``gnn_trainer.run`` does: (result, host wall per step in ms, from
+    the first step to the device's end of the last)."""
+    from repro_torch.train.worker import TrainerWorker
+
+    w = TrainerWorker(cfg, bundle)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for e in range(cfg.n_epochs):
+            w.begin_epoch(e)
+            for s in range(cfg.steps_per_epoch):
+                w.step(e, s)
+            w.end_epoch(e)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        w.close()
+    return w.result(), wall * 1e3 / (cfg.n_epochs * cfg.steps_per_epoch)
+
+
+def phase_pipeline(torch, device, smi):
+    """The threaded pipeline through ``gnn_trainer.run`` at MAIN_PATH's
+    widths and batch: static_w at W = 4 and W = 7, synchronous and
+    threaded, streams equal; the tier invariant at every swap of the
+    threaded W = 4 run; the launch rules; then the host wall per step,
+    synchronous, threaded and threaded without the prefetcher's row
+    reads, in turns. Returns what the timing phase
+    needs: the threaded W = 4 run's plans, the EmbeddingBag launches its
+    builder thread made (the persisted-row gathers) and its rebuilds."""
+    from repro_torch.train import gnn_trainer as gt
+
+    bundle = gt.build_trace(pipeline_cfg(device))
+    inv = {"swaps": 0, "rows": 0, "launches": 0}
+    out = {}
+    for window in (4, 7):
+        for mode in ("sync", "async"):
+            cfg = pipeline_cfg(device, static_window=window,
+                               async_pipeline=mode == "async")
+            label = f"pipeline W={window} {mode}"
+            checks = (tier_invariant(torch, inv) if (window, mode)
+                      == (4, "async") else contextlib.nullcontext())
+            with checks:
+                res, counts, wall, plans = counted_run(torch, cfg, bundle)
+            if (window, mode) == (4, "async"):
+                counts["embedding_bag"] -= inv["launches"]
+            kept = persisted_builds(plans)
+            log(f"{label}: {len(res.step_hits)} steps in {wall:.2f} s, "
+                f"windows {res.window_per_epoch.tolist()}, hits "
+                f"{int(res.step_hits.sum())}, misses "
+                f"{int(res.step_misses.sum())}, fetched rows "
+                f"{res.fetched_rows_by_owner.astype(int).tolist()}, "
+                f"launches {counts}, {len(plans)} rebuilds ({kept} carrying "
+                "persisted rows)")
+            require_path_counts(label, res, counts, plans)
+            out[window, mode] = (res, plans, counts)
+        sync, asyn = out[window, "sync"][0], out[window, "async"][0]
+        require_parity(f"pipeline W={window}", sync, asyn)
+        require(sync.pipeline is None and asyn.pipeline is not None
+                and asyn.pipeline.n_rebuilds == len(out[window, "async"][1]),
+                f"pipeline W={window}: report missing or rebuilds miscounted")
+        log(f"pipeline W={window}: threaded and synchronous streams, windows "
+            "and fetched rows equal")
+        log(f"pipeline W={window} report: {json.dumps(asyn.pipeline.summary())}")
+    require(inv["swaps"] == out[4, "async"][0].pipeline.n_rebuilds > 0,
+            f"tier invariant checked at {inv['swaps']} swaps")
+    log(f"tier invariant: {inv['swaps']} swaps of the threaded W=4 run, "
+        f"{inv['rows']} active rows, table and kernel gather torch.equal to "
+        f"the host payload at each ({inv['launches']} check launches taken "
+        "off the count)")
+
+    # host wall per step in turns (twice: the host's noise between runs
+    # is of the order of the differences): synchronous, threaded, and
+    # threaded with the prefetcher's resolver a no-op, which parts the
+    # threaded path's extra host time between the discarded prefetch and
+    # the rest (the builder beside the consumer, the swap). Each run's
+    # wall is split into the consumer's time at rebuild boundaries and
+    # the rest of its steps.
+    modes = ("sync", "async", "async-noprefetch")
+    walls = {m: [] for m in modes}
+    at_bound = {m: [] for m in modes}
+    n_steps = PIPELINE["n_epochs"] * PIPELINE["steps_per_epoch"]
+    for mode in ("sync", "async", "async-noprefetch", "async-noprefetch",
+                 "async", "sync") * 2:
+        cfg = pipeline_cfg(device, async_pipeline=mode != "sync")
+        off = (prefetch_resolve_off() if mode == "async-noprefetch"
+               else contextlib.nullcontext())
+        with off, builds_logged() as builds, boundaries_timed() as spent:
+            res, ms = timed_steps(torch, cfg, bundle)
+        require_parity(f"pipeline timed {mode}", out[4, "sync"][0], res)
+        bound = spent[0] * 1e3 / n_steps
+        walls[mode].append(ms)
+        at_bound[mode].append(bound)
+        head = (f"pipeline timed {mode}: host wall {ms:.3f} ms/step "
+                f"({bound:.3f} at rebuild boundaries, {ms - bound:.3f} in "
+                "the rest of the steps)")
+        if res.pipeline is None:
+            log(f"{head}; {smi}")
+            continue
+        rep = res.pipeline
+        require(rep.prefetch_batches == n_steps,
+                f"pipeline timed {mode}: {rep.prefetch_batches} prefetched "
+                f"batches for {n_steps} steps")
+        n = max(rep.n_rebuilds, 1)
+        log(f"{head}; per rebuild builder wall "
+            f"{rep.builder_wall_s * 1e3 / n:.3f} ms, exposed wait "
+            f"{rep.exposed_wait_s * 1e3 / n:.3f} ms, overlap efficiency "
+            f"{rep.overlap_efficiency:.4f}, swap latency "
+            f"{rep.swap_latency_s * 1e3:.4f} ms mean "
+            f"({rep.swap_latency_max_s * 1e3:.4f} max), {rep.n_rebuilds} "
+            f"rebuilds; prefetch wait {rep.prefetch_wait_s * 1e3:.3f} ms "
+            f"over {rep.prefetch_batches} batches, {rep.prefetch_stalls} "
+            f"stalls, resolver work {rep.prefetch_resolve_s * 1e3:.3f} ms "
+            f"(payloads discarded); {smi}")
+        log(f"pipeline timed {mode} summary: {json.dumps(rep.summary())}")
+        cold, rest = builds[0], builds[1:]
+        log(f"pipeline timed {mode} builds, ms (plan, fetch, submit to "
+            f"publish, exposed): cold start "
+            f"{[round(v * 1e3, 3) for v in cold]}; the other "
+            f"{len(rest)}, medians "
+            f"{[round(statistics.median(b[k] for b in rest) * 1e3, 3) for k in range(4)]}"
+            f", max exposed {max(b[3] for b in rest) * 1e3:.3f}")
+    mean = {m: statistics.mean(walls[m]) for m in modes}
+    mean_b = {m: statistics.mean(at_bound[m]) for m in modes}
+    log(f"pipeline host wall per step (W=4, {PIPELINE['n_epochs']} x "
+        f"{PIPELINE['steps_per_epoch']} steps, order (sync async "
+        "async-noprefetch async-noprefetch async sync) x 2): "
+        + "; ".join(f"{m} {walls[m]} ms, at boundaries {at_bound[m]} ms"
+                    for m in modes) + f"; {smi}")
+    log("pipeline host wall per step, means (wall / at boundaries / rest), "
+        "ms: " + "; ".join(
+            f"{m} {mean[m]:.3f} / {mean_b[m]:.3f} / "
+            f"{mean[m] - mean_b[m]:.3f}" for m in modes)
+        + f"; threaded - sync {mean['async'] - mean['sync']:.3f}, of which "
+        f"the discarded prefetch (threaded - no-prefetch) "
+        f"{mean['async'] - mean['async-noprefetch']:.3f} and the rest "
+        f"(no-prefetch - sync) "
+        f"{mean['async-noprefetch'] - mean['sync']:.3f}")
+    res, plans, counts = out[4, "async"]
+    return plans, counts["embedding_bag_builder"], res.pipeline.n_rebuilds
+
+
+def chrome_events(prof, path):
+    """The device's kernel and copy events of a finished profile, from its
+    Chrome trace: [(category, name, stream, bytes)]."""
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    events = []
+    for e in trace.get("traceEvents", []):
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy"):
+            continue
+        args = e.get("args", {})
+        require("stream" in args,
+                f"profile trace: no stream in {e.get('name')}'s args "
+                f"{sorted(args)}")
+        events.append((e["cat"], e["name"], args["stream"],
+                       args.get("bytes")))
+    return events
+
+
+def phase_pipeline_profile(torch, device, n_warm: int = 8, n_each: int = 8):
+    """Two threaded windows (W = 4: steps 8-15, swaps at 8 and 12) under
+    ``torch.profiler``: the builder's payload upload is a pinned copy on a
+    stream other than the compute stream, its persisted-row gathers run
+    there too, and no pageable copy the size of a payload table follows a
+    swap (the first gather reads the table built off the critical path)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.train import gnn_trainer as gt
+    from repro_torch.train.worker import TrainerWorker
+
+    cfg = pipeline_cfg(device, n_epochs=1, steps_per_epoch=24,
+                       async_pipeline=True)
+    w = TrainerWorker(cfg, gt.build_trace(cfg))
+    path = ROOT / "build" / "pipeline_profile.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        w.begin_epoch(0)
+        for s in range(n_warm):
+            w.step(0, s)
+        torch.cuda.synchronize()
+        bags0 = embedding_bag.launches
+        builder0 = embedding_bag.launches_by_thread.get("cache-builder", 0)
+        with plans_swapped() as plans, profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # a short spin and a pause lead the window: the profiler can
+            # miss the device's first activity after it starts
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            for s in range(n_warm, n_warm + n_each):
+                w.step(0, s)
+            # the build submitted at the last swap ends inside the window
+            require(w.pending_ticket.done.wait(timeout=120),
+                    "profile: the last build did not finish")
+            torch.cuda.synchronize()
+        wrapper_bags = embedding_bag.launches - bags0
+        builder_bags = (embedding_bag.launches_by_thread.get("cache-builder", 0)
+                        - builder0)
+    finally:
+        w.close()
+    events = chrome_events(prof, path)
+    csr_streams = {st for cat, name, st, _ in events
+                   if "csr_spmm_kernel" in name}
+    require(len(csr_streams) == 1,
+            f"profile: the SAGE step's SpMM ran on streams {csr_streams}")
+    (compute,) = csr_streams
+    copies = [(name, st, b) for cat, name, st, b in events
+              if cat == "gpu_memcpy" and "HtoD" in name]
+    for name, st, b in copies:
+        if "Pinned" in name or (b or 0) > 1 << 20:
+            log(f"profile pipeline: {name} on stream {st}"
+                f"{' (compute)' if st == compute else ''}: {b} B")
+    pinned = [(st, b) for name, st, b in copies if "Pinned" in name]
+    table_bytes = [len(plan.hot_nodes) * w.device_tier.n_feat * 4
+                   for _, plan in plans]
+    pageable = [b for name, st, b in copies if "Pageable" in name]
+    require(all(b is not None for b in pageable + [b for _, b in pinned]),
+            "profile: copies without a byte count in the trace")
+    bags = [st for cat, name, st, _ in events
+            if "embedding_bag_kernel" in name]
+    side_bags = sum(st != compute for st in bags)
+    with_hits = sum(h > 0 for h in w.step_hits[n_warm:n_warm + n_each])
+    log(f"profile pipeline ({n_each} threaded steps, {len(plans)} swaps, "
+        f"tables of {table_bytes} B): compute stream {compute}; "
+        f"{len(pinned)} pinned uploads on streams "
+        f"{sorted({st for st, _ in pinned})} ({sum(b for _, b in pinned)} "
+        f"B); {len(pageable)} pageable copies, largest "
+        f"{max(pageable, default=0)} B; embedding_bag_kernel "
+        f"{len(bags) - side_bags} on the compute stream ({with_hits} steps "
+        f"with hits), {side_bags} on the builder's stream, "
+        f"{wrapper_bags} counted by the wrapper, {builder_bags} of them on "
+        "the builder thread")
+    require(len(plans) == 2, f"profile: {len(plans)} swaps in two windows")
+    require(len(pinned) >= 2 and all(st != compute for st, _ in pinned),
+            "profile: the builds' pinned uploads are not on a stream of "
+            "their own")
+    require(max(pageable, default=0) < min(table_bytes),
+            f"profile: a pageable copy of {max(pageable)} B, a payload "
+            f"table's size ({min(table_bytes)} B), ran in the window")
+    require(len(bags) - side_bags == with_hits > 0,
+            f"profile: {len(bags) - side_bags} hit gathers on the compute "
+            f"stream for {with_hits} steps with hits")
+    require(1 <= side_bags <= 3 and len(bags) == wrapper_bags
+            and side_bags == builder_bags,
+            f"profile: {side_bags} persisted-row gathers on the builder's "
+            f"stream, {builder_bags} counted on its thread; {len(bags)} "
+            f"gathers traced, {wrapper_bags} counted")
+
+
+def phase_pipeline_adaptive(torch, device):
+    """greendygnn threaded under the paper schedule (CONGESTION's 5 epochs
+    of 4 steps): it runs, rebuilds, and every window it decides lies in
+    the action set."""
+    from repro_torch.core import controller as ctl, cost_model as cm, dqn
+    from repro_torch.store import MemoryBudget
+    from repro_torch.train import gnn_trainer as gt
+
+    qnet = dqn.init_qnet(torch.Generator().manual_seed(SEED),
+                         ctl.state_dim(3), ctl.n_actions(3), device=device)
+    cfg = gt.RunConfig(**dict(CONGESTION, method="greendygnn",
+                              scenario="paper_schedule", async_pipeline=True),
+                       q_fn=dqn.q_fn_of(qnet),
+                       mem_budget=MemoryBudget(device_payloads=True),
+                       device=str(device))
+    decide = ctl.AdaptiveController.decide
+    windows = []
+
+    def logged(self, stats):
+        w, ww, action = decide(self, stats)
+        windows.append(float(w))
+        return w, ww, action
+
+    ctl.AdaptiveController.decide = logged
+    try:
+        res, counts, wall, plans = counted_run(torch, cfg,
+                                               gt.build_trace(cfg))
+    finally:
+        ctl.AdaptiveController.decide = decide
+    log(f"pipeline greendygnn paper_schedule (threaded): windows per epoch "
+        f"{res.window_per_epoch.tolist()}, decided {windows}, "
+        f"{res.pipeline.n_rebuilds} rebuilds, launches {counts}, wall "
+        f"{wall:.2f} s; report {json.dumps(res.pipeline.summary())}")
+    require_path_counts("pipeline greendygnn", res, counts, plans)
+    require(res.pipeline.n_rebuilds > 0, "pipeline greendygnn: no rebuild")
+    choices = {float(c) for c in cm.WINDOW_CHOICES}
+    require(len(windows) >= 1 and set(windows) <= choices,
+            f"pipeline greendygnn: decided windows {windows} outside "
+            f"{sorted(choices)}")
+
+
+def phase_pipeline_budgeted(torch, device):
+    """ooc_community threaded under a host budget of 0.3 of its matrix:
+    the card's run and the same run on the CPU give equal ``tier_counts``
+    and streams."""
+    import numpy as np
+
+    from repro_torch.graph import datasets
+    from repro_torch.store import MemoryBudget
+    from repro_torch.train import gnn_trainer as gt
+
+    src = datasets.materialize("ooc_community", seed=0).feature_source
+    host = 0.3 * src.n_rows * src.bytes_per_row
+    runs = {}
+    for dev in (str(device), "cpu"):
+        cfg = gt.RunConfig(**BUDGETED, async_pipeline=True,
+                           mem_budget=MemoryBudget(host_bytes=host,
+                                                   chunk_rows=256,
+                                                   device_payloads=True),
+                           device=dev)
+        runs[dev] = counted_run(torch, cfg, gt.build_trace(cfg))
+    res, counts, wall, plans = runs[str(device)]
+    cpu = runs["cpu"][0]
+    log(f"pipeline budgeted ooc_community (threaded): tier_counts "
+        f"{res.tier_counts}, the CPU's {cpu.tier_counts}, launches {counts}, "
+        f"wall {wall:.2f} s")
+    require_path_counts("pipeline budgeted", res, counts, plans)
+    require(res.tier_counts == cpu.tier_counts,
+            "pipeline budgeted: tier_counts differ between card and CPU")
+    for name in ("step_hits", "step_misses", "fetched_rows_by_owner"):
+        require(np.array_equal(getattr(res, name), getattr(cpu, name)),
+                f"pipeline budgeted: {name} differs between card and CPU")
+    require(res.tier_counts["block_fetches"] > 0,
+            "pipeline budgeted: no block fetches")
+
+
+def persisted_gather_row(torch, device, plans, launches: int,
+                         n_rebuilds: int):
+    """The device tier's persisted-row gather at the threaded main-path
+    run's median rebuild: the kept rows gathered out of the active table
+    (8,400 x 64 at the path's capacity), checked ``torch.equal`` to
+    ``table[pos]``, then timed beside its plain version and
+    ``F.embedding_bag`` (timed here only) on the same operands.
+    ``launches`` are the EmbeddingBag launches the wrapper counted on the
+    builder thread of the threaded W = 4 run."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+
+    kept = sorted((int(plan.persisted.sum()), i)
+                  for i, (_, plan) in enumerate(plans) if plan.persisted.any())
+    old, plan = plans[kept[len(kept) // 2][1]]
+    pos = np.searchsorted(old, plan.hot_nodes[plan.persisted])
+    n = len(pos)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    d = PIPELINE_FEAT
+    table = torch.randn((len(old), d), generator=gen).to(device)
+    fmt = bag_ops.BagFormat.from_numpy(pos, np.arange(n), n, None, device)
+    got = bag_ops.bag_sum(fmt, table)
+    torch.cuda.synchronize()
+    want = table[torch.as_tensor(pos, device=device)]
+    require(torch.equal(got, want),
+            "persisted gather: not torch.equal to table[pos]")
+    err = float((got - bag_ops.bag_plain(fmt, table)).abs().max())
+    timer = Timer(torch, device)
+    out = torch.empty((n, d), device=device)
+    ms = timer.ms(lambda: bag_ops.bag_launch(fmt, table, out))
+    k_flushed, k_warm = timer.kernel_ms(
+        lambda: bag_ops.bag_launch(fmt, table, out))
+    plain = timer.ms(lambda: bag_ops.bag_plain(fmt, table))
+    lib = timer.ms(lambda: F.embedding_bag(
+        fmt.idx, table, fmt.offsets[:-1], mode="sum",
+        per_sample_weights=fmt.w, include_last_offset=False))
+    # n distinct rows read and written once and n indices: unit weights
+    # and one lookup a bag need neither weights nor offsets
+    n_bytes = bag_bytes(torch, fmt, d)
+    require(n_bytes == 2 * n * d * 4 + n * 4,
+            f"persisted gather: {n_bytes} B counted for {n} rows")
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * n * d)
+    log(f"time embedding_bag persisted gather: {n} of {len(old)} rows "
+        f"(median of {len(kept)} rebuilds keeping rows, "
+        f"{[k for k, _ in kept]}): kernel {ms:.4f} ms (events), "
+        f"{k_flushed:.4f} / {k_warm:.4f} ms (profiler, flushed / warm); plain "
+        f"{plain:.4f} ms; F.embedding_bag {lib:.4f} ms; bound {b_ms:.4f} ms "
+        f"({b_by}; {n_bytes / 1e6:.3f} MB); {launches} launches on the "
+        f"builder thread in {n_rebuilds} rebuilds")
+    return {
+        "name": "embedding_bag_persisted", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:48",
+        "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib, "kernel_ms": k_flushed, "kernel_warm_ms": k_warm,
+        "rows": n, "launches_per_rebuild": launches / max(n_rebuilds, 1),
+    }
 
 
 def spmm_wide_timing_row(torch, device, launches: int, err: float):
@@ -1663,9 +2286,7 @@ def phase_timing(torch, device, ops, counts, n_steps):
             fmt.idx, table, fmt.offsets[:-1], mode="sum",
             per_sample_weights=fmt.w, include_last_offset=False))
         n_look, d = fmt.idx.numel(), table.shape[1]
-        # rows read once per lookup, rows written, idx + w, offsets
-        n_bytes = (n_look * d * 4 + fmt.n_bags * d * 4 + n_look * 8
-                   + (fmt.n_bags + 1) * 4)
+        n_bytes = bag_bytes(torch, fmt, d)
         b_ms, b_by = bound_ms(n_bytes, 2.0 * n_look * d)
         times[label] = dict(ms=ms, kernel_ms=k_flushed, kernel_warm_ms=k_warm,
                             plain_ms=plain, library_ms=lib, bound_ms=b_ms,
@@ -1773,12 +2394,19 @@ def main() -> int:
     phase_card_vs_cpu(torch, device)
     phase_card_vs_cpu_fabric(torch, device)
     phase_profile(torch, device)
+    pipe_plans, pipe_builder_bags, pipe_rebuilds = phase_pipeline(
+        torch, device, smi)
+    phase_pipeline_profile(torch, device)
+    phase_pipeline_adaptive(torch, device)
+    phase_pipeline_budgeted(torch, device)
     lm_counts, cfg, params, tokens = phase_serving(torch, device)
     phase_profile_prefill(torch, cfg, params, tokens)
     phase_profile_decode(torch, device, cfg, params)
     del params
     torch.cuda.empty_cache()
     rows = phase_timing(torch, device, ops, counts, n_steps)
+    rows.append(persisted_gather_row(torch, device, pipe_plans,
+                                     pipe_builder_bags, pipe_rebuilds))
     rows.append(spmm_wide_timing_row(torch, device, full_counts["csr_spmm"],
                                      wide_err))
     rows.append(flash_timing_row(torch, device, flash_operands,

@@ -1,13 +1,16 @@
 """Opt-in runtime sanitizer: lock-held assertions for shared state.
 
 Port of the part of ``repro/analysis/runtime.py`` that ``net/fabric.py``
-uses. Everything here is off by default (one boolean on the hot path)
-and is enabled per object (``Fabric(sanitize=True)``) or process-wide
-with ``REPRO_SANITIZE=1``.
+and ``pipeline/`` use: the lock-held assertion and the single-owner
+thread assertion. Everything here is off by default (one boolean on the
+hot path) and is enabled per object (``Fabric(sanitize=True)``,
+``CacheBuilder(sanitize=True)``) or process-wide with
+``REPRO_SANITIZE=1``.
 """
 from __future__ import annotations
 
 import os
+import threading
 
 SANITIZE_ENV = "REPRO_SANITIZE"
 
@@ -35,3 +38,28 @@ def assert_lock_held(lock, what: str) -> None:
             f"{what}: called without holding its lock — shared state "
             "would be mutated racily (lock-discipline invariant)"
         )
+
+
+class ThreadAffinity:
+    """Asserts an API is only ever driven from one (the first) thread.
+
+    The pipeline's contract is single-producer/single-consumer with every
+    consumer-side call on one thread; breaking it does not deadlock, it
+    silently corrupts the measured aggregates. The first :meth:`check`
+    binds the owner; a later call from any other thread raises."""
+
+    def __init__(self, role: str):
+        self.role = role
+        self._ident: int | None = None
+        self._name = ""
+
+    def check(self, what: str) -> None:
+        me = threading.current_thread()
+        if self._ident is None:
+            self._ident, self._name = me.ident, me.name
+        elif me.ident != self._ident:
+            raise SanitizerError(
+                f"{what}: called from thread {me.name!r} but the "
+                f"{self.role} role is owned by thread {self._name!r} — "
+                "single-consumer contract violated"
+            )

@@ -46,6 +46,7 @@ ENTRIES = {
 }
 
 _lock = threading.Lock()
+_launch_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}   # stem -> nvcc's output (ptxas -v report)
 
@@ -135,3 +136,16 @@ def check(name: str, err: int) -> None:
     """Raise when a C entry reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, and to the launching thread's entry
+    in ``wrapper.launches_by_thread`` (by thread name), under a lock: the
+    pipeline's builder thread launches kernels beside the trainer's
+    thread, and ``+= 1`` on an attribute is a read, an add and a write
+    that a thread switch can split."""
+    name = threading.current_thread().name
+    with _launch_lock:
+        wrapper.launches += 1
+        by_thread = wrapper.launches_by_thread
+        by_thread[name] = by_thread.get(name, 0) + 1

@@ -56,6 +56,16 @@ class BagFormat:
         """Sort (stably), offset and range-check ``(L,)`` lookups and their
         bags in numpy, then move them to ``device`` in one copy.
         ``weights`` None means unit weights."""
+        arrays, n_rows, max_len = cls.host_arrays(indices, segment_ids,
+                                                  n_bags, weights)
+        return cls(*to_device_packed(arrays, device), n_rows, max_len)
+
+    @staticmethod
+    def host_arrays(indices, segment_ids, n_bags: int, weights
+                    ) -> tuple[list[np.ndarray], int, int]:
+        """The checked format in numpy: ``([idx, w, offsets], n_rows,
+        max_len)``, for a caller that moves it to the device together with
+        arrays of its own (then ``BagFormat(*tensors, n_rows, max_len)``)."""
         indices = np.asarray(indices)
         segment_ids = np.asarray(segment_ids)
         n_bags = int(n_bags)
@@ -79,10 +89,8 @@ class BagFormat:
         offsets = np.searchsorted(segment_ids[order], np.arange(n_bags + 1),
                                   side="left")
         max_len = int(np.diff(offsets).max()) if indices.size else 0
-        idx, w, offsets = to_device_packed(
-            [indices[order].astype(np.int32), w[order],
-             offsets.astype(np.int32)], device)
-        return cls(idx, w, offsets, n_rows, max_len)
+        return ([indices[order].astype(np.int32), w[order],
+                 offsets.astype(np.int32)], n_rows, max_len)
 
 
 def embedding_bag_plain(table, idx, seg, w, n_bags: int) -> torch.Tensor:
@@ -157,7 +165,7 @@ def bag_launch(fmt: BagFormat, table, out) -> None:
         int(table.shape[1]), int(fmt.idx.shape[0]), int(fmt.max_len),
         torch.cuda.current_stream(table.device).cuda_stream,
     )
-    embedding_bag.launches += 1
+    _build.count_launch(embedding_bag)
     _build.check("embedding_bag_f32", err)
 
 
@@ -215,3 +223,4 @@ def embedding_bag(table, indices, segment_ids, n_bags: int,
 
 
 embedding_bag.launches = 0
+embedding_bag.launches_by_thread = {}

@@ -190,8 +190,9 @@ def launch(q, k, v, o, causal: bool) -> None:
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         int(causal), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     _build.check("flash_attention_fwd", err)
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_thread = {}

@@ -216,11 +216,12 @@ def launch(rowptr, cols, blocks, x, y, n_dst_blocks: int) -> None:
         y.data_ptr(), int(n_dst_blocks), int(x.shape[1]),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    block_spmm.launches += 1
+    _build.count_launch(block_spmm)
     _build.check("block_spmm_f32", err)
 
 
 block_spmm.launches = 0
+block_spmm.launches_by_thread = {}
 
 
 class BlockSpmm(torch.autograd.Function):
@@ -487,11 +488,12 @@ def csr_launch(fmt: CsrFormat, x, y) -> None:
         _ld(x, f), _ld(y, f), int(vec),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    csr_spmm.launches += 1
+    _build.count_launch(csr_spmm)
     _build.check("csr_spmm_f32", err)
 
 
 csr_spmm.launches = 0
+csr_spmm.launches_by_thread = {}
 
 
 class Spmm(torch.autograd.Function):

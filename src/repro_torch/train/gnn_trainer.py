@@ -83,7 +83,9 @@ class RunConfig:
     run_model: bool = False          # evaluate accuracy per epoch (measured)
     pad_blocks: bool = False         # static block shapes in the sampler
     bgl_overlap_frac: float = 0.75   # fraction of t_base usable to hide stall
-    async_pipeline: bool = False     # threaded pipeline (not ported)
+    async_pipeline: bool = False     # threaded builder + prefetcher
+                                     # (pipeline/): measured exposed wait
+                                     # instead of the alpha_crit leak
     mem_budget: object | None = None  # repro_torch.store.MemoryBudget
     compute: str = "modeled"         # "measured" runs the real SAGE step
                                      # each trainer step and charges its
@@ -108,6 +110,8 @@ class RunResult:
     step_misses: np.ndarray | None = None
     fetched_rows_by_owner: np.ndarray | None = None
     tier_counts: dict | None = None  # TierStats.counts() of a tiered store
+    pipeline: object | None = None   # pipeline.PipelineReport when
+                                     # async_pipeline=True
     compute_report: dict | None = None  # ComputeEngine.report() when
                                      # compute="measured"
     scenario: str = "closed_form"    # the network substrate the run used
@@ -235,11 +239,15 @@ def run(cfg: RunConfig, trace_bundle=None) -> RunResult:
             steps_per_epoch=cfg.steps_per_epoch,
         )
     worker = TrainerWorker(cfg, trace_bundle, rank=0, fabric=fabric)
-    for epoch in range(cfg.n_epochs):
-        worker.begin_epoch(epoch)
-        for step in range(cfg.steps_per_epoch):
-            worker.step(epoch, step)
-        worker.end_epoch(epoch)
+    try:
+        for epoch in range(cfg.n_epochs):
+            worker.begin_epoch(epoch)
+            for step in range(cfg.steps_per_epoch):
+                worker.step(epoch, step)
+            worker.end_epoch(epoch)
+    finally:
+        # threads must not outlive the run, even on error paths
+        worker.close()
     return worker.result()
 
 

@@ -6,23 +6,29 @@ energy meter, device payload tier and measured compute engine), assembled
 from small pure builders, with explicit per-epoch/per-step methods that
 ``gnn_trainer.run`` drives in a plain loop.
 
-The worker runs the synchronous rebuild path at P=1 over either network
-substrate: the closed-form Eq. 4 law, or the ``net/`` event fabric of a
-``RunConfig.scenario`` (delta and sigma refreshed every step from the
-worker's virtual clock, transfers queueing on the owner links). It runs
-every method, the heuristic (Eq. 7) among them, and a budgeted host tier
-(``MemoryBudget.host_bytes``): block residency charged on the network
+The worker runs at P=1 over either network substrate: the closed-form
+Eq. 4 law, or the ``net/`` event fabric of a ``RunConfig.scenario``
+(delta and sigma refreshed every step from the worker's virtual clock,
+transfers queueing on the owner links). It runs every method, the
+heuristic (Eq. 7) among them, a budgeted host tier
+(``MemoryBudget.host_bytes``: block residency charged on the network
 substrate, pinned at each rebuild, observed by the controller as
-headroom. Not ported yet, and refused with ``NotImplementedError`` naming
-its ROADMAP item: the threaded pipeline (``async_pipeline=True``),
-greentrace (``trace=True``), the modeled-lane model runner
-(``run_model=True`` with ``compute="modeled"``), the compressed gradient
-schemes, and the cluster's shared-fabric mode.
+headroom), and either rebuild path: the synchronous one, which models
+the builder thread (the alpha_crit leak), or the threaded pipeline
+(``async_pipeline=True``, ``pipeline/``), whose builder thread plans,
+fetches and, with device payloads, builds the next window's device table
+on a CUDA stream of its own while the consumer steps, and whose measured
+exposed wait is charged instead. Not ported yet, and refused with
+``NotImplementedError`` naming its ROADMAP item: greentrace
+(``trace=True``), the modeled-lane model runner (``run_model=True`` with
+``compute="modeled"``), the compressed gradient schemes, and the
+cluster's shared-fabric mode.
 
 The worker keeps a virtual clock (``meter.wall_s``); nothing here reads
 the OS clock on the timing path except the measured compute lane, whose
 step time advances that clock (so a measured run's time-driven
-congestion depends on the machine, as the reference's does).
+congestion depends on the machine, as the reference's does), and the
+threaded pipeline, whose measured build and wait times are charged.
 """
 from __future__ import annotations
 
@@ -44,11 +50,6 @@ ADAPTIVE_METHODS = ("heuristic", "greendygnn", "greendygnn_nocw")
 
 def check_supported(cfg) -> None:
     """Refuse the configurations this slice does not port yet."""
-    if cfg.async_pipeline:
-        raise NotImplementedError(
-            "async_pipeline=True needs pipeline/, not ported yet "
-            "(ROADMAP queue 1: the threaded pipeline)"
-        )
     if cfg.trace:
         raise NotImplementedError(
             "trace=True needs obs/ (greentrace), not ported yet "
@@ -144,17 +145,46 @@ def build_meter(cfg) -> EnergyMeter:
     return EnergyMeter(params=cfg.params, n_nodes=cfg.n_parts)
 
 
+def build_pipeline(cfg, cache, store, fabric, requester: int, clock_fn,
+                   device_tier=None):
+    """Threaded Stage-2 builder + Stage-3 prefetcher (async pipeline).
+
+    With a device tier the builder also builds each window's device
+    payload table, on the tier's own CUDA stream."""
+    from repro_torch.pipeline import CacheBuilder, PrefetchQueue
+
+    build_table = None
+    if device_tier is not None:
+        def build_table(plan, features):
+            return device_tier.build(plan, store.peek_rows,
+                                     fetched_rows=features, background=True)
+
+    builder = CacheBuilder(
+        cache, store.peek_rows,
+        fabric=fabric, bytes_per_row=store.bytes_per_row,
+        requester=requester, clock_fn=clock_fn, build_table=build_table,
+    ).start()
+    prefetcher = PrefetchQueue(
+        store.peek_rows,
+        depth=max(int(cfg.prefetch_depth), 1),
+    ).start()
+    return builder, prefetcher
+
+
 class TrainerWorker:
     """One partition's training substrate with explicit step methods.
 
     Drive it as::
 
         w = TrainerWorker(cfg, bundle, rank=0, fabric=fabric)
-        for epoch in range(cfg.n_epochs):
-            w.begin_epoch(epoch)
-            for step in range(cfg.steps_per_epoch):
-                w.step(epoch, step)
-            w.end_epoch(epoch)
+        try:
+            for epoch in range(cfg.n_epochs):
+                w.begin_epoch(epoch)
+                for step in range(cfg.steps_per_epoch):
+                    w.step(epoch, step)
+                w.end_epoch(epoch)
+        finally:
+            w.close()
         result = w.result()
     """
 
@@ -246,7 +276,25 @@ class TrainerWorker:
         self.epoch_sigmas: list = []
         self._wall0 = 0.0
 
+        # threaded pipeline
+        self.use_async = (
+            bool(cfg.async_pipeline) and self.windowed
+            and self.cache is not None
+        )
+        self.builder = self.prefetcher = None
+        self.pending_ticket = None
+        self.pending_window, self.pending_weights = self.window, self.weights
+        if self.use_async:
+            self.builder, self.prefetcher = build_pipeline(
+                cfg, self.cache, self.store, fabric, self.requester,
+                self._current_clock, self.device_tier,
+            )
+
     # --------------------------------------------------------------- clocks
+    def _current_clock(self) -> NetClock:
+        """The worker's virtual clock (for builder-thread fabric calls)."""
+        return self._clk
+
     def _tick(self, gstep: int, epoch: int) -> NetClock:
         """Advance the worker's virtual network clock to its meter's wall
         time and tick the fabric with it."""
@@ -400,6 +448,10 @@ class TrainerWorker:
             self.cache.swap(plan)
             self.fetched_rows_by_owner += plan.per_owner_fetched
 
+        if self.prefetcher is not None:
+            # Stage-3: resolve this epoch's batch payloads up to Q ahead
+            self.prefetcher.schedule(list(trace))
+
     def end_epoch(self, epoch: int) -> None:
         cfg = self.cfg
         self.meter.mark_epoch()
@@ -443,11 +495,20 @@ class TrainerWorker:
             adaptive_now = (
                 self.controller is not None and epoch >= cfg.warmup_epochs
             )
-            self._rebuild_sync(adaptive_now, epoch, step, delta)
+            if not self.use_async:
+                self._rebuild_sync(adaptive_now, epoch, step, delta)
+            else:
+                self._rebuild_async(adaptive_now, epoch, step, delta)
             self.window_left = self.window
         self.epoch_windows.append(self.window)
 
         # ---- resolve features ----
+        if self.prefetcher is not None:
+            # real payload gather, resolved ahead by the Stage-3 queue and
+            # discarded, as the reference does (its timings land in the
+            # PipelineReport; classification below stays synchronous so
+            # the hit/miss stream is unperturbed)
+            self.prefetcher.get()
         if self.cache is not None:
             # one searchsorted probe recorded into both stat sinks
             miss_ids = self.cache.access(
@@ -607,12 +668,110 @@ class TrainerWorker:
                 plan, delta, raw_rb, cpu_rb, nbytes, nrpc
             )
         if self.device_tier is not None:
-            # payload assembly must see the OLD active buffer (persisted
-            # rows are copied device-to-device), so load before swap
+            # the table is built out of the OLD active one (persisted rows
+            # are gathered device-to-device, on the current stream), so
+            # load before swap
             self.device_tier.load(plan, self.store.peek_rows)
         self.meter.record_background(cpu_rb, nbytes, nrpc)
         self.pending_rebuild_cost = float(self.params.alpha_crit) * raw_rb
         self.cache.swap(plan)
+        self.fetched_rows_by_owner += plan.per_owner_fetched
+
+    def _rebuild_async(self, adaptive_now, epoch, step, delta) -> None:
+        """The threaded pipeline (measured wall times): wait for the build
+        submitted one boundary ahead, swap to it, and submit the next."""
+        from repro_torch.train import gnn_trainer as gt
+
+        cfg = self.cfg
+        trace = self.traces[epoch]
+        if self.pending_ticket is None:
+            # cold start: nothing was built ahead; the rebuild is fully
+            # exposed, exactly like the sync path
+            if adaptive_now:
+                self.window, self.weights = self._decide(
+                    self.pending_rebuild_cost / max(self.window, 1), step
+                )
+            else:
+                self.window = cfg.static_window
+            upcoming = [
+                self.store.remote_ids_of(t)
+                for t in trace[step : step + self.window]
+            ]
+            buf, exposed = self.builder.build_sync(upcoming, self.weights)
+        else:
+            buf, exposed = self.builder.wait(self.pending_ticket)
+            self.window, self.weights = (
+                self.pending_window, self.pending_weights
+            )
+            self.pending_ticket = None
+        plan = buf.plan
+        blk_cpu = blk_bytes = 0.0
+        blk_rpcs = 0
+        if self.tiered:
+            # consumer-thread residency update at the swap boundary (the
+            # builder's fetch itself goes through the pure peek_rows):
+            # re-pin to the new plan, then stage its fetch rows; the block
+            # traffic's wire time is not charged here, only its CPU time
+            _, blk_cpu, blk_bytes, blk_rpcs = self._stage_plan(
+                plan, delta, 0.0, 0.0, 0.0, 0
+            )
+        if self.device_tier is not None:
+            # the builder built the table on its own stream: the compute
+            # stream waits for it, then the pointer flips (before the
+            # cache's swap, which the table's generation must match)
+            self.device_tier.install(buf.table)
+        self.builder.swap(buf)
+        if buf.net is not None:
+            # bulk fetch already issued through the fabric on the builder
+            # thread (shared Fabric.transfer API)
+            _, cpu_rb, nbytes, nrpc = buf.net.astuple()
+        else:
+            _, cpu_rb, nbytes, nrpc = gt._fetch_time(
+                self.params,
+                plan.per_owner_fetched.astype(np.float64),
+                delta, self.bytes_per_row,
+            )
+        # measured: builder work burned real host CPU in the background;
+        # only the MEASURED exposed wait leaks onto the critical path (no
+        # alpha_crit approximation)
+        self.meter.record_background(
+            cpu_rb + buf.t_plan_s + buf.t_fetch_s + blk_cpu,
+            nbytes + blk_bytes, nrpc + blk_rpcs,
+        )
+        self.pending_rebuild_cost = exposed
+        # decide the NEXT window one boundary ahead so its rebuild can
+        # overlap this window's compute
+        if adaptive_now:
+            nxt_window, nxt_weights = self._decide(
+                exposed / max(self.window, 1), step
+            )
+        else:
+            nxt_window, nxt_weights = cfg.static_window, self.weights
+        g_next = epoch * cfg.steps_per_epoch + step + self.window
+        ne, ns = divmod(g_next, cfg.steps_per_epoch)
+        if ne < cfg.n_epochs:
+            upcoming = [
+                self.store.remote_ids_of(t)
+                for t in self.traces[ne][ns : ns + nxt_window]
+            ]
+            self.pending_ticket = self.builder.submit(upcoming, nxt_weights)
+            self.pending_window, self.pending_weights = (
+                nxt_window, nxt_weights,
+            )
+            if self.tiered:
+                # widen the pin set to ALSO cover the submitted window's
+                # working set: per-step touches in the current window must
+                # not evict what the in-flight rebuild is prefetching
+                # (narrowed back to the new plan at the swap boundary)
+                self.store.pin_window(np.concatenate(
+                    [np.asarray(plan.hot_nodes, np.int64)]
+                    + [np.asarray(u, np.int64) for u in upcoming]
+                ))
+        self.window_stats = CacheStats()
+        self.meter_snapshot = {
+            "n": self.meter.n_steps, "wall": self.meter.wall_s,
+            "energy": self.meter.gpu_j + self.meter.cpu_j,
+        }
         self.fetched_rows_by_owner += plan.per_owner_fetched
 
     # ------------------------------------------------------------- features
@@ -638,9 +797,23 @@ class TrainerWorker:
         )
 
     # --------------------------------------------------------------- result
+    def close(self) -> None:
+        """Stop the worker's threads (idempotent; safe on error paths)."""
+        if self.builder is not None:
+            self.builder.stop()
+        if self.prefetcher is not None:
+            self.prefetcher.stop()
+
     def result(self):
         from repro_torch.train import gnn_trainer as gt
 
+        report = None
+        if self.use_async:
+            from repro_torch.pipeline import PipelineReport
+
+            report = PipelineReport.from_components(
+                self.builder, self.prefetcher
+            )
         tier_counts = (
             self.store.tier_stats.counts()
             if hasattr(self.store, "tier_stats") else None
@@ -658,6 +831,7 @@ class TrainerWorker:
             step_hits=np.asarray(self.step_hits, np.int64),
             step_misses=np.asarray(self.step_misses, np.int64),
             fetched_rows_by_owner=self.fetched_rows_by_owner,
+            pipeline=report,
             compute_report=(
                 self.engine.report() if self.engine is not None else None
             ),

@@ -198,7 +198,6 @@ class TestRefused:
     """Configurations later slices port raise instead of running."""
 
     @pytest.mark.parametrize("override,exc", [
-        (dict(async_pipeline=True), NotImplementedError),
         (dict(trace=True), NotImplementedError),
         (dict(run_model=True), NotImplementedError),
         (dict(grad_compression="int8", compute="measured"),
@@ -214,6 +213,15 @@ class TestRefused:
         cfg = dataclasses.replace(cfg, **override)
         with pytest.raises(exc):
             pgt.run(cfg)
+
+    def test_async_pipeline_runs(self):
+        """``async_pipeline=True``, once refused here, runs: the threaded
+        builder and prefetcher, with a measured pipeline report."""
+        cfg = pgt.RunConfig(**dict(SWEEP, method="static_w", device="cpu"),
+                            async_pipeline=True)
+        res = pgt.run(cfg)
+        assert res.pipeline is not None and res.pipeline.n_rebuilds > 0
+        assert len(res.step_hits) == cfg.n_epochs * cfg.steps_per_epoch
 
     def test_cuda_requested_without_a_card_raises(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
