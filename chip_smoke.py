@@ -16,7 +16,30 @@ Phases, each of which ends the run with a non-zero exit on failure:
    instance of the CSR SpMM (``csr_spmm_kernel<G, V>``, 12 of them) or of
    the EmbeddingBag kernel (``embedding_bag_kernel<G, V, U>``, 24 of them)
    spills.
-2. Hold each kernel against its plain PyTorch version on the card, at the
+2. The policy phase, first after the build (the profiler has dropped
+   kernels from later traces in a process that ran the training's
+   millions of launches first): the paper's calibrate -> train -> deploy
+   flow through ``repro_torch.train.policy``. ``calibrate_table_from_bundle`` and
+   ``calibrate_from_bundle`` run on the main path's bundle (the (W, delta)
+   stall grid through the modeled trainer). The tensor cost laws, both
+   simulators' reset and 12 steps of 8 envs (the same draws on both
+   devices) and the DQN loss's gradients are held on the card against
+   the same calls on the CPU (``TOL_POLICY``, rtol 1e-5). Then
+   ``get_or_train_policy`` trains Double-DQN on the card in the table and
+   the analytic env (32 envs, ``POLICY_ITERS`` iterations each, artifacts
+   in a temporary directory), logging iterations/s, episodes, gradient
+   steps and the mean reward of the last 200 iterations. On 4 held-out
+   episodes run to their end, each greedy policy's discounted return
+   (the objective DQN maximises) must beat the fresh qnet's (seed 99, as
+   in the reference's training test); the energy and the return of the
+   trained policy, the fresh qnet, the untrained qnet training starts
+   from and static W = 2 and 16 are logged. Two same-seed card runs must
+   give equal qnets. After the timing (phase 6), pairs of short
+   runs (unprofiled, then under ``torch.profiler``) give per-iteration
+   host wall, device kernels, copies, device busy and idle share, and,
+   with CUDA's sync debug mode on, the host syncs, which must not grow
+   with the iterations.
+3. Hold each kernel against its plain PyTorch version on the card, at the
    shapes its main path gives it. The trainer's kernels at the first
    mini-batch of the default ``reddit`` trace: the CSR SpMM for layer 0,
    layer 1 and layer 1's transposed CSR (atol 1e-4, rtol 1e-5: fp32
@@ -55,9 +78,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    tolerances as the matrix; two bf16 launches bit-identical. The plain
    version runs the bf16 kernel's own ``TILE_Q`` x ``TILE_K`` tiles, so
    both round p at the same running max.
-3. Run the trainer's main path, ``repro_torch.train.gnn_trainer.run``: the
+4. Run the trainer's main path, ``repro_torch.train.gnn_trainer.run``: the
    GreenDyGNN trainer with measured compute and the device payload tier,
-   batch 2000, 3 epochs (2 of warmup) of 8 steps, a seeded untrained qnet.
+   batch 2000, 3 epochs (2 of warmup) of 8 steps, its controller running
+   the table-trained policy of phase 2.
    Every launch count is zeroed just before and read just after; the run
    must have launched both of its kernels (the CSR SpMM 3 times a step
    and twice in the parity check; the dense-block kernel never; the
@@ -109,7 +133,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
    threaded under the paper schedule must rebuild and decide windows in
    the action set; ooc_community threaded under a host budget of 0.3 of its
    matrix must give the CPU's ``tier_counts``.
-4. Run the LM serving path at full width: ``tinyllama-1.1b`` (22 layers,
+5. Run the LM serving path at full width: ``tinyllama-1.1b`` (22 layers,
    d_model 2048, bf16, seeded random weights). Counts zeroed, then
    ``repro_torch.launch.serve.run`` (batch 4, prompt 8, generation 16;
    decode steps launch no flash kernel) and one ``prefill`` of B=2, S=4096
@@ -123,7 +147,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
    them), and a window of decode steps into device kernels per step,
    device busy time against the unprofiled host wall, and the host ops
    that take the most CPU time.
-5. Time each kernel, its plain version and the equivalent library call
+6. Time each kernel, its plain version and the equivalent library call
    with CUDA events (median of 25 launches, L2 flushed before each and
    each queued behind a spin kernel so the host's enqueue time is not
    counted), beside the least time the card could take, and print one
@@ -139,7 +163,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
    ``embedding_bag_persisted``, times the persisted-row gather at the
    threaded run's median rebuild. TF32 is off throughout: float32 results
    are compared in full float32.
-6. The last line is ``{"ok": true, "device": {...}}``.
+7. The last line is ``{"ok": true, "device": {...}}``.
 
 Kernel builds land in ``build/kernels/`` (listed in ``.gitignore``).
 """
@@ -172,6 +196,15 @@ TOL_BF16_PLAIN = dict(atol=1e-3, rtol=1e-2)  # bf16 kernel vs bf16 plain
 # path against another: bf16 rounding at different places
 TOL_LOGITS = 0.25
 PREFILL_B, PREFILL_S = 2, 4096          # TinyLlama's prefill shape here
+# the policy phase: card against CPU within float32 reassociation and
+# last-bit pow/sin differences; training on 32 envs, a few thousand
+# iterations an env; a same-seed pair of short runs; two profiled runs
+TOL_POLICY = dict(rtol=1e-5, atol=1e-6)
+POLICY_ENVS = 32
+POLICY_ITERS = 4000
+POLICY_SHORT = 200
+POLICY_PROFILED = (20, 60)
+POLICY_HELD_OUT = 4
 REPEATS = 25
 # a spin of about 0.5 ms on the device before each timed call, long enough
 # for the host to enqueue the events and the call behind it
@@ -437,21 +470,11 @@ def check_bag_build(text: str) -> None:
 def bag_instances(torch, fn) -> list:
     """The (G, V, U) of every EmbeddingBag kernel ``fn`` launches, from
     the kernel names ``torch.profiler`` reports."""
-    import re
+    from repro_torch.kernels.embedding_bag import embedding_bag
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    found = []
-    for name, (_, cnt) in device_time_by_name(prof).items():
-        hit = re.search(r"embedding_bag_kernel<(\d+),\s*(\d+),\s*(\d+)>",
-                        name)
-        if hit:
-            found += [tuple(map(int, hit.groups()))] * cnt
-    return found
+    return kernel_instances(
+        torch, fn, r"embedding_bag_kernel<(\d+),\s*(\d+),\s*(\d+)>",
+        embedding_bag)
 
 
 # ------------------------------------------------------------- phase 2
@@ -853,18 +876,370 @@ def device_time_by_name(prof) -> dict:
     return by_name
 
 
-# ------------------------------------------------------------- phase 3
-def phase_main_path(torch, device):
+def traced(torch, fn) -> dict:
+    """``device_time_by_name`` of a ``torch.profiler`` window around
+    ``fn()``. A short spin and a pause lead the window, since the profiler
+    can miss the device's first activity after it starts, and a pause
+    ends it, since it has also dropped the last kernels before its stop
+    (the device clock read ahead of the host's); the spin's kernel,
+    learned from a profile of it alone, is left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as probe:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    lead = set(device_time_by_name(probe))
+    with profile(activities=acts) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    return {name: v for name, v in device_time_by_name(prof).items()
+            if name not in lead}
+
+
+def kernel_instances(torch, fn, pattern: str, wrapper,
+                     tries: int = 3) -> list:
+    """The template arguments of every kernel whose name matches
+    ``pattern`` that ``fn`` launches, read from the profiler's kernel
+    names. The profiler here has dropped kernels from a trace, so a trace
+    holding fewer matches than ``wrapper`` counted launches is taken
+    again, up to ``tries`` times; the last is returned as it is."""
+    import re
+
+    for _ in range(tries):
+        before = wrapper.launches
+        by_name = traced(torch, fn)
+        launched = wrapper.launches - before
+        found = []
+        for name, (_, cnt) in by_name.items():
+            hit = re.search(pattern, name)
+            if hit:
+                found += [tuple(map(int, hit.groups()))] * cnt
+        if len(found) >= launched:
+            return found
+        log(f"profiler: {len(found)} of {launched} {pattern} launches "
+            "in the trace; taking it again")
+    return found
+
+
+# ------------------------------------------------------ the policy phase
+def fixed_draws(torch, sim, device):
+    """A ``Draws`` whose draws are a seeded CPU generator's, moved to
+    ``device``: the same draws on the card and on the CPU."""
+    import dataclasses
+
+    class FixedDraws(sim.Draws):
+        def profile(self, cfg, n):
+            p = super().profile(cfg, n)
+            return dataclasses.replace(p, **{
+                f.name: getattr(p, f.name).to(device)
+                for f in dataclasses.fields(p)})
+
+        def noise(self, cfg, n):
+            return tuple(x.to(device) for x in super().noise(cfg, n))
+
+    return FixedDraws(torch.Generator().manual_seed(SEED))
+
+
+def policy_card_vs_cpu(torch, device, tables, theta):
+    """The tensor cost laws, both envs' reset and steps, and the DQN
+    loss's gradients on the card against the same calls on the CPU, on
+    the same inputs (``TOL_POLICY``). Returns the largest |diff|."""
     import numpy as np
 
-    from repro_torch.core import controller as ctl, dqn
+    from repro_torch.core import cost_model as cm, dqn, simulator as sim
+    from repro_torch.core import table_sim
+    from repro_torch.train import policy as pol
+
+    rng = np.random.default_rng(SEED)
+    n = 64
+    window = np.asarray(cm.WINDOW_CHOICES, np.float32)[rng.integers(0, 8, n)]
+    sigma = (1 + 5 * rng.random((n, 3))).astype(np.float32)
+    weights = rng.dirichlet(np.ones(3), n).astype(np.float32)
+    actions = rng.integers(0, 32, (12, 8))
+    q_seeds = (1, 2)
+    batch_np = (rng.normal(size=(64, 23)).astype(np.float32),
+                rng.integers(0, 32, 64), rng.normal(size=64).astype(
+                    np.float32), rng.normal(size=(64, 23)).astype(np.float32),
+                rng.random(64) < 0.2)
+
+    def outputs(dev):
+        out = {}
+        pool = pol.make_params_pool([theta] * n, device=dev)
+        w, s, ww = (torch.as_tensor(x, device=dev)
+                    for x in (window, sigma, weights))
+        out["sigma_from_delta_t"] = cm.sigma_from_delta_t(pool, (s - 1) * 7)
+        out["hit_rate_t"] = cm.hit_rate_t(pool, w)
+        out["rebuild_time_t"] = cm.rebuild_time_t(pool, w)
+        out["allreduce_penalty_t"] = cm.allreduce_penalty_t(pool, s)
+        out["per_owner_hit_rates_t"] = cm.per_owner_hit_rates_t(pool, w, ww)
+        out["step_time_t"] = cm.step_time_t(pool, w, s, ww)
+        out["step_energy_t"] = cm.step_energy_t(pool, w, s, ww)
+        cfg = sim.EnvConfig(schedule=0, n_epochs=6, steps_per_epoch=32)
+        for name, env, entry in (("analytic", sim, theta),
+                                 ("table", table_sim, tables)):
+            draws = fixed_draws(torch, sim, dev)
+            state = env.reset(cfg, draws,
+                              pol.make_params_pool([entry] * 8, device=dev))
+            out[f"{name} reset obs"] = state.obs
+            for i, a in enumerate(actions):
+                state, obs, reward, done = env.step(
+                    cfg, state, torch.as_tensor(a, device=dev), draws)
+                for k, v in (("obs", obs), ("reward", reward),
+                             ("done", done.float()),
+                             ("energy", state.total_energy),
+                             ("time", state.total_time)):
+                    out[f"{name} step {i} {k}"] = v
+        online, target = (dqn.init_qnet(torch.Generator().manual_seed(k), 23,
+                                        32, device=dev) for k in q_seeds)
+        batch = tuple(torch.as_tensor(x, device=dev) for x in batch_np)
+        loss, grads = dqn.loss_and_grads(online, target, batch)
+        out["dqn_loss"] = loss
+        for layer, sub in grads.items():
+            for k, g in sub.items():
+                out[f"dqn_loss grad {layer}.{k}"] = g
+        return out
+
+    card, cpu = outputs(device), outputs(torch.device("cpu"))
+    worst = 0.0
+    for k, want in cpu.items():
+        got = card[k].cpu()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        require(torch.allclose(got, want, **TOL_POLICY),
+                f"policy card vs CPU: {k} max |diff| {err:.3e}")
+    log(f"policy card vs CPU: {len(cpu)} tensors (7 cost laws, both envs' "
+        f"reset and 12 steps of 8 envs, the DQN loss and its 6 gradients) "
+        f"within rtol {TOL_POLICY['rtol']}, atol {TOL_POLICY['atol']}; max "
+        f"|diff| {worst:.3e}")
+    return worst
+
+
+def syncs_during(torch, fn) -> int:
+    """``fn()`` with CUDA's sync debug mode on: the number of host syncs
+    it made (device-to-host reads, synchronizing copies)."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_policy_profile(torch, device, pools):
+    for env_name, pool in pools.items():
+        policy_profile(torch, device, env_name, pool)
+
+
+def policy_profile(torch, device, env_name, pool):
+    """Two unprofiled and two profiled ``train_dqn`` runs of
+    ``POLICY_PROFILED`` iterations, updating from the first iteration;
+    the differences of the pairs are per-iteration numbers free of the
+    runs' set-up: host wall, host syncs (must be 0), device kernels and
+    copies, device busy and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import dqn, simulator as sim
+    from repro_torch.envs import resolve_env
+
+    env = resolve_env(env_name)
+    env_cfg = sim.EnvConfig(schedule=0, steps_per_epoch=32, n_epochs=30)
+
+    def run(iters):
+        dqn.train_dqn(dqn.DQNConfig(
+            n_envs=POLICY_ENVS, iterations=iters, min_replay=POLICY_ENVS,
+            eps_decay_iters=iters, seed=SEED, device=str(device)),
+            env_cfg, pool, env=env)
+
+    walls, syncs, kernels, copies, busy = {}, {}, {}, {}, {}
+    for iters in POLICY_PROFILED:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        syncs[iters] = syncs_during(torch, lambda: run(iters))
+        torch.cuda.synchronize()
+        walls[iters] = time.perf_counter() - t0
+    for iters in POLICY_PROFILED:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(iters)
+            torch.cuda.synchronize()
+        by_name = device_time_by_name(prof)
+        kernels[iters] = sum(c for name, (_, c) in by_name.items()
+                             if not name.startswith("Mem"))
+        copies[iters] = sum(c for name, (_, c) in by_name.items()
+                            if name.startswith("Mem"))
+        busy[iters] = sum(us for us, _ in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    a, b = POLICY_PROFILED
+    d = b - a
+    wall_ms = (walls[b] - walls[a]) * 1e3 / d
+    busy_ms = (busy[b] - busy[a]) / d
+    log(f"policy profile {env_name} ({POLICY_ENVS} envs, runs of {a} and "
+        f"{b} iterations): host wall {wall_ms:.4f} ms/iteration "
+        f"(unprofiled), {(kernels[b] - kernels[a]) / d:.2f} device kernels "
+        f"and {(copies[b] - copies[a]) / d:.2f} copies/sets per iteration, "
+        f"device busy {busy_ms:.4f} ms/iteration, idle share "
+        f"{1.0 - busy_ms / wall_ms:.4f}; host syncs {syncs[a]} and "
+        f"{syncs[b]} a run")
+    for name, (us, cnt) in top:
+        log(f"  device {us / 1e3 / b:8.4f} ms/iteration x{cnt / b:6.2f}  "
+            f"{name[:80]}")
+    require(syncs[a] == syncs[b],
+            f"policy {env_name}: {syncs[b] - syncs[a]} host syncs in "
+            f"{d} iterations; the loop must read nothing back")
+    require(kernels[b] > kernels[a], f"policy {env_name}: no device kernel")
+
+
+def held_out(torch, device, env_name, pool, policy_fn):
+    """``policy_fn`` over ``POLICY_HELD_OUT`` held-out episodes of the
+    training env's configuration, each run to its end: (energy per
+    episode, discounted return per episode, the objective DQN maximises:
+    sum of GAMMA^t r_t over its decisions)."""
+    from repro_torch.core import dqn, simulator as sim
+    from repro_torch.envs import resolve_env
+
+    cfg = sim.EnvConfig(schedule=0, steps_per_epoch=32, n_epochs=30)
+    draws = sim.Draws(torch.Generator(device=device).manual_seed(SEED + 99))
+    params = sim.take(pool, torch.zeros(POLICY_HELD_OUT, dtype=torch.long,
+                                        device=device))
+    out = sim.rollout_policy(cfg, draws, params, policy_fn,
+                             max_decisions=cfg.total_steps,
+                             env=resolve_env(env_name))
+    trace = out["trace"]
+    steps_run = (trace["window"] * trace["active"]).sum(0)
+    require(bool((steps_run >= cfg.total_steps).all()),
+            f"policy {env_name}: a held-out episode did not finish")
+    disc = dqn.GAMMA ** torch.arange(trace["reward"].shape[0],
+                                     device=device, dtype=torch.float32)
+    ret = (trace["reward"] * trace["active"] * disc[:, None]).sum(0)
+    return out["total_energy"].cpu(), ret.cpu()
+
+
+def _fmt(xs) -> str:
+    return (f"{[round(float(x), 2) for x in xs]} (mean "
+            f"{float(xs.mean()):.2f})")
+
+
+def phase_policy(torch, device, smi):
+    """Calibrate on the main path's bundle, hold the simulators and the
+    loss on the card against the CPU, train Double-DQN on the card in the
+    table and the analytic env, and check the training.
+    Returns the table-trained qnet, which the greendygnn phases run, and
+    the parameter pools (``phase_policy_profile`` profiles training on
+    them after the other profiles: its windows hold ~750 kernels an
+    iteration)."""
+    import tempfile
+
+    from repro_torch.core import controller as ctl, cost_model as cm, dqn
+    from repro_torch.core import simulator as sim
+    from repro_torch.envs import resolve_env
+    from repro_torch.train import gnn_trainer as gt, policy as pol
+
+    cal_cfg = gt.RunConfig(**dict(MAIN_PATH, compute="modeled"),
+                           device=str(device))
+    bundle = gt.build_trace(cal_cfg)
+    t0 = time.perf_counter()
+    tables = pol.calibrate_table_from_bundle(bundle, cal_cfg)
+    t_table = time.perf_counter() - t0
+    theta, diag = pol.calibrate_from_bundle(bundle, cal_cfg)
+    t_theta = time.perf_counter() - t0 - t_table
+    log(f"policy calibration on the main path's bundle: tables in "
+        f"{t_table:.2f} s (hit at W=16, uniform: "
+        f"{[round(float(h), 4) for h in tables.hit[4, 0]]}); theta in "
+        f"{t_theta:.2f} s (h_min {theta.h_min:.4f}, h_max {theta.h_max:.4f}, "
+        f"w_half {theta.w_half:.3f}, rebuild {theta.rebuild_a:.4g} + "
+        f"{theta.rebuild_b:.4g} W^{theta.rebuild_c:.4f}, t_miss0 "
+        f"{theta.t_miss0:.4g}, remote_nodes {theta.remote_nodes:.1f})")
+    policy_card_vs_cpu(torch, device, tables, theta)
+
+    pools = {"table": pol.make_params_pool([tables], device=device),
+             "analytic": pol.make_params_pool([theta], device=device)}
+    # the reference's fresh qnet in its training test (seed 99), and the
+    # untrained qnet training starts from, which the greendygnn phases
+    # ran until they took a trained one
+    fresh, start = (dqn.init_qnet(torch.Generator().manual_seed(k), 23, 32,
+                                  device=device) for k in (99, SEED))
+    qnets = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cached, pol.ARTIFACT_DIR = pol.ARTIFACT_DIR, tmp
+        try:
+            for env in ("table", "analytic"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, qnets[env] = pol.get_or_train_policy(
+                    pools[env], name="smoke", iterations=POLICY_ITERS,
+                    force=True, env=env, device=str(device),
+                    n_envs=POLICY_ENVS, seed=SEED)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                with open(pathlib.Path(tmp) / f"smoke_{env}.json") as f:
+                    meta = json.load(f)
+                policies = {name: dqn.greedy_policy(q) for name, q in (
+                    ("trained", qnets[env]), ("fresh", fresh),
+                    ("start", start))}
+                for w in (2, 16):
+                    a = ctl.encode_action(cm.WINDOW_CHOICES.index(w), 0, 3)
+                    policies[f"static W={w}"] = (
+                        lambda obs, a=a: torch.full((obs.shape[0],), a,
+                                                    device=obs.device))
+                runs = {name: held_out(torch, device, env, pools[env], fn)
+                        for name, fn in policies.items()}
+                log(f"policy {env}: {POLICY_ITERS} iterations x "
+                    f"{POLICY_ENVS} envs on the card in {wall:.2f} s "
+                    f"({POLICY_ITERS / wall:.1f} iterations/s, artifact "
+                    f"write included), {meta['episodes']} episodes, "
+                    f"{meta['grad_steps']} gradient steps, mean reward of "
+                    f"the last 200 iterations {meta['final_reward']:.4f}; "
+                    f"{smi}")
+                for name, (energy, ret) in runs.items():
+                    log(f"  held-out {name}: energy (J) {_fmt(energy)}, "
+                        f"discounted return {_fmt(ret)}")
+                require(meta["grad_steps"] > 0 and meta["episodes"] > 0,
+                        f"policy {env}: no gradient step or episode")
+                require(float(runs["trained"][1].mean())
+                        > float(runs["fresh"][1].mean()),
+                        f"policy {env}: the trained policy's discounted "
+                        "return does not beat the fresh qnet's on the "
+                        "held-out episodes")
+        finally:
+            pol.ARTIFACT_DIR = cached
+
+    runs = [dqn.train_dqn(
+        dqn.DQNConfig(n_envs=POLICY_ENVS, iterations=POLICY_SHORT,
+                      min_replay=256, eps_decay_iters=POLICY_SHORT // 2,
+                      seed=SEED, device=str(device)),
+        sim.EnvConfig(schedule=0, steps_per_epoch=32, n_epochs=30),
+        pools["table"], env=resolve_env("table")) for _ in range(2)]
+    same = all(torch.equal(runs[0]["qnet"][layer][k], runs[1]["qnet"][layer][k])
+               for layer in runs[0]["qnet"] for k in runs[0]["qnet"][layer])
+    require(same and torch.equal(runs[0]["metrics"]["loss"],
+                                 runs[1]["metrics"]["loss"]),
+            "policy: two same-seed card runs gave different qnets")
+    log(f"policy: two same-seed card runs of {POLICY_SHORT} iterations "
+        f"gave equal qnets and losses")
+    return qnets["table"], pools
+
+
+# ------------------------------------------------------------- phase 3
+def phase_main_path(torch, device, qnet):
+    """The GreenDyGNN trainer's main path, its controller driven by
+    ``qnet`` (the policy phase's table-trained qnet)."""
+    import numpy as np
+
+    from repro_torch.core import dqn
     from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.segment_mm import block_spmm, csr_spmm
     from repro_torch.store import MemoryBudget
     from repro_torch.train import gnn_trainer as gt
 
-    qnet = dqn.init_qnet(torch.Generator().manual_seed(SEED),
-                         ctl.state_dim(3), ctl.n_actions(3), device=device)
     q_base = dqn.q_fn_of(qnet)
     decisions = []
 
@@ -970,18 +1345,18 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
     After ``n_warm`` steps (the parity check, first allocations), the host
     clock times ``n_each`` steps with the worker's parts wrapped in host
     timers; then ``torch.profiler`` records ``n_each`` more for the device
-    time by kernel. The profiler's own host overhead is large, so the
-    host wall comes from the unprofiled steps."""
+    time by kernel (and the next ``n_each`` if the trace dropped a kernel
+    the wrappers counted). The profiler's own host overhead is large, so
+    the host wall comes from the unprofiled steps."""
     import collections
-
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.store import MemoryBudget
     from repro_torch.train import gnn_trainer as gt
     from repro_torch.train.worker import TrainerWorker
 
+    # a third window of steps, for a trace the profiler dropped kernels of
     cfg = gt.RunConfig(**dict(MAIN_PATH, method="static_w", n_epochs=1,
-                              steps_per_epoch=n_warm + 2 * n_each),
+                              steps_per_epoch=n_warm + 3 * n_each),
                        mem_budget=MemoryBudget(device_payloads=True),
                        device=str(device))
     w = TrainerWorker(cfg, gt.build_trace(cfg))
@@ -1025,27 +1400,28 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
         "ms/step  rest of the trainer step")
 
     from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.segment_mm import csr_spmm
 
-    # a short spin and a pause lead the profiled window (the profiler can
-    # miss the device's first activity after it starts); the spin's
-    # kernel, learned from a profile of it alone, is left out
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as probe:
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-    lead = set(device_time_by_name(probe))
-    bags0 = embedding_bag.launches
-    with profile(activities=acts) as prof:
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-        for s in range(n_warm + n_each, n_warm + 2 * n_each):
+    def window(first):
+        for s in range(first, first + n_each):
             w.step(0, s)
-        torch.cuda.synchronize()
-    wrapper_bags = embedding_bag.launches - bags0
+
+    for attempt in (1, 2):
+        bags0, csr0 = embedding_bag.launches, csr_spmm.launches
+        by_name = traced(torch, lambda: window(n_warm + attempt * n_each))
+        wrapper_bags = embedding_bag.launches - bags0
+        traced_csr = sum(cnt for name, (_, cnt) in by_name.items()
+                         if "csr_spmm_kernel" in name)
+        traced_bags = sum(cnt for name, (_, cnt) in by_name.items()
+                          if "embedding_bag_kernel" in name)
+        if (traced_csr == csr_spmm.launches - csr0
+                and traced_bags == wrapper_bags):
+            break
+        log(f"profile: the trace holds {traced_csr} of "
+            f"{csr_spmm.launches - csr0} csr_spmm and {traced_bags} of "
+            f"{wrapper_bags} embedding_bag launches; taking the next "
+            f"{n_each} steps")
     steps_with_hits = sum(h > 0 for h in w.step_hits[-n_each:])
-    by_name = {name: v for name, v in device_time_by_name(prof).items()
-               if name not in lead}
     busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / n_each
     log(f"profile: device busy {busy_ms:.3f} ms/step, device idle share "
         f"{1.0 - busy_ms / wall_ms:.4f} of the unprofiled host wall")
@@ -1104,20 +1480,10 @@ def smi_line() -> str:
 def csr_instances(torch, fn) -> list:
     """The (G, V) of every CSR SpMM kernel ``fn`` launches, from the
     kernel names ``torch.profiler`` reports."""
-    import re
+    from repro_torch.kernels.segment_mm import csr_spmm
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    found = []
-    for name, (_, cnt) in device_time_by_name(prof).items():
-        hit = re.search(r"csr_spmm_kernel<(\d+),\s*(\d+)>", name)
-        if hit:
-            found += [tuple(map(int, hit.groups()))] * cnt
-    return found
+    return kernel_instances(torch, fn, r"csr_spmm_kernel<(\d+),\s*(\d+)>",
+                            csr_spmm)
 
 
 def full_graph_operands(torch, device):
@@ -1315,17 +1681,15 @@ def epoch_joules(res, epoch: int) -> float:
                   - prev["gpu_j"] - prev["cpu_j"]) * res.meter.n_nodes)
 
 
-def phase_congestion(torch, device, smi):
+def phase_congestion(torch, device, smi, qnet):
     """Each method under the paper schedule and a time-driven scenario,
     measured lane, device payloads, 5 epochs of 4 steps (1 of warmup, W =
     2 until a controller decides; the schedule congests epoch 3); one
-    line a run."""
+    line a run. greendygnn runs ``qnet``, the table-trained policy."""
     from repro_torch.core import controller as ctl, dqn
     from repro_torch.store import MemoryBudget
     from repro_torch.train import gnn_trainer as gt
 
-    qnet = dqn.init_qnet(torch.Generator().manual_seed(SEED),
-                         ctl.state_dim(3), ctl.n_actions(3), device=device)
     decisions = []
     decide = ctl.AdaptiveController.decide
 
@@ -1751,7 +2115,10 @@ def phase_pipeline_profile(torch, device, n_warm: int = 8, n_each: int = 8):
     from repro_torch.train import gnn_trainer as gt
     from repro_torch.train.worker import TrainerWorker
 
-    cfg = pipeline_cfg(device, n_epochs=1, steps_per_epoch=24,
+    # a second pair of windows (steps 16-23), for a trace the profiler
+    # dropped a counted kernel of; the epoch runs on past it, so that
+    # window's last swap submits a build too
+    cfg = pipeline_cfg(device, n_epochs=1, steps_per_epoch=n_warm + 3 * n_each,
                        async_pipeline=True)
     w = TrainerWorker(cfg, gt.build_trace(cfg))
     path = ROOT / "build" / "pipeline_profile.json"
@@ -1761,27 +2128,37 @@ def phase_pipeline_profile(torch, device, n_warm: int = 8, n_each: int = 8):
         for s in range(n_warm):
             w.step(0, s)
         torch.cuda.synchronize()
-        bags0 = embedding_bag.launches
-        builder0 = embedding_bag.launches_by_thread.get("cache-builder", 0)
-        with plans_swapped() as plans, profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            # a short spin and a pause lead the window: the profiler can
-            # miss the device's first activity after it starts
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-            time.sleep(0.05)
-            for s in range(n_warm, n_warm + n_each):
-                w.step(0, s)
-            # the build submitted at the last swap ends inside the window
-            require(w.pending_ticket.done.wait(timeout=120),
-                    "profile: the last build did not finish")
-            torch.cuda.synchronize()
-        wrapper_bags = embedding_bag.launches - bags0
-        builder_bags = (embedding_bag.launches_by_thread.get("cache-builder", 0)
-                        - builder0)
+        for first in (n_warm, n_warm + n_each):
+            bags0 = embedding_bag.launches
+            builder0 = embedding_bag.launches_by_thread.get("cache-builder",
+                                                            0)
+            with plans_swapped() as plans, profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                # pauses lead and end the window (see ``traced``)
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                time.sleep(0.05)
+                for s in range(first, first + n_each):
+                    w.step(0, s)
+                # the build submitted at the last swap ends inside the
+                # window
+                require(w.pending_ticket.done.wait(timeout=120),
+                        "profile: the last build did not finish")
+                torch.cuda.synchronize()
+                time.sleep(0.05)
+            wrapper_bags = embedding_bag.launches - bags0
+            builder_bags = (embedding_bag.launches_by_thread.get(
+                "cache-builder", 0) - builder0)
+            events = chrome_events(prof, path)
+            traced_bags = sum("embedding_bag_kernel" in name
+                              for _, name, _, _ in events)
+            if traced_bags == wrapper_bags:
+                break
+            log(f"profile pipeline: the trace holds {traced_bags} of "
+                f"{wrapper_bags} embedding_bag launches; taking steps "
+                f"{first + n_each}-{first + 2 * n_each - 1}")
     finally:
         w.close()
-    events = chrome_events(prof, path)
     csr_streams = {st for cat, name, st, _ in events
                    if "csr_spmm_kernel" in name}
     require(len(csr_streams) == 1,
@@ -1802,7 +2179,7 @@ def phase_pipeline_profile(torch, device, n_warm: int = 8, n_each: int = 8):
     bags = [st for cat, name, st, _ in events
             if "embedding_bag_kernel" in name]
     side_bags = sum(st != compute for st in bags)
-    with_hits = sum(h > 0 for h in w.step_hits[n_warm:n_warm + n_each])
+    with_hits = sum(h > 0 for h in w.step_hits[first:first + n_each])
     log(f"profile pipeline ({n_each} threaded steps, {len(plans)} swaps, "
         f"tables of {table_bytes} B): compute stream {compute}; "
         f"{len(pinned)} pinned uploads on streams "
@@ -1830,16 +2207,14 @@ def phase_pipeline_profile(torch, device, n_warm: int = 8, n_each: int = 8):
             f"gathers traced, {wrapper_bags} counted")
 
 
-def phase_pipeline_adaptive(torch, device):
+def phase_pipeline_adaptive(torch, device, qnet):
     """greendygnn threaded under the paper schedule (CONGESTION's 5 epochs
-    of 4 steps): it runs, rebuilds, and every window it decides lies in
-    the action set."""
+    of 4 steps), driven by ``qnet`` (the table-trained policy): it runs,
+    rebuilds, and every window it decides lies in the action set."""
     from repro_torch.core import controller as ctl, cost_model as cm, dqn
     from repro_torch.store import MemoryBudget
     from repro_torch.train import gnn_trainer as gt
 
-    qnet = dqn.init_qnet(torch.Generator().manual_seed(SEED),
-                         ctl.state_dim(3), ctl.n_actions(3), device=device)
     cfg = gt.RunConfig(**dict(CONGESTION, method="greendygnn",
                               scenario="paper_schedule", async_pipeline=True),
                        q_fn=dqn.q_fn_of(qnet),
@@ -2165,8 +2540,6 @@ def phase_profile_prefill(torch, cfg, params, tokens):
     """Where one full-width prefill's time goes: the flash kernel against
     the matrix products and the rest, on the device, beside the host
     wall of an unprofiled prefill."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.models.lm import transformer as tf
 
     tf.prefill(params, cfg, tokens)
@@ -2175,11 +2548,7 @@ def phase_profile_prefill(torch, cfg, params, tokens):
     tf.prefill(params, cfg, tokens)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tf.prefill(params, cfg, tokens)
-        torch.cuda.synchronize()
-    by_name = device_time_by_name(prof)
+    by_name = traced(torch, lambda: tf.prefill(params, cfg, tokens))
     require(bool(by_name), "profile prefill: no device time reported")
     groups = {"flash kernel": 0.0, "matrix products": 0.0, "rest": 0.0}
     n_wgmma = n_flash = 0
@@ -2382,14 +2751,15 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = phase_card_and_build(torch)
+    qnet, policy_pools = phase_policy(torch, device, smi)
     ops = main_path_operands(torch, device)
     ops["errs"] = phase_kernels_vs_plain(torch, device, ops)
     wide_err = phase_spmm_widths(torch, device, ops)
     ops["errs"]["csr_spmm"] = max(ops["errs"]["csr_spmm"], wide_err)
     flash_err, flash_operands = phase_flash_vs_plain(torch, device)
-    counts, step_ms, n_steps = phase_main_path(torch, device)
+    counts, step_ms, n_steps = phase_main_path(torch, device, qnet)
     full_counts = phase_full_graph(torch, device)
-    phase_congestion(torch, device, smi)
+    phase_congestion(torch, device, smi, qnet)
     phase_budgeted_tier(torch, device)
     phase_card_vs_cpu(torch, device)
     phase_card_vs_cpu_fabric(torch, device)
@@ -2397,7 +2767,7 @@ def main() -> int:
     pipe_plans, pipe_builder_bags, pipe_rebuilds = phase_pipeline(
         torch, device, smi)
     phase_pipeline_profile(torch, device)
-    phase_pipeline_adaptive(torch, device)
+    phase_pipeline_adaptive(torch, device, qnet)
     phase_pipeline_budgeted(torch, device)
     lm_counts, cfg, params, tokens = phase_serving(torch, device)
     phase_profile_prefill(torch, cfg, params, tokens)
@@ -2411,6 +2781,7 @@ def main() -> int:
                                      wide_err))
     rows.append(flash_timing_row(torch, device, flash_operands,
                                  lm_counts["flash_attention"], flash_err))
+    phase_policy_profile(torch, device, policy_pools)
     log(f"median measured step: {step_ms:.4f} ms; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

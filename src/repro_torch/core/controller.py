@@ -9,6 +9,8 @@ float32, with Python constants cast to float32 before each operation. This
 port does the same in numpy, operation by operation, so observation
 vectors and allocation weights are bit-identical; the float32 weights feed
 ``plan_window``'s largest-remainder quotas, where one ulp can move a row.
+The training simulators run the tensor forms (``*_t``) of the codec and
+the state, batched over a leading env axis.
 """
 from __future__ import annotations
 
@@ -17,8 +19,10 @@ import dataclasses
 from typing import Callable
 
 import numpy as np
+import torch
 
 from repro_torch.core import cost_model as cm
+from repro_torch.device import constant
 
 N_WINDOWS = len(cm.WINDOW_CHOICES)  # 8
 BIAS_FRACTION = 0.6                 # "biased 60% toward one designated owner"
@@ -129,6 +133,64 @@ def sigma_from_fetch_ratio(recent_fetch_ratio, params: cm.CostModelParams):
     """Owner congestion multiplier from its observed fetch-latency ratio."""
     return cm.sigma_from_delta(params, estimate_delta_ms(recent_fetch_ratio,
                                                          params))
+
+
+# ---------------------------------------------------------------------------
+# Tensor forms for the training simulators (a leading env axis n)
+# ---------------------------------------------------------------------------
+
+def window_choices(device) -> torch.Tensor:
+    """WINDOW_CHOICES as a float32 tensor on ``device`` (not to be written)."""
+    return constant(tuple(float(w) for w in cm.WINDOW_CHOICES),
+                    torch.device(device))
+
+
+def allocation_weights_t(alloc_idx: torch.Tensor, n_owners: int
+                         ) -> torch.Tensor:
+    """:func:`allocation_weights` of each index in ``alloc_idx`` (n,):
+    (n, n_owners) float32."""
+    uniform = torch.full((alloc_idx.shape[0], n_owners), 1.0 / n_owners,
+                         device=alloc_idx.device)
+    if n_owners <= 1:
+        return uniform
+    owner = torch.clamp(alloc_idx - 1, 0, n_owners - 1)
+    onehot = (torch.arange(n_owners, device=alloc_idx.device)
+              == owner[:, None]).float()
+    biased = onehot * BIAS_FRACTION + (1.0 - onehot) * (
+        (1.0 - BIAS_FRACTION) / (n_owners - 1)
+    )
+    return torch.where((alloc_idx == 0)[:, None], uniform, biased)
+
+
+def decode_action_t(action: torch.Tensor, n_owners: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Actions (n,) -> (windows (n,) float32, weights (n, n_owners))."""
+    n_a = n_owners + 1
+    window = window_choices(action.device)[action // n_a]
+    return window, allocation_weights_t(action % n_a, n_owners)
+
+
+def build_state_t(sigma_hat, owner_hit_rates, global_hit_rate, t_step,
+                  t_base, f_rebuild, f_miss, e_step, e_baseline,
+                  batches_remaining, prev_window, prev_weights
+                  ) -> torch.Tensor:
+    """:func:`build_state` for n envs: the per-owner arguments are (n,
+    P-1), the others (n,); returns (n, state_dim) float32. The window's
+    one-hot sits at its first exact match in WINDOW_CHOICES (index 0 when
+    there is none, as the reference's argmax of an all-false mask)."""
+    choices = window_choices(prev_window.device)
+    w_idx = torch.argmax((choices == prev_window[:, None]).int(), dim=1)
+    onehot_w = (torch.arange(N_WINDOWS, device=w_idx.device)
+                == w_idx[:, None]).float()
+    ratios = torch.stack([
+        t_step / t_base,
+        f_rebuild,
+        f_miss,
+        e_step / e_baseline,
+        batches_remaining,
+    ], dim=1)
+    return torch.cat([sigma_hat, owner_hit_rates, global_hit_rate[:, None],
+                      ratios, onehot_w, prev_weights], dim=1).float()
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,10 @@ typed: an operation between two Python constants happens in float64 first
 result is cast to float32 where it meets an array. This port repeats each
 operation in that order in numpy float32, so the sigma trace, the
 controller's observation and the policies' actions stay bit-identical.
+
+The training simulators run the tensor forms (``*_t``) of the laws they
+call: torch float32, batched over a leading env axis, one law each beside
+its host form.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import dataclasses
 from typing import Any
 
 import numpy as np
+import torch
 
 # Paper-reported calibration constants (Section IV-B).
 PAPER_ALPHA_RPC_S = 4.67e-3          # fixed RPC initiation cost [s]
@@ -228,3 +233,80 @@ def optimal_window(params: CostModelParams, sigma):
                           _F32)
     idx = int(np.argmin(energies))
     return windows[idx], energies[idx]
+
+
+# ---------------------------------------------------------------------------
+# Tensor forms for the training simulators. ``params`` is a parameter set
+# whose fields are float32 tensors of shape (n,), one entry per env (the
+# reference vmaps one episode over a pool entry); ``window`` is (n,) or a
+# number, ``sigma`` and ``weights`` are (n, P-1). Where the reference
+# divides a number by an array these divide two tensors: torch computes
+# ``number / tensor`` as a product with the reciprocal. torch's pow may
+# differ from XLA's in the last bit, so these hold the host forms within
+# a tolerance, not bit for bit.
+# ---------------------------------------------------------------------------
+
+def _window_t(params, window) -> torch.Tensor:
+    if isinstance(window, torch.Tensor):
+        return window
+    return torch.full_like(params.t_base, float(window))
+
+
+def sigma_from_delta_t(params, delta_ms: torch.Tensor) -> torch.Tensor:
+    """sigma_o = 1 + (gamma_c / beta) * delta_ms: (n, P-1)."""
+    slope = params.gamma_c / params.beta
+    return 1.0 + slope[:, None] * delta_ms
+
+
+def hit_rate_t(params, window) -> torch.Tensor:
+    """Eq. (2): (n,)."""
+    w = _window_t(params, window)
+    span = params.h_max - params.h_min
+    return params.h_min + span / (1.0 + (w / params.w_half) ** params.gamma_h)
+
+
+def rebuild_time_t(params, window) -> torch.Tensor:
+    """T_rebuild(W) = a + b * W**c: (n,)."""
+    w = _window_t(params, window)
+    return params.rebuild_a + params.rebuild_b * w ** params.rebuild_c
+
+
+def allreduce_penalty_t(params, sigma: torch.Tensor) -> torch.Tensor:
+    """dT_AR = kappa_AR * max(max_o sigma_o - 1, 0): (n,)."""
+    return params.kappa_ar * torch.clamp(sigma.amax(-1) - 1.0, min=0.0)
+
+
+def per_owner_hit_rates_t(params, window, weights: torch.Tensor
+                          ) -> torch.Tensor:
+    """Per-owner hit rate under capacity shares ``weights``: (n, P-1)."""
+    n_owners = weights.shape[-1]
+    base = hit_rate_t(params, window)
+    scale = (weights * n_owners) ** ALLOC_RHO
+    return torch.minimum(torch.clamp(base[:, None] * scale, min=0.0),
+                         params.h_max[:, None])
+
+
+def step_time_t(params, window, sigma: torch.Tensor,
+                weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Eq. (1) with congestion (Eq. 3), per-owner allocation and the
+    AllReduce straggler term: (n,). ``weights=None`` is uniform."""
+    w = _window_t(params, window)
+    if weights is None:
+        weights = torch.full_like(sigma, 1.0 / sigma.shape[-1])
+    h_o = per_owner_hit_rates_t(params, w, weights)
+    miss = params.remote_nodes * params.t_miss0 * (
+        (1.0 - h_o) * sigma).amax(-1)
+    rebuild = params.alpha_crit * rebuild_time_t(params, w) / w
+    return params.t_base + allreduce_penalty_t(params, sigma) + rebuild \
+        + miss
+
+
+def step_energy_t(params, window, sigma: torch.Tensor,
+                  weights: torch.Tensor | None = None) -> torch.Tensor:
+    """E_step ~= Pbar * T_step, joules per step per node: (n,)."""
+    t_total = step_time_t(params, window, sigma, weights)
+    t_comm = torch.clamp(t_total - params.t_base, min=0.0)
+    e_compute = (params.p_gpu_active + params.p_cpu_base) * params.t_base
+    e_comm = (params.p_gpu_idle + params.p_cpu_base + params.p_cpu_rpc) \
+        * t_comm
+    return e_compute + e_comm

@@ -4,9 +4,13 @@ Entry points run on the card (``"cuda"``) unless the caller asks for the
 CPU, as the CPU tests do. Asking for CUDA where there is no GPU raises:
 nothing continues quietly on the CPU. :func:`to_device_packed` moves
 several host arrays to the device in one copy, and :class:`PinnedStaging`
-does so from pinned memory without blocking the host.
+does so from pinned memory without blocking the host. :func:`constant`
+keeps one copy of a small table on each device, so a loop that indexes it
+copies nothing from the host.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -27,6 +31,14 @@ def resolve(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, device: torch.device,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``torch.tensor(values)`` on ``device``, made once per (values,
+    device, dtype). Callers must not write to it."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _layout(arrays) -> tuple[list[np.ndarray], list[int], int]:

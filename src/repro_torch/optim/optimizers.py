@@ -1,6 +1,7 @@
-"""AdamW written out, in the reference's functional form.
+"""AdamW and Adam written out, in the reference's functional form.
 
-Port of ``repro/optim/optimizers.py::adamw``. ``torch.optim.AdamW`` is not
+Port of ``repro/optim/optimizers.py``'s ``global_norm``,
+``clip_by_global_norm``, ``adamw`` and ``adam``. ``torch.optim.AdamW`` is not
 a substitute: the reference divides the bias-corrected moments,
 ``(m / bc1) / (sqrt(v / bc2) + eps)``, where torch computes
 ``sqrt(v) / sqrt(bc2) + eps``, and the two apply weight decay differently.
@@ -10,7 +11,8 @@ An optimizer is a pair (init, update) over nested dicts of tensors:
     updates, state = update(grads, state, params)
     params = apply_updates(params, updates)
 All arithmetic is float32, with the Python constants cast to float32 as
-the reference's weakly-typed scalars are.
+the reference's weakly-typed scalars are. The clip scale is a tensor on
+the gradients' device: clipping reads nothing back to the host.
 """
 from __future__ import annotations
 
@@ -47,6 +49,24 @@ class OptState:
     nu: Tree
 
 
+def global_norm(tree: Tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, summed leaf by leaf as the
+    reference does (a 0-dim float32 tensor)."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(tree)))
+
+
+def clip_by_global_norm(tree: Tree, max_norm: float
+                        ) -> tuple[Tree, torch.Tensor]:
+    """Scale every leaf by ``min(1, max_norm / (norm + 1e-12))``; returns
+    the scaled tree and the norm before scaling."""
+    norm = global_norm(tree)
+    # a divide, not ``max_norm / t`` (torch multiplies by the reciprocal)
+    scale = torch.clamp(torch.full_like(norm, max_norm) / (norm + 1e-12),
+                        max=1.0)
+    return tree_map(lambda x: x * scale, tree), norm
+
+
 def apply_updates(params: Tree, updates: Tree) -> Tree:
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
 
@@ -57,8 +77,10 @@ def adamw(
     b2: float = 0.999,
     eps: float = 1e-8,
     weight_decay: float = 0.0,
+    max_grad_norm: float | None = None,
 ) -> Optimizer:
-    """AdamW with decoupled weight decay (no gradient clipping)."""
+    """AdamW with optional global-norm clipping and decoupled weight
+    decay."""
 
     def init(params: Tree) -> OptState:
         def zeros(p):
@@ -69,6 +91,8 @@ def adamw(
 
     @torch.no_grad()
     def update(grads: Tree, state: OptState, params: Tree):
+        if max_grad_norm is not None:
+            grads, _ = clip_by_global_norm(grads, max_grad_norm)
         step = state.step + 1
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
                       state.mu, grads)
@@ -87,3 +111,13 @@ def adamw(
         return updates, OptState(step=step, mu=mu, nu=nu)
 
     return Optimizer(init, update)
+
+
+def adam(
+    learning_rate: float,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    max_grad_norm: float | None = None,
+) -> Optimizer:
+    return adamw(learning_rate, b1, b2, eps, 0.0, max_grad_norm)
