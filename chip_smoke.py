@@ -15,7 +15,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    "wgmma.mma_async instructions are serialized". Likewise fail if an
    instance of the CSR SpMM (``csr_spmm_kernel<G, V>``, 12 of them) or of
    the EmbeddingBag kernel (``embedding_bag_kernel<G, V, U>``, 24 of them)
-   spills.
+   spills, or the queue env's window kernel at the path's owner bound
+   (``queue_window_kernel<4>``; those of 8 and 16 are logged).
 2. The policy phase, first after the build (the profiler has dropped
    kernels from later traces in a process that ran the training's
    millions of launches first): the paper's calibrate -> train -> deploy
@@ -39,6 +40,22 @@ Phases, each of which ends the run with a non-zero exit on failure:
    host wall, device kernels, copies, device busy and idle share, and,
    with CUDA's sync debug mode on, the host syncs, which must not grow
    with the iterations.
+   The queue phase follows (``phase_queue``): the queue env
+   (``core/queue_sim.py``) on the card against the CPU, reset and 12
+   steps of 28 envs covering all 14 scenario codes, W = 1, 16 and 128,
+   windows cut by the horizon, once plain and once at
+   ``mem_budget_frac`` 0.3 with the headroom entry (``TOL_POLICY``; a
+   finished episode's 0 / 0 entries are NaN on both sides); the
+   ``queue_window`` kernel against its plain version on the same
+   operands for every code at every W, at P = 3, 1, 8 and 16 and under
+   the memory spill (``TOL_POLICY``, a relaunch bit-identical, live steps
+   = eff_window); ``get_or_train_policy(env="queue")`` on the analytic
+   pool (32 envs, ``POLICY_ITERS`` iterations, the default scenario
+   pool), which must launch the kernel exactly twice an iteration (+1 for
+   the first reset); held-out whole episodes under ``paper_schedule`` and
+   ``bursty_markov``, where the trained policy's discounted return must
+   beat the fresh qnet's (energies logged beside static W = 2 and 16).
+   After the timing, the profiled pairs of runs cover the queue env too.
 3. Hold each kernel against its plain PyTorch version on the card, at the
    shapes its main path gives it. The trainer's kernels at the first
    mini-batch of the default ``reddit`` trace: the CSR SpMM for layer 0,
@@ -93,7 +110,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    and read just after and held to the same launch rules: full_graph_sm
    (d_in = 1,433, 6 measured steps); the congestion runs, the reddit
    stand-in at the main path's widths and batch (5 epochs of 4 steps, 1
-   of warmup) for dgl, static_w, heuristic and greendygnn under the
+   of warmup) for dgl, static_w, heuristic and greendygnn (once under
+   the table-trained and once under the queue-trained policy) under the
    event fabric's ``paper_schedule`` and ``bursty_markov``, one line a run
    with its joules per epoch, windows, hits, misses, remote bytes and
    launches, the adaptive methods required to decide; ooc_community
@@ -161,8 +179,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    ``kernel_warm_ms``: back to back) and the event time at the padded
    shape (``padded_ms``). A second EmbeddingBag row,
    ``embedding_bag_persisted``, times the persisted-row gather at the
-   threaded run's median rebuild. TF32 is off throughout: float32 results
-   are compared in full float32.
+   threaded run's median rebuild. The ``queue_window`` row times the
+   queue env's window kernel at 32 envs and W = 128 (every step live)
+   against its plain version, with its launches in the queue training.
+   TF32 is off throughout: float32 results are compared in full float32.
 7. The last line is ``{"ok": true, "device": {...}}``.
 
 Kernel builds land in ``build/kernels/`` (listed in ``.gitignore``).
@@ -360,6 +380,7 @@ def phase_card_and_build(torch):
     check_wgmma_build(_build.build_log("flash_attention") or "")
     check_csr_build(_build.build_log("csr_spmm") or "")
     check_bag_build(_build.build_log("embedding_bag") or "")
+    check_queue_build(_build.build_log("queue_window") or "")
     return smi
 
 
@@ -436,6 +457,30 @@ def check_csr_build(text: str) -> None:
             f"bytes spill stores, {info.get('spill_loads')} bytes spill loads")
         require(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
                 f"csr_spmm_kernel<{g}, {v}> spills")
+
+
+def check_queue_build(text: str) -> None:
+    """The queue window kernel's ptxas report: one instance per owner
+    bound (4, 8, 16); the path's (P = 3: the instance of 4) must not
+    spill; the wider ones are logged (their register arrays outgrow 255
+    registers)."""
+    import re
+
+    found = {}
+    for name, info in ptxas_functions(text).items():
+        hit = re.search(r"queue_window_kernelILi(\d+)E", name)
+        if hit:
+            found[int(hit.group(1))] = info
+    require(sorted(found) == [4, 8, 16],
+            f"ptxas report lists queue_window_kernel instances "
+            f"{sorted(found)}, not 4, 8 and 16 (is the build log missing?)")
+    for p, info in sorted(found.items()):
+        log(f"  ptxas[queue_window] queue_window_kernel<{p}>: "
+            f"{info.get('registers')} registers, {info.get('spill_stores')} "
+            f"bytes spill stores, {info.get('spill_loads')} bytes spill loads")
+    require(found[4].get("spill_stores") == 0
+            and found[4].get("spill_loads") == 0,
+            "queue_window_kernel<4> spills")
 
 
 def check_bag_build(text: str) -> None:
@@ -927,20 +972,32 @@ def kernel_instances(torch, fn, pattern: str, wrapper,
 
 
 # ------------------------------------------------------ the policy phase
-def fixed_draws(torch, sim, device):
-    """A ``Draws`` whose draws are a seeded CPU generator's, moved to
-    ``device``: the same draws on the card and on the CPU."""
+def fixed_draws(torch, draws_cls, device, cover_pool: bool = False):
+    """A ``draws_cls`` (an env's ``Draws``) whose draws are a seeded CPU
+    generator's, moved to ``device``: the same draws on the card and on
+    the CPU. ``cover_pool`` makes env e take entry e % len of the
+    scenario pool, so a batch covers the pool."""
     import dataclasses
 
-    class FixedDraws(sim.Draws):
+    def to(x):
+        return to_device(x, device)
+
+    class FixedDraws(draws_cls):
         def profile(self, cfg, n):
-            p = super().profile(cfg, n)
-            return dataclasses.replace(p, **{
-                f.name: getattr(p, f.name).to(device)
-                for f in dataclasses.fields(p)})
+            return to(super().profile(cfg, n))
 
         def noise(self, cfg, n):
-            return tuple(x.to(device) for x in super().noise(cfg, n))
+            return to(super().noise(cfg, n))
+
+        def scenario(self, cfg, n):
+            u = super().scenario(cfg, n)
+            if cover_pool:
+                u = dataclasses.replace(u, pool_idx=torch.arange(n) % len(
+                    cfg.scenario_pool))
+            return to(u)
+
+        def window(self, cfg, n):
+            return to(super().window(cfg, n))
 
     return FixedDraws(torch.Generator().manual_seed(SEED))
 
@@ -982,7 +1039,7 @@ def policy_card_vs_cpu(torch, device, tables, theta):
         cfg = sim.EnvConfig(schedule=0, n_epochs=6, steps_per_epoch=32)
         for name, env, entry in (("analytic", sim, theta),
                                  ("table", table_sim, tables)):
-            draws = fixed_draws(torch, sim, dev)
+            draws = fixed_draws(torch, sim.Draws, dev)
             state = env.reset(cfg, draws,
                               pol.make_params_pool([entry] * 8, device=dev))
             out[f"{name} reset obs"] = state.obs
@@ -1034,6 +1091,16 @@ def syncs_during(torch, fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
+def training_cfg(env_name: str):
+    """The env configuration ``train_policy`` trains ``env_name`` at: 30
+    epochs of 32 steps (the queue env: its default scenario pool)."""
+    from repro_torch.core import queue_sim as qs, simulator as sim
+
+    if env_name == "queue":
+        return qs.QueueEnvConfig(steps_per_epoch=32, n_epochs=30)
+    return sim.EnvConfig(schedule=0, steps_per_epoch=32, n_epochs=30)
+
+
 def phase_policy_profile(torch, device, pools):
     for env_name, pool in pools.items():
         policy_profile(torch, device, env_name, pool)
@@ -1047,11 +1114,11 @@ def policy_profile(torch, device, env_name, pool):
     copies, device busy and idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import dqn, simulator as sim
+    from repro_torch.core import dqn
     from repro_torch.envs import resolve_env
 
     env = resolve_env(env_name)
-    env_cfg = sim.EnvConfig(schedule=0, steps_per_epoch=32, n_epochs=30)
+    env_cfg = training_cfg(env_name)
 
     def run(iters):
         dqn.train_dqn(dqn.DQNConfig(
@@ -1088,7 +1155,7 @@ def policy_profile(torch, device, env_name, pool):
         f"and {(copies[b] - copies[a]) / d:.2f} copies/sets per iteration, "
         f"device busy {busy_ms:.4f} ms/iteration, idle share "
         f"{1.0 - busy_ms / wall_ms:.4f}; host syncs {syncs[a]} and "
-        f"{syncs[b]} a run")
+        f"{syncs[b]} a run; {smi_line()}")
     for name, (us, cnt) in top:
         log(f"  device {us / 1e3 / b:8.4f} ms/iteration x{cnt / b:6.2f}  "
             f"{name[:80]}")
@@ -1098,28 +1165,32 @@ def policy_profile(torch, device, env_name, pool):
     require(kernels[b] > kernels[a], f"policy {env_name}: no device kernel")
 
 
-def held_out(torch, device, env_name, pool, policy_fn):
-    """``policy_fn`` over ``POLICY_HELD_OUT`` held-out episodes of the
-    training env's configuration, each run to its end: (energy per
-    episode, discounted return per episode, the objective DQN maximises:
-    sum of GAMMA^t r_t over its decisions)."""
+def held_out(torch, device, env_name, pool, policy_fn, cfg=None):
+    """``policy_fn`` over ``POLICY_HELD_OUT`` held-out episodes of
+    ``cfg`` (default: the training env's configuration), each run to its
+    end: (energy per episode, discounted return per episode, the objective
+    DQN maximises: sum of GAMMA^t r_t over its decisions)."""
     from repro_torch.core import dqn, simulator as sim
     from repro_torch.envs import resolve_env
 
-    cfg = sim.EnvConfig(schedule=0, steps_per_epoch=32, n_epochs=30)
-    draws = sim.Draws(torch.Generator(device=device).manual_seed(SEED + 99))
+    env = resolve_env(env_name)
+    cfg = cfg or training_cfg(env_name)
+    draws = getattr(env, "Draws", sim.Draws)(
+        torch.Generator(device=device).manual_seed(SEED + 99))
     params = sim.take(pool, torch.zeros(POLICY_HELD_OUT, dtype=torch.long,
                                         device=device))
     out = sim.rollout_policy(cfg, draws, params, policy_fn,
-                             max_decisions=cfg.total_steps,
-                             env=resolve_env(env_name))
+                             max_decisions=cfg.total_steps, env=env)
     trace = out["trace"]
     steps_run = (trace["window"] * trace["active"]).sum(0)
     require(bool((steps_run >= cfg.total_steps).all()),
             f"policy {env_name}: a held-out episode did not finish")
     disc = dqn.GAMMA ** torch.arange(trace["reward"].shape[0],
                                      device=device, dtype=torch.float32)
-    ret = (trace["reward"] * trace["active"] * disc[:, None]).sum(0)
+    # a finished episode's later steps are frozen; their rewards (0 / 0
+    # in the queue env, as in the reference) count for nothing
+    ret = (torch.where(trace["active"], trace["reward"], 0.0)
+           * disc[:, None]).sum(0)
     return out["total_energy"].cpu(), ret.cpu()
 
 
@@ -1226,6 +1297,303 @@ def phase_policy(torch, device, smi):
     log(f"policy: two same-seed card runs of {POLICY_SHORT} iterations "
         f"gave equal qnets and losses")
     return qnets["table"], pools
+
+
+# ------------------------------------------------------- the queue phase
+def queue_card_vs_cpu(torch, device, theta):
+    """The queue env's reset and 12 steps of 28 envs on the card against
+    the same calls on the CPU (the CPU runs the kernel's plain version),
+    draws fixed on the host: env e takes scenario code e % 14, so every
+    code runs; the actions cycle W = 1, 16 and 128 and the allocations;
+    4 epochs of 32 steps, so W = 128 windows are cut by the horizon and
+    episodes end; once as configured by default and once at
+    ``mem_budget_frac`` 0.3 with the headroom entry. Returns the largest
+    |diff|."""
+    from repro_torch.core import controller as ctl, queue_sim as qs
+    from repro_torch.train import policy as pol
+
+    n = 28
+    codes = tuple(sorted(qs.SCENARIO_CODES.values()))
+    w_idx = (0, 4, 7)                       # W = 1, 16, 128
+    actions = [[ctl.encode_action(w_idx[(i + e) % 3], (i * e) % 4, 3)
+                for e in range(n)] for i in range(12)]
+    worst, n_tensors = 0.0, 0
+    for mem, headroom in ((0.0, False), (0.3, True)):
+        cfg = qs.QueueEnvConfig(n_epochs=4, steps_per_epoch=32,
+                                scenario_pool=codes, mem_budget_frac=mem,
+                                observe_headroom=headroom)
+
+        def outputs(dev):
+            draws = fixed_draws(torch, qs.Draws, dev, cover_pool=True)
+            state = qs.reset(cfg, draws,
+                             pol.make_params_pool([theta] * n, device=dev))
+            out = {"reset obs": state.obs}
+            cuts = 0
+            for i, a in enumerate(actions):
+                a = torch.as_tensor(a, device=dev)
+                window = ctl.decode_action_t(a, 3)[0]
+                cuts += int(((state.step_pos + window) > cfg.total_steps)
+                            .sum())
+                state, obs, reward, done = qs.step(cfg, state, a, draws)
+                for k, v in (("obs", obs), ("reward", reward),
+                             ("done", done)):
+                    out[f"step {i} {k}"] = v.float()
+                for k in ("total_energy", "total_time", "util_state",
+                          "delta_level", "backlog", "rb_backlog",
+                          "shared_backlog"):
+                    out[f"step {i} {k}"] = getattr(state, k)
+            out["codes"] = state.scenario.kind.float()
+            return out, cuts
+
+        (card, cuts), (cpu, _) = outputs(device), outputs(torch.device("cpu"))
+        require(sorted(set(cpu["codes"].long().tolist())) == list(codes),
+                "queue card vs CPU: a scenario code did not run")
+        require(cuts > 0, "queue card vs CPU: no window cut by the horizon")
+        require(card["reset obs"].shape[1] == ctl.state_dim(3, headroom),
+                "queue card vs CPU: the state's size")
+        for k, want in cpu.items():
+            # a step of a finished episode runs no step of its window, and
+            # its observation divides 0 by 0 as the reference's does
+            got = card[k].cpu()
+            both_nan = torch.isnan(got) & torch.isnan(want)
+            err = float((got - want).abs().masked_fill(both_nan, 0).max())
+            worst = max(worst, err)
+            require(torch.allclose(got, want, equal_nan=True, **TOL_POLICY),
+                    f"queue card vs CPU (mem {mem}): {k} max |diff| "
+                    f"{err:.3e}")
+        n_tensors += len(cpu)
+        log(f"queue card vs CPU, mem_budget_frac {mem}, headroom "
+            f"{headroom}: reset and 12 steps of {n} envs (all 14 codes, W "
+            f"= 1/16/128, {cuts} windows cut by the horizon) within rtol "
+            f"{TOL_POLICY['rtol']}, atol {TOL_POLICY['atol']}")
+    log(f"queue card vs CPU: {n_tensors} tensors; max |diff| {worst:.3e}")
+    return worst
+
+
+def to_device(x, device):
+    """Tensors, tuples and dataclasses of tensors (nested) on ``device``."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: to_device(getattr(x, f.name), device)
+            for f in dataclasses.fields(x)})
+    if isinstance(x, tuple):
+        return tuple(to_device(v, device) for v in x)
+    return x.to(device)
+
+
+def queue_window_operands(torch, device, theta, n_owners, codes, windows,
+                          mem=0.0, seed=SEED):
+    """A batch of windows as the env hands them to the kernel, one env a
+    (code, W) pair: carried fabric states, step positions across the run,
+    eff_window W but cut for some envs (to W/2, to 0). Returns (cfg,
+    params, scenario, Volumes, FabricState, uniforms, window, eff_window,
+    step_pos) on ``device``, drawn on the CPU."""
+    from repro_torch.core import controller as ctl, queue_sim as qs
+    from repro_torch.train import policy as pol
+
+    g = torch.Generator().manual_seed(seed)
+    cfg = qs.QueueEnvConfig(n_owners=n_owners, n_epochs=30,
+                            steps_per_epoch=32, mem_budget_frac=mem)
+    code = torch.as_tensor(codes).repeat_interleave(len(windows))
+    window = torch.as_tensor(windows, dtype=torch.float32).repeat(len(codes))
+    n = code.shape[0]
+    draws = qs.Draws(g)
+    sc = qs.sample_scenario(draws.scenario(cfg, n), draws.profile(cfg, n),
+                            code, cfg.total_steps, n_owners)
+    alloc = torch.randint(0, n_owners + 1, (n,), generator=g)
+    weights = ctl.allocation_weights_t(alloc, n_owners)
+    step_pos = torch.floor(torch.rand(n, generator=g) * cfg.total_steps)
+    eff = window.clone()
+    eff[3::5] = torch.floor(window[3::5] / 2)
+    eff[4::7] = 0.0
+    carried = ((torch.rand((n, n_owners), generator=g) < 0.5).float(),
+               40 * torch.rand((n, n_owners), generator=g),
+               0.05 * torch.rand((n, n_owners), generator=g),
+               0.05 * torch.rand((n, n_owners), generator=g),
+               0.05 * torch.rand(n, generator=g))
+    uniforms = draws.window(cfg, n)
+    sc, window, weights, step_pos, eff, uniforms, carried = to_device(
+        (sc, window, weights, step_pos, eff, uniforms, carried), device)
+    params = pol.make_params_pool([theta] * n, device=device)
+    _, vol, fabric = qs.window_operands(cfg, params, window, weights,
+                                        *carried)
+    return (cfg, params, sc, vol, fabric, uniforms, window, eff, step_pos)
+
+
+def queue_kernel_vs_plain(torch, device, theta):
+    """The ``queue_window`` kernel against its plain version on the card,
+    on the same operands: every scenario code at every W, at P = 3 (the
+    path's), 1, 8 and 16 (the kernel's other register-array instances),
+    and P = 3 under ``mem_budget_frac`` 0.3; every output within
+    ``TOL_POLICY``; a relaunch bit-identical. Returns the largest
+    |diff|."""
+    import dataclasses
+
+    from repro_torch.core import cost_model as cm, queue_sim as qs
+    from repro_torch.kernels.queue_window import ops as qw
+
+    codes = sorted(qs.SCENARIO_CODES.values())
+    worst = 0.0
+    for p, mem in ((3, 0.0), (3, 0.3), (1, 0.0), (8, 0.0), (16, 0.0)):
+        args = queue_window_operands(torch, device, theta, p, codes,
+                                     cm.WINDOW_CHOICES, mem=mem)
+        acc_k, fab_k = qw.queue_window(*args)
+        acc_k2, fab_k2 = qw.queue_window(*args)
+        acc_p, fab_p = qw.queue_window_plain(*args)
+        got = {**acc_k, **dataclasses.asdict(fab_k)}
+        again = {**acc_k2, **dataclasses.asdict(fab_k2)}
+        want = {**acc_p, **dataclasses.asdict(fab_p)}
+        for k, v in want.items():
+            err = float((got[k] - v).abs().max())
+            worst = max(worst, err)
+            require(torch.allclose(got[k], v, **TOL_POLICY),
+                    f"queue_window P={p} mem {mem}: {k} max |diff| "
+                    f"{err:.3e} against the plain version")
+            require(torch.equal(got[k], again[k]),
+                    f"queue_window P={p}: {k} differs between launches")
+        require(torch.equal(acc_k["n"], args[7]),
+                f"queue_window P={p}: live steps != eff_window")
+        log(f"queue_window P={p} mem {mem}: {len(codes)} codes x "
+            f"{len(cm.WINDOW_CHOICES)} windows ({args[6].shape[0]} envs, "
+            f"{int(args[7].sum())} live steps) within rtol "
+            f"{TOL_POLICY['rtol']}, atol {TOL_POLICY['atol']} of the plain "
+            f"version, relaunch identical")
+    log(f"queue_window against plain: max |diff| {worst:.3e}")
+    return worst
+
+
+def phase_queue(torch, device, smi, pools):
+    """The queue env on the card: card against CPU, the kernel against
+    its plain version, then ``get_or_train_policy(env="queue")`` on the
+    analytic pool (``POLICY_ENVS`` envs, ``POLICY_ITERS`` iterations, the
+    default scenario pool), its kernel launches counted, and held-out
+    whole episodes under the paper schedule and bursty Markov load.
+    Returns the queue-trained qnet and what the timing row needs."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.core import controller as ctl, cost_model as cm, dqn
+    from repro_torch.core import queue_sim as qs
+    from repro_torch.kernels.queue_window import ops as qw
+    from repro_torch.train import policy as pol
+
+    pool = pools["analytic"]
+    theta = cm.CostModelParams(**{
+        f.name: float(getattr(pool, f.name)[0])
+        for f in dataclasses.fields(pool)})
+    queue_card_vs_cpu(torch, device, theta)
+    err = queue_kernel_vs_plain(torch, device, theta)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cached, pol.ARTIFACT_DIR = pol.ARTIFACT_DIR, tmp
+        try:
+            torch.cuda.synchronize()
+            qw.queue_window.launches = 0
+            t0 = time.perf_counter()
+            _, qnet = pol.get_or_train_policy(
+                pool, name="smoke", iterations=POLICY_ITERS, force=True,
+                env="queue", device=str(device), n_envs=POLICY_ENVS,
+                seed=SEED)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = qw.queue_window.launches
+            with open(pathlib.Path(tmp) / "smoke_queue.json") as f:
+                meta = json.load(f)
+        finally:
+            pol.ARTIFACT_DIR = cached
+    log(f"policy queue: {POLICY_ITERS} iterations x {POLICY_ENVS} envs on "
+        f"the card in {wall:.2f} s ({POLICY_ITERS / wall:.1f} iterations/s, "
+        f"artifact write included), {meta['episodes']} episodes, "
+        f"{meta['grad_steps']} gradient steps, mean reward of the last 200 "
+        f"iterations {meta['final_reward']:.4f}; queue_window launches "
+        f"{launches} ({launches / POLICY_ITERS:.4f} an iteration); {smi}")
+    require(meta["grad_steps"] > 0 and meta["episodes"] > 0,
+            "policy queue: no gradient step or episode")
+    # a probe window at the first reset, then a step and a reset's probe
+    # window every iteration
+    require(launches == 2 * POLICY_ITERS + 1,
+            f"policy queue: {launches} queue_window launches, not 2 an "
+            f"iteration + 1")
+
+    fresh = dqn.init_qnet(torch.Generator().manual_seed(99), 23, 32,
+                          device=device)
+    policies = {"trained": dqn.greedy_policy(qnet),
+                "fresh": dqn.greedy_policy(fresh)}
+    for w in (2, 16):
+        a = ctl.encode_action(cm.WINDOW_CHOICES.index(w), 0, 3)
+        policies[f"static W={w}"] = (
+            lambda obs, a=a: torch.full((obs.shape[0],), a,
+                                        device=obs.device))
+    returns = {name: [] for name in policies}
+    for code in ("paper_schedule", "bursty_markov"):
+        cfg = qs.QueueEnvConfig(steps_per_epoch=32, n_epochs=30,
+                                scenario_pool=(qs.SCENARIO_CODES[code],))
+        for name, fn in policies.items():
+            energy, ret = held_out(torch, device, "queue", pool, fn, cfg=cfg)
+            returns[name].append(ret)
+            log(f"  held-out queue {code} {name}: energy (J) "
+                f"{_fmt(energy)}, discounted return {_fmt(ret)}")
+    mean = {k: float(torch.cat(v).mean()) for k, v in returns.items()}
+    log(f"policy queue: held-out mean discounted return {mean}; {smi}")
+    require(mean["trained"] > mean["fresh"],
+            "policy queue: the trained policy's discounted return does not "
+            "beat the fresh qnet's on the held-out episodes")
+    return qnet, {"launches": launches, "iterations": POLICY_ITERS,
+                  "max_abs_err": err, "theta": theta}
+
+
+def queue_window_timing_row(torch, device, info):
+    """The kernel at 32 envs and W = 128 (the training's batch at its
+    longest window), by CUDA events as the other rows; its plain version
+    on the same operands; the bound from the bytes the operands and
+    outputs weigh and the operations of this batch's live steps."""
+    from repro_torch.core import queue_sim as qs
+    from repro_torch.kernels.queue_window import ops as qw
+
+    timer = Timer(torch, device)
+    codes = sorted(qs.default_training_pool())
+    codes = (codes * 3)[:POLICY_ENVS]
+    args = queue_window_operands(torch, device, info["theta"], 3, codes,
+                                 (128,), seed=SEED + 1)
+    cfg, params, sc, vol, fabric, uniforms, window, eff, pos = args
+    eff = window.clone()                      # every step live
+    args = args[:7] + (eff, pos)
+    scal, ints, own, state = qw.pack(cfg, params, sc, vol, fabric, window,
+                                     eff, pos)
+    n, p = fabric.backlog.shape
+    acc = torch.empty((n, len(qw.ACC)), device=device)
+    acc_own = torch.empty((n, len(qw.ACC_OWNERS), p), device=device)
+    state_out = torch.empty_like(state)
+    before = qw.queue_window.launches
+    ms = timer.ms(lambda: qw.launch(scal, ints, own, state, uniforms, acc,
+                                    acc_own, state_out, cfg.n_epochs,
+                                    cfg.steps_per_epoch))
+    qw.queue_window.launches = before
+    plain = timer.ms(lambda: qw.queue_window_plain(*args), repeats=5)
+    n_bytes = sum(t.numel() * t.element_size() for t in (
+        scal, ints, own, state, uniforms, acc, acc_own, state_out))
+    # per live step: ~60 operations an env and ~75 an owner (the two
+    # processes, utilization, delay, phi, both step costs, the drain, the
+    # accumulators), counted from the kernel's source
+    live = float(eff.clamp(max=qw.MAX_WINDOW).sum())
+    n_flops = live * (60 + 75 * p)
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    log(f"time queue_window n={n} P={p} W=128: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {n_bytes / 1e3:.1f} "
+        f"KB, {n_flops:.4g} operations), kernel / bound "
+        f"{ms / b_ms:.0f}x; {smi_line()}")
+    return {
+        "name": "queue_window", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/queue_window.cu",
+        "replaces": "src/repro/core/queue_sim.py:654 (lax.scan of substep; "
+                    "no pl.pallas_call)",
+        "launches": info["launches"], "max_abs_err": info["max_abs_err"],
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "launches_per_iteration": info["launches"] / info["iterations"],
+    }
 
 
 # ------------------------------------------------------------- phase 3
@@ -1681,11 +2049,12 @@ def epoch_joules(res, epoch: int) -> float:
                   - prev["gpu_j"] - prev["cpu_j"]) * res.meter.n_nodes)
 
 
-def phase_congestion(torch, device, smi, qnet):
+def phase_congestion(torch, device, smi, qnets):
     """Each method under the paper schedule and a time-driven scenario,
     measured lane, device payloads, 5 epochs of 4 steps (1 of warmup, W =
     2 until a controller decides; the schedule congests epoch 3); one
-    line a run. greendygnn runs ``qnet``, the table-trained policy."""
+    line a run. greendygnn runs once under each policy of ``qnets`` (the
+    table-trained and the queue-trained one)."""
     from repro_torch.core import controller as ctl, dqn
     from repro_torch.store import MemoryBudget
     from repro_torch.train import gnn_trainer as gt
@@ -1700,14 +2069,17 @@ def phase_congestion(torch, device, smi, qnet):
     bundle = gt.build_trace(gt.RunConfig(**CONGESTION, device=str(device)))
     ctl.AdaptiveController.decide = counted_decide
     try:
+        runs = [(m, None) for m in ("dgl", "static_w", "heuristic")] + [
+            ("greendygnn", name) for name in qnets]
         for scenario in ("paper_schedule", "bursty_markov"):
-            for method in ("dgl", "static_w", "heuristic", "greendygnn"):
+            for method, policy in runs:
                 cfg = gt.RunConfig(
                     **dict(CONGESTION, method=method, scenario=scenario),
-                    q_fn=dqn.q_fn_of(qnet) if method == "greendygnn"
-                    else None,
+                    q_fn=dqn.q_fn_of(qnets[policy]) if policy else None,
                     mem_budget=MemoryBudget(device_payloads=True),
                     device=str(device))
+                if policy:
+                    method = f"{method} ({policy}-trained)"
                 decisions.clear()
                 res, counts, wall, plans = counted_run(torch, cfg, bundle)
                 joules = [round(epoch_joules(res, e), 4)
@@ -1725,7 +2097,7 @@ def phase_congestion(torch, device, smi, qnet):
                         f"congestion: the run used {res.scenario}")
                 require_path_counts(f"congestion {scenario} {method}", res,
                                     counts, plans)
-                if method in ("heuristic", "greendygnn"):
+                if method not in ("dgl", "static_w"):
                     require(len(decisions) >= 1,
                             f"congestion {scenario} {method}: the "
                             "controller never decided")
@@ -2752,6 +3124,8 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_card_and_build(torch)
     qnet, policy_pools = phase_policy(torch, device, smi)
+    queue_qnet, queue_info = phase_queue(torch, device, smi, policy_pools)
+    policy_pools["queue"] = policy_pools["analytic"]
     ops = main_path_operands(torch, device)
     ops["errs"] = phase_kernels_vs_plain(torch, device, ops)
     wide_err = phase_spmm_widths(torch, device, ops)
@@ -2759,7 +3133,8 @@ def main() -> int:
     flash_err, flash_operands = phase_flash_vs_plain(torch, device)
     counts, step_ms, n_steps = phase_main_path(torch, device, qnet)
     full_counts = phase_full_graph(torch, device)
-    phase_congestion(torch, device, smi, qnet)
+    phase_congestion(torch, device, smi, {"table": qnet,
+                                          "queue": queue_qnet})
     phase_budgeted_tier(torch, device)
     phase_card_vs_cpu(torch, device)
     phase_card_vs_cpu_fabric(torch, device)
@@ -2781,6 +3156,7 @@ def main() -> int:
                                      wide_err))
     rows.append(flash_timing_row(torch, device, flash_operands,
                                  lm_counts["flash_attention"], flash_err))
+    rows.append(queue_window_timing_row(torch, device, queue_info))
     phase_policy_profile(torch, device, policy_pools)
     log(f"median measured step: {step_ms:.4f} ms; total "
         f"{time.perf_counter() - t_start:.1f} s")

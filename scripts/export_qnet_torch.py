@@ -12,9 +12,13 @@ and writes the qnet to the port's artifact directory
     python scripts/export_qnet_torch.py --device cpu --iterations 200
 
 ``--env`` selects the training environment: ``table`` (trace-calibrated
-tables) or ``analytic`` (parametric archetypes); naming one exports
-``<name>_<env>.npz``. Omitting it trains on table dynamics and writes the
-unsuffixed ``<name>.npz``. The queue and cluster envs are not ported.
+tables), ``analytic`` (parametric archetypes) or ``queue`` (the
+scenario-conditioned fluid fabric twin, on the analytic calibration);
+naming one exports ``<name>_<env>.npz``. Omitting it trains on table
+dynamics and writes the unsuffixed ``<name>.npz``. The cluster env is not
+ported.
+
+    python scripts/export_qnet_torch.py --env queue --iterations 20000
 """
 import argparse
 import os
@@ -33,7 +37,8 @@ def main() -> None:
     ap.add_argument("--batch-sizes", nargs="+", type=int, default=[2000])
     ap.add_argument("--iterations", type=int, default=8_000)
     ap.add_argument("--n-epochs", type=int, default=6)
-    ap.add_argument("--env", default=None, choices=["table", "analytic"],
+    ap.add_argument("--env", default=None,
+                    choices=["table", "analytic", "queue"],
                     help="training environment; omit for the unsuffixed "
                          "table-dynamics artifact")
     ap.add_argument("--workers", type=int, default=4,
@@ -57,7 +62,8 @@ def main() -> None:
                 steps_per_epoch=32, n_parts=P, device=args.device,
             )
             bundle = gt.build_trace(cfg)
-            if args.env == "analytic":
+            # the queue env runs the analytic calibration (CostModelParams)
+            if args.env in ("analytic", "queue"):
                 thetas.append(pol.calibrate_from_bundle(bundle, cfg)[0])
             else:
                 thetas.append(pol.calibrate_table_from_bundle(bundle, cfg))

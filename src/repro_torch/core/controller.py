@@ -172,12 +172,13 @@ def decode_action_t(action: torch.Tensor, n_owners: int
 
 def build_state_t(sigma_hat, owner_hit_rates, global_hit_rate, t_step,
                   t_base, f_rebuild, f_miss, e_step, e_baseline,
-                  batches_remaining, prev_window, prev_weights
-                  ) -> torch.Tensor:
+                  batches_remaining, prev_window, prev_weights,
+                  headroom=None) -> torch.Tensor:
     """:func:`build_state` for n envs: the per-owner arguments are (n,
     P-1), the others (n,); returns (n, state_dim) float32. The window's
     one-hot sits at its first exact match in WINDOW_CHOICES (index 0 when
-    there is none, as the reference's argmax of an all-false mask)."""
+    there is none, as the reference's argmax of an all-false mask).
+    ``headroom`` (n,) appends the one trailing entry when given."""
     choices = window_choices(prev_window.device)
     w_idx = torch.argmax((choices == prev_window[:, None]).int(), dim=1)
     onehot_w = (torch.arange(N_WINDOWS, device=w_idx.device)
@@ -189,8 +190,29 @@ def build_state_t(sigma_hat, owner_hit_rates, global_hit_rate, t_step,
         e_step / e_baseline,
         batches_remaining,
     ], dim=1)
-    return torch.cat([sigma_hat, owner_hit_rates, global_hit_rate[:, None],
-                      ratios, onehot_w, prev_weights], dim=1).float()
+    parts = [sigma_hat, owner_hit_rates, global_hit_rate[:, None], ratios,
+             onehot_w, prev_weights]
+    if headroom is not None:
+        parts.append(headroom[:, None])
+    return torch.cat(parts, dim=1).float()
+
+
+def estimate_delta_ms_t(recent_fetch_ratio: torch.Tensor, params
+                        ) -> torch.Tensor:
+    """:func:`estimate_delta_ms` over ratios (n, P-1) with per-env
+    parameters (fields (n,)): (n, P-1) float32."""
+    ratio = recent_fetch_ratio
+    delta = (ratio - 1.0) * params.beta[:, None] / params.gamma_c[:, None]
+    delta = torch.minimum(torch.clamp(delta, min=0.0),
+                          params.delta_max_ms[:, None])
+    return torch.where(ratio <= CLEAN_RATIO_THRESHOLD, 0.0, delta)
+
+
+def sigma_from_fetch_ratio_t(recent_fetch_ratio: torch.Tensor, params
+                             ) -> torch.Tensor:
+    """:func:`sigma_from_fetch_ratio` over ratios (n, P-1): (n, P-1)."""
+    return cm.sigma_from_delta_t(
+        params, estimate_delta_ms_t(recent_fetch_ratio, params))
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,13 @@ event fabric evaluate per step (``paper_schedule_delta`` in float32,
 ``paper_schedule_delta_np`` and ``delta_at_np`` in float64), and the
 tensor forms the training simulators run, batched over a leading env axis
 (``CongestionProfile``, ``sample_profile``, ``clean_profile``,
-``delta_at``, ``paper_schedule_delta_t``, ``observation_noise``). The
-fabric-process twins wait for ``queue_sim``.
+``delta_at``, ``paper_schedule_delta_t``, ``observation_noise``), and the
+twins of the event fabric's background processes that the queue env
+(``core/queue_sim.py``) runs per training step (``diurnal_util``,
+``incast_util``, ``straggler_util``, ``markov_switch_prob``,
+``markov_onoff_update``, ``step_trace_update``). The two updates take unit
+uniforms rather than a generator, so the queue env's draws pass one seam;
+:func:`uniform_from_unit` maps a unit uniform onto a range as JAX does.
 
 Six archetypes x three severity levels with random onset/duration and
 +-3% measurement noise: 0 none, 1 single-link constant, 2 single-link
@@ -238,3 +243,91 @@ def observation_noise(generator: torch.Generator, shape: tuple
     """+-3% multiplicative measurement noise (energy and fetch times)."""
     u = torch.rand(shape, generator=generator, device=generator.device)
     return 1.0 + OBS_NOISE_FRAC * (2.0 * u - 1.0)
+
+
+def uniform_from_unit(u: torch.Tensor, lo, hi) -> torch.Tensor:
+    """A unit uniform ``u`` mapped onto [lo, hi) as ``jax.random.uniform``
+    maps its own: ``max(lo, u * (hi - lo) + lo)`` in float32, the bounds
+    rounded to float32 first. ``lo`` and ``hi`` are numbers or float32
+    tensors broadcasting against ``u``; numbers never become tensors, so
+    nothing is copied to the device."""
+    if isinstance(lo, torch.Tensor) or isinstance(hi, torch.Tensor):
+        lo_t = lo if isinstance(lo, torch.Tensor) else torch.full_like(
+            u, float(np.float32(lo)))
+        span = hi - lo_t
+        return torch.maximum(lo_t, u * span + lo_t)
+    lo32 = np.float32(lo)
+    span = float(np.float32(hi) - lo32)
+    return torch.clamp(u * span + float(lo32), min=float(lo32))
+
+
+# ---------------------------------------------------------------------------
+# Twins of the event fabric's scenario processes (``net/background.py``),
+# step-indexed, batched over a leading env axis: what the queue env's
+# windows run per training step. Time is measured in training steps (the
+# fabric uses virtual seconds); the continuous-time exponential sojourns of
+# ``MarkovOnOffLoad`` become a per-step two-state chain with matching mean
+# sojourn lengths.
+# ---------------------------------------------------------------------------
+
+def diurnal_util(step: torch.Tensor, period: torch.Tensor,
+                 amplitude: torch.Tensor, phase: torch.Tensor
+                 ) -> torch.Tensor:
+    """Twin of ``DiurnalLoad``: per-link sinusoidal load. ``step``,
+    ``period`` and ``amplitude`` are (n,), ``phase`` (n, P): (n, P)."""
+    s = torch.sin((2.0 * math.pi * step / torch.clamp(period, min=1.0))
+                  [:, None] + phase)
+    return (amplitude * 0.5)[:, None] * (1.0 + s)
+
+
+def incast_util(step: torch.Tensor, period: torch.Tensor,
+                burst_frac: torch.Tensor, util: torch.Tensor,
+                offset: torch.Tensor, n_links: int) -> torch.Tensor:
+    """Twin of ``IncastLoad``: synchronized periodic bursts saturating
+    every link at once for ``burst_frac`` of each period. The arguments
+    are (n,); returns (n, n_links). The phase is the floored remainder
+    (the sign of the period), as ``jnp.mod``'s."""
+    p = torch.clamp(period, min=1.0)
+    t = torch.remainder(step + offset, p)
+    on = (t < burst_frac * p).float()
+    return (util * on)[:, None].expand(-1, n_links).contiguous()
+
+
+def straggler_util(victim: torch.Tensor, util: torch.Tensor, n_links: int
+                   ) -> torch.Tensor:
+    """Twin of ``StragglerLoad``: one overloaded link, ``victim`` (n,)
+    integer: (n, n_links)."""
+    onehot = (torch.arange(n_links, device=victim.device)
+              == victim[:, None]).float()
+    return util[:, None] * onehot
+
+
+def markov_switch_prob(mean_sojourn_steps: torch.Tensor) -> torch.Tensor:
+    """Per-step switch probability of the discretized exponential sojourn,
+    1 - exp(-1 / mean), so the expected sojourn length matches
+    ``MarkovOnOffLoad``'s continuous-time mean."""
+    return 1.0 - torch.exp(-1.0 / torch.clamp(mean_sojourn_steps,
+                                               min=1e-6))
+
+
+def markov_onoff_update(u: torch.Tensor, state: torch.Tensor,
+                        p_on: torch.Tensor, p_off: torch.Tensor
+                        ) -> torch.Tensor:
+    """Twin of ``MarkovOnOffLoad``: advance each per-link two-state chain
+    (``state`` (n, P) in {0, 1}) one step on the unit uniforms ``u`` (n,
+    P); ``p_on`` and ``p_off`` are (n,)."""
+    switch = torch.where(state > 0.5, u < p_off[:, None], u < p_on[:, None])
+    return torch.where(switch, 1.0 - state, state)
+
+
+def step_trace_update(u_flip: torch.Tensor, u_val: torch.Tensor,
+                      level: torch.Tensor, p_switch: torch.Tensor,
+                      level_max: torch.Tensor) -> torch.Tensor:
+    """Twin of ``TraceDelta``'s step-function family: per-link
+    piecewise-constant delta [ms] (``level`` (n, P)) whose level resamples
+    with probability ``p_switch`` (n,) per step, to a fresh level uniform
+    on [0, ``level_max``) (n,); ``u_flip`` and ``u_val`` are the unit
+    uniforms of the resample and of the level (n, P)."""
+    resample = u_flip < p_switch[:, None]
+    fresh = uniform_from_unit(u_val, 0.0, level_max[:, None])
+    return torch.where(resample, fresh, level)

@@ -176,19 +176,25 @@ def train_dqn(cfg: DQNConfig, env_cfg, params_pool, env=sim) -> dict:
     ``params_pool`` is a parameter set whose fields are stacked along a
     leading axis, one entry per calibrated dataset x batch size (each
     reset picks one uniformly), on ``cfg.device``. ``env`` is the
-    analytic simulator (``core.simulator``) or the trace-calibrated
-    tabular one (``core.table_sim``). Returns the online qnet, the
+    analytic simulator (``core.simulator``), the trace-calibrated
+    tabular one (``core.table_sim``) or the queue env
+    (``core.queue_sim``); its draws come from its own ``Draws`` where it
+    has one, and ``env_cfg.observe_headroom`` adds the state's trailing
+    headroom entry. Returns the online qnet, the
     per-iteration metrics (device tensors of length ``iterations``: loss,
     mean reward, epsilon, episodes so far, gradient steps so far, whether
     the target synced), the episode count (a device tensor) and the
     gradient-step count."""
     dev = resolve(cfg.device)
     n_pool = params_pool.t_base.shape[0]
-    state_dim = ctl.state_dim(cfg.n_owners)
+    state_dim = ctl.state_dim(
+        cfg.n_owners,
+        headroom=getattr(env_cfg, "observe_headroom", False),
+    )
     n_act = ctl.n_actions(cfg.n_owners)
 
     g = torch.Generator(device=dev).manual_seed(cfg.seed)
-    draws = sim.Draws(g)
+    draws = getattr(env, "Draws", sim.Draws)(g)
     online = init_qnet(torch.Generator().manual_seed(cfg.seed), state_dim,
                        n_act, device=dev)
     target = tree_map(torch.clone, online)

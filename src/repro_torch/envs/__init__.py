@@ -15,8 +15,9 @@ uniformly:
                                               legacy archetype schedule
   table         ``core.table_sim``            trace-calibrated hit/stall
                                               tables, parametric sigma
-  queue         not ported (ROADMAP queue 1   single-requester fluid
-                item 2)                       fabric twin
+  queue         ``core.queue_sim``            single-requester fluid
+                                              fabric twin, scenario-
+                                              conditioned
   cluster       not ported (ROADMAP queue 1   P-requester fluid twin
                 item 4)
   ============ ============================= ===========================
@@ -27,9 +28,6 @@ from __future__ import annotations
 ENVS = ("analytic", "table", "queue", "cluster")
 
 _NOT_PORTED = {
-    "queue": "the queue env (core/queue_sim.py and the fabric-process "
-             "twins of domain_rand.py) is not ported yet: ROADMAP queue 1 "
-             "item 2",
     "cluster": "the cluster env (envs/cluster_sim.py) is not ported yet: "
                "ROADMAP queue 1 item 4 (the cluster)",
 }
@@ -39,7 +37,8 @@ def resolve_env(env, params_pool=None):
     """Resolve an env spec (name, module, or None) to an env module.
 
     ``None`` infers analytic-vs-table from the pool's parameter type.
-    ``"queue"`` and ``"cluster"`` raise ``NotImplementedError``."""
+    ``"cluster"`` raises ``NotImplementedError``."""
+    from repro_torch.core import queue_sim
     from repro_torch.core import simulator as sim
     from repro_torch.core import table_sim
 
@@ -52,7 +51,8 @@ def resolve_env(env, params_pool=None):
         if env in _NOT_PORTED:
             raise NotImplementedError(_NOT_PORTED[env])
         try:
-            return {"analytic": sim, "table": table_sim}[env]
+            return {"analytic": sim, "table": table_sim,
+                    "queue": queue_sim}[env]
         except KeyError:
             raise ValueError(
                 f"unknown training env {env!r}; expected one of {ENVS}"

@@ -43,7 +43,14 @@ ENTRIES = {
     # stream
     "flash_attention_fwd": ("flash_attention",
                             (_P,) * 4 + (_I,) * 7 + (_L,) * 12 + (_I, _P)),
+    # scal, ints, own, state, unif, acc, acc_own, state_out, n, P,
+    # n_epochs, steps_per_epoch, stream
+    "queue_window_f32": ("queue_window", (_P,) * 8 + (_I,) * 4 + (_P,)),
 }
+# Flags a source takes beyond NVCC_FLAGS: the queue env's window scan keeps
+# every product and sum apart (no FMA contraction), as its plain version's
+# eager operations round them.
+EXTRA_FLAGS = {"queue_window": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _launch_lock = threading.Lock()
@@ -64,9 +71,13 @@ def _nvcc() -> str:
     )
 
 
+def _flags(stem: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(stem, ())
+
+
 def _lib_path(stem: str) -> pathlib.Path:
     src = (CSRC / f"{stem}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src + " ".join(_flags(stem)).encode()).hexdigest()[:16]
     return BUILD_DIR / h / f"lib{stem}.so"
 
 
@@ -88,7 +99,7 @@ def build_all() -> dict[str, float]:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
         os.close(fd)
         procs[stem] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{stem}.cu")],
+            [nvcc, *_flags(stem), "-o", tmp, str(CSRC / f"{stem}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     secs, failed = {}, []

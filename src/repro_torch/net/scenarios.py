@@ -116,60 +116,29 @@ def _links(n_owners: int, n_parts: int | None) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Training twins: the queue-aware training env (the reference's
-# core/queue_sim.py, ROADMAP queue 1 DQN training) samples episodes from the
-# SAME archetype names this registry evaluates. These helpers export
-# registry specs as its scenario codes (``SCENARIO_CODES``, the same table)
-# so a training pool can be declared in eval vocabulary.
+# Training twins: the queue-aware training env (core/queue_sim.py) samples
+# episodes from the SAME archetype names this registry evaluates. These
+# helpers export registry specs as its scenario codes (the package's one
+# table, ``queue_sim.SCENARIO_CODES``) so a training pool can be declared in
+# eval vocabulary.
 # ---------------------------------------------------------------------------
 
-SCENARIO_CODES = {
-    "clean": 0,
-    "paper_schedule": 1,
-    "fixed": 2,
-    "bursty_markov": 3,
-    "diurnal": 4,
-    "incast": 5,
-    "straggler": 6,
-    "trace": 7,
-    "arch_none": 8,
-    "arch_slow": 9,
-    "arch_switch": 10,
-    "arch_two_sym": 11,
-    "arch_two_asym": 12,
-    "arch_osc": 13,
-}
-
-# the full scenario-conditioned domain-randomization pool (every registry
-# archetype but arch_none, uniformly sampled per episode)
-DEFAULT_TRAINING_POOL = (
-    "clean", "paper_schedule", "fixed", "bursty_markov", "diurnal",
-    "incast", "straggler", "trace",
-    "arch_slow", "arch_switch", "arch_two_sym", "arch_two_asym",
-    "arch_osc",
-)
-
-
 def queue_training_code(spec: str) -> int:
-    """Training code for one registry spec (``fixed:10`` and
+    """Queue-sim training code for one registry spec (``fixed:10`` and
     ``trace:<path>`` map to their parametric training families)."""
-    name = spec.split(":", 1)[0]
-    if name in ("closed_form",):
-        name = "clean"
-    if name not in SCENARIO_CODES:
-        raise KeyError(
-            f"no queue-sim twin for scenario {spec!r}; "
-            f"known: {', '.join(sorted(SCENARIO_CODES))}"
-        )
-    return SCENARIO_CODES[name]
+    from repro_torch.core.queue_sim import code_for
+
+    return code_for(spec)
 
 
 def queue_training_pool(specs=None) -> tuple[int, ...]:
-    """Training-code pool for a list of registry specs (default: the full
-    scenario-conditioned domain-randomization pool)."""
+    """Queue-sim scenario-code pool for a list of registry specs (default:
+    the full scenario-conditioned domain-randomization pool)."""
+    from repro_torch.core import queue_sim
+
     if specs is None:
-        specs = DEFAULT_TRAINING_POOL
-    return tuple(queue_training_code(s) for s in specs)
+        return queue_sim.default_training_pool()
+    return tuple(queue_sim.code_for(s) for s in specs)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """End-to-end policy pipeline: calibrate -> train Double-DQN -> deploy.
 
-Port of ``repro/train/policy.py`` for the analytic and table envs: the
+Port of ``repro/train/policy.py`` for the analytic, table and queue envs:
+the
 paper's three phases (Section IV), Algorithm-1 calibration against the
 port's trace-driven trainer, simulator training with domain
 randomization (``core/dqn.py``, on the card by default), and a deployable
@@ -26,6 +27,7 @@ from repro_torch import envs as envs_lib
 from repro_torch.core import calibration as cal
 from repro_torch.core import cost_model as cm
 from repro_torch.core import dqn as dqn_lib
+from repro_torch.core import queue_sim
 from repro_torch.core import simulator as sim
 from repro_torch.core import table_sim
 from repro_torch.device import resolve
@@ -136,10 +138,10 @@ def make_params_pool(thetas: list, device: str | torch.device = "cuda"):
 
 def resolve_env(env, params_pool=None):
     """Resolve an env spec (name, module, or None) to an env module:
-    ``"analytic"`` (core.simulator), ``"table"`` (core.table_sim); None
-    infers from the pool's parameter type; ``"queue"`` and ``"cluster"``
-    raise ``NotImplementedError`` (see :func:`repro_torch.envs.resolve_env`).
-    """
+    ``"analytic"`` (core.simulator), ``"table"`` (core.table_sim),
+    ``"queue"`` (core.queue_sim); None infers from the pool's parameter
+    type; ``"cluster"`` raises ``NotImplementedError`` (see
+    :func:`repro_torch.envs.resolve_env`)."""
     return envs_lib.resolve_env(env, params_pool)
 
 
@@ -154,18 +156,48 @@ def train_policy(
                                  # normalized to [0, 1], so deployment may
                                  # use a different epoch length
     n_epochs: int = 30,
+    scenario_pool=None,          # queue env: registry specs or codes
     n_owners: int | None = None,  # remote owners per worker (n_parts - 1,
                                  # default 3); sizes the obs/action spaces
+    n_workers: int | None = None,  # cluster env: cluster size P
+    cluster_kwargs: dict | None = None,  # cluster env: ClusterEnvConfig
+                                 # fields
     device: str = "cuda",
 ) -> dict:
-    """Train a Double-DQN policy in the analytic or the table env on
-    ``device`` (the pool must live there)."""
+    """Train a Double-DQN policy in the analytic, table or queue env on
+    ``device`` (the pool must live there). It refuses what the reference
+    refuses: ``scenario_pool`` outside the queue env, an empty pool,
+    ``n_workers`` outside the cluster env; and ``cluster_kwargs``, until
+    the cluster env is ported (ROADMAP queue 1 item 4)."""
     env = resolve_env(env, params_pool)
+    if scenario_pool is not None and env is not queue_sim:
+        raise ValueError(
+            "scenario_pool only applies to the queue/cluster envs; the "
+            "analytic/table envs draw from the legacy archetype schedule"
+        )
+    if n_workers is not None:
+        raise ValueError("n_workers only applies to the cluster env")
+    if scenario_pool is not None and not scenario_pool:
+        raise ValueError("scenario_pool is empty; pass None for the "
+                         "default training pool")
+    if cluster_kwargs is not None:
+        raise NotImplementedError(
+            "cluster_kwargs configures the cluster env, which is not "
+            "ported yet: ROADMAP queue 1 item 4")
     n_owners = 3 if n_owners is None else n_owners
-    env_cfg = sim.EnvConfig(
-        n_owners=n_owners, schedule=0, steps_per_epoch=steps_per_epoch,
-        n_epochs=n_epochs,
-    )
+    if env is queue_sim:
+        pool = queue_sim.default_training_pool() if scenario_pool is None \
+            else tuple(queue_sim.code_for(s) if isinstance(s, str)
+                       else int(s) for s in scenario_pool)
+        env_cfg = queue_sim.QueueEnvConfig(
+            n_owners=n_owners, steps_per_epoch=steps_per_epoch,
+            n_epochs=n_epochs, scenario_pool=pool,
+        )
+    else:
+        env_cfg = sim.EnvConfig(
+            n_owners=n_owners, schedule=0, steps_per_epoch=steps_per_epoch,
+            n_epochs=n_epochs,
+        )
     # warmup scales down with tiny budgets so gradient steps always run:
     # a fixed 2000 would exceed iterations * n_envs inserted transitions
     # and silently return an untrained network

@@ -24,10 +24,12 @@ from repro_torch import envs as penvs
 from repro_torch.core import calibration as pcal
 from repro_torch.core import cost_model as pcm
 from repro_torch.core import dqn as pdqn
+from repro_torch.core import queue_sim as pqs
 from repro_torch.core import simulator as psim
 from repro_torch.core import table_sim as ptab
 from repro_torch.train import gnn_trainer as pgt
 from repro_torch.train import policy as ppolicy
+from _jax_release import release_jax_executables  # noqa: F401
 
 SMALL = dict(method="static_w", batch_size=600, n_epochs=2,
              steps_per_epoch=4, seed=0)
@@ -183,14 +185,13 @@ def test_resolve_env_names_and_refusals():
                                           "rebuild_rows", "rebuild_active",
                                           "hit")})
     assert ppolicy.resolve_env(None, tables) is ptab
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        ppolicy.resolve_env("queue")
+    assert ppolicy.resolve_env("queue") is pqs
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         ppolicy.resolve_env("cluster")
     with pytest.raises(ValueError, match="unknown training env"):
         ppolicy.resolve_env("nope")
     with pytest.raises(NotImplementedError):
-        ppolicy.train_policy(None, env="queue", device="cpu")
+        ppolicy.train_policy(None, env="cluster", device="cpu")
 
 
 def test_artifacts_cache_and_retrain_on_corrupt(tmp_path, monkeypatch):

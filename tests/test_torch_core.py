@@ -32,6 +32,7 @@ from repro_torch.core.energy import EnergyMeter, StepSample
 from repro_torch.optim import optimizers as poptim
 from repro_torch.train import compute as pcompute
 from repro_torch.train import gnn_trainer as pgt
+from _jax_release import release_jax_executables  # noqa: F401
 
 SMALL = dict(method="static_w", batch_size=600, n_epochs=2,
              steps_per_epoch=4, seed=0)

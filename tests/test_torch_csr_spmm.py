@@ -34,6 +34,7 @@ from repro_torch.kernels.segment_mm.ops import (
     csr_plan,
 )
 from test_torch_kernels import SPMM_CASES, TOL, _graph, _pad_rows
+from _jax_release import release_jax_executables  # noqa: F401
 
 
 # widths the kernel covers: narrow, ragged, one slab, just past it, several

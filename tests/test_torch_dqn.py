@@ -29,6 +29,7 @@ from repro_torch.core import dqn as pdqn
 from repro_torch.core import simulator as psim
 from repro_torch.core import table_sim as ptab
 from repro_torch.train import policy as ppol
+from _jax_release import release_jax_executables  # noqa: F401
 
 
 def _np_tree(tree):
@@ -230,6 +231,26 @@ def test_training_is_bitwise_reproducible(env):
     assert not torch.equal(r1["qnet"]["l3"]["w"],
                            pdqn.init_qnet(torch.Generator().manual_seed(3),
                                           23, 32)["l3"]["w"])
+
+
+@pytest.mark.parametrize("headroom", [False, True])
+def test_state_size_follows_observe_headroom(headroom):
+    """As the reference's ``train_dqn``: the env config's
+    ``observe_headroom`` adds the state's trailing headroom entry, in the
+    replay and the qnet's input."""
+    from repro_torch.core import queue_sim as pqs
+
+    env_cfg = pqs.QueueEnvConfig(n_epochs=2, steps_per_epoch=16,
+                                 mem_budget_frac=0.3,
+                                 observe_headroom=headroom)
+    cfg = pdqn.DQNConfig(n_envs=2, iterations=3, min_replay=4,
+                         eps_decay_iters=2, seed=0, device="cpu")
+    res = pdqn.train_dqn(cfg, env_cfg, _pool(), env=pqs)
+    dim = 23 + int(headroom)
+    assert res["qnet"]["l1"]["w"].shape == (dim, pdqn.HIDDEN)
+    assert rdqn.init_qnet(jax.random.PRNGKey(0), dim, 32)["l1"]["w"].shape \
+        == res["qnet"]["l1"]["w"].shape
+    assert np.all(np.isfinite(res["metrics"]["loss"].numpy()))
 
 
 def test_train_dqn_refuses_a_missing_card(monkeypatch):

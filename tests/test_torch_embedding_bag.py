@@ -34,6 +34,7 @@ from repro_torch.store import device_tier as device_tier_mod
 from repro_torch.train import gnn_trainer as gt
 from repro_torch.train.compute import InputRows
 from repro_torch.train.worker import TrainerWorker
+from _jax_release import release_jax_executables  # noqa: F401
 
 
 def _bits(x):

@@ -31,6 +31,7 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.lm.attention import dense_attention
+from _jax_release import release_jax_executables  # noqa: F401
 
 F32 = dict(atol=2e-5, rtol=1e-4)
 BF16 = dict(atol=4e-2, rtol=2e-2)

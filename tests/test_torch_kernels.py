@@ -30,6 +30,7 @@ from repro_torch.kernels.segment_mm import (
 )
 from repro_torch.kernels.segment_mm.ref import spmm_ref
 from repro_torch.store import DevicePayloadTier
+from _jax_release import release_jax_executables  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

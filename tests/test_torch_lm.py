@@ -36,6 +36,7 @@ from repro_torch.launch import serve
 from repro_torch.models.lm import attention as pattn
 from repro_torch.models.lm import layers as players
 from repro_torch.models.lm import transformer as ptf
+from _jax_release import release_jax_executables  # noqa: F401
 
 F32 = dict(atol=2e-5, rtol=1e-4)
 BF16 = dict(atol=4e-2, rtol=2e-2)

@@ -25,6 +25,7 @@ from repro.train import gnn_trainer as rgt
 from repro_torch.core import dqn as pdqn
 from repro_torch.store import MemoryBudget
 from repro_torch.train import gnn_trainer as pgt
+from _jax_release import release_jax_executables  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,7 @@ from repro_torch.net import background as pbg
 from repro_torch.net import fabric as pfab
 from repro_torch.net import scenarios as psc
 from repro_torch.net.trace_replay import load_trace
+from _jax_release import release_jax_executables  # noqa: F401
 
 RP, PP = rcm.CostModelParams(), pcm.CostModelParams()
 SHAPE = dict(n_owners=3, seed=5, n_epochs=12, steps_per_epoch=16)

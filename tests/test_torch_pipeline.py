@@ -33,6 +33,7 @@ from repro_torch.pipeline.parity import check_parity, compare_runs
 from repro_torch.store import DevicePayloadTier, MemoryBudget
 from repro_torch.train import gnn_trainer as pgt
 from repro_torch.train.worker import TrainerWorker
+from _jax_release import release_jax_executables  # noqa: F401
 
 PIPELINE_THREADS = ("cache-builder", "prefetcher")
 

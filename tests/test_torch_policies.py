@@ -25,6 +25,7 @@ from repro_torch.core import controller as pctl
 from repro_torch.core import cost_model as pcm
 from repro_torch.core import dqn as pdqn
 from repro_torch.core import policies as ppol
+from _jax_release import release_jax_executables  # noqa: F401
 
 RP, PP = rcm.CostModelParams(), pcm.CostModelParams()
 N_OWNERS = 3

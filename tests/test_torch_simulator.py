@@ -34,6 +34,7 @@ from repro_torch.core import domain_rand as pdr
 from repro_torch.core import simulator as psim
 from repro_torch.core import table_sim as ptab
 from repro_torch.train import policy as ppol
+from _jax_release import release_jax_executables  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 ARCHETYPES = range(pdr.N_ARCHETYPES)

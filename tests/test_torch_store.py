@@ -20,6 +20,7 @@ from repro_torch.graph import datasets as pds
 from repro_torch.graph.partition import partition_graph
 from repro_torch.store import HostTier, MemoryBudget, TieredFeatureStore
 from repro_torch.train import worker as pworker
+from _jax_release import release_jax_executables  # noqa: F401
 
 
 def _host_state(t):

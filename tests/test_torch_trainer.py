@@ -18,6 +18,7 @@ from repro_torch.core import dqn as pdqn
 from repro_torch.store import MemoryBudget
 from repro_torch.train import gnn_trainer as pgt
 from repro_torch.train.worker import TrainerWorker
+from _jax_release import release_jax_executables  # noqa: F401
 
 # the reference measurement the port is held to: 3 epochs of 4 steps,
 # one warmup epoch, W=2 until the controller takes over
