@@ -35,7 +35,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
    in the reference's training test); the energy and the return of the
    trained policy, the fresh qnet, the untrained qnet training starts
    from and static W = 2 and 16 are logged. Two same-seed card runs must
-   give equal qnets. After the timing (phase 6), pairs of short
+   give equal qnets. After the timing (phase 7), pairs of short
    runs (unprofiled, then under ``torch.profiler``) give per-iteration
    host wall, device kernels, copies, device busy and idle share, and,
    with CUDA's sync debug mode on, the host syncs, which must not grow
@@ -151,7 +151,39 @@ Phases, each of which ends the run with a non-zero exit on failure:
    threaded under the paper schedule must rebuild and decide windows in
    the action set; ooc_community threaded under a host budget of 0.3 of its
    matrix must give the CPU's ``tier_counts``.
-5. Run the LM serving path at full width: ``tinyllama-1.1b`` (22 layers,
+5. The cluster phase (``phase_cluster``): P = 4 trainers, every partition
+   a rank, through ``repro_torch.train.cluster.run_cluster``, at the main
+   path's widths and batch (the reddit stand-in, batch 2000, fanouts (10,
+   25), device payloads, 3 epochs of 8 steps). Each run zeroes the counts
+   just before it and reads them just after; each rank's launches are
+   read around its steps (the gate runs one rank at a time): 3 CSR SpMM
+   launches a measured step and 2 in its parity check (the forward ones
+   on its ``trainer-worker-{rank}`` thread, the backward's on the thread
+   PyTorch's autograd engine keeps for the card), and one EmbeddingBag
+   launch a step with hits and one a rebuild that keeps rows, on its own
+   thread. Held: the reference's pinned P = 4 modeled run gives
+   ``report_digest`` ``41d1a2d4…`` on the card and on the CPU; a P = 4
+   modeled ``paper_schedule`` run with device payloads gives one digest
+   on both; measured static_w under ``clean`` and ``paper_schedule``:
+   every rank's hit and miss streams equal the CPU's and its losses
+   within rtol 1e-4 (``TOL_CLUSTER_LOSS``); measured greendygnn under the
+   table-trained policy: every rank's controller decides, in the action
+   set; modeled: partition 0's NIC at 0.25 of its rate raises the
+   fabric's queueing, a straggler at 2x t_base makes its peers wait at
+   the barrier and ``max_stale=1`` cuts the wait; int8 and top-k (0.05)
+   measured runs charge ``model_wire_bytes`` (int8 about a quarter of
+   the uncompressed bytes), and both schemes on one set of SAGE
+   gradients are bit-equal on the card and the CPU; a ``run_model=True``
+   modeled P = 1 run (batch 600, 2 epochs of 4 steps: at batch 2000 a
+   batch repeats a seed, which the reference's model step cannot take)
+   gives model losses within rtol 1e-4 of the CPU's. It
+   prints a line a rank (joules per epoch, wall, barrier wait, collective
+   time, queueing, launches), the cluster's ``totals_kj`` and host wall
+   per global step, the device busy and idle share of a profiled window
+   of 2 global steps, and ends with the kernels built from cold by the
+   ranks' own first launches (a fresh build directory, a threaded run of
+   2 steps): one build, under the build lock.
+6. Run the LM serving path at full width: ``tinyllama-1.1b`` (22 layers,
    d_model 2048, bf16, seeded random weights). Counts zeroed, then
    ``repro_torch.launch.serve.run`` (batch 4, prompt 8, generation 16;
    decode steps launch no flash kernel) and one ``prefill`` of B=2, S=4096
@@ -165,7 +197,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
    them), and a window of decode steps into device kernels per step,
    device busy time against the unprofiled host wall, and the host ops
    that take the most CPU time.
-6. Time each kernel, its plain version and the equivalent library call
+7. Time each kernel, its plain version and the equivalent library call
    with CUDA events (median of 25 launches, L2 flushed before each and
    each queued behind a spin kernel so the host's enqueue time is not
    counted), beside the least time the card could take, and print one
@@ -183,7 +215,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
    queue env's window kernel at 32 envs and W = 128 (every step live)
    against its plain version, with its launches in the queue training.
    TF32 is off throughout: float32 results are compared in full float32.
-7. The last line is ``{"ok": true, "device": {...}}``.
+8. The last line is ``{"ok": true, "device": {...}}``.
 
 Kernel builds land in ``build/kernels/`` (listed in ``.gitignore``).
 """
@@ -251,6 +283,22 @@ CONGESTION = dict(MAIN_PATH, n_epochs=5, warmup_epochs=1, steps_per_epoch=4,
 # (W = 7 too, so that windows straddle epochs)
 PIPELINE = dict(MAIN_PATH, method="static_w", static_window=4)
 PIPELINE_FEAT = 64                      # the reddit stand-in's features
+# the cluster phase: the main path's trainer (the reddit stand-in, batch
+# 2000, fanouts (10, 25), measured compute, device payloads, 3 epochs of 8
+# steps) at P = 4, so every partition trains; the reference's pinned P = 4
+# modeled run (tests/test_compute.py::_PIN_CFG) and its report digest
+CLUSTER = dict(MAIN_PATH, method="static_w")
+CLUSTER_P = 4
+CLUSTER_PIN = dict(method="static_w", dataset="reddit", batch_size=600,
+                   n_epochs=2, steps_per_epoch=8, scenario="clean", seed=0)
+CLUSTER_PIN_DIGEST = ("41d1a2d4d2a3e26dac2bfcd3618cab19"
+                      "fa12ffb53b1db759670fece305fbce28")
+CLUSTER_PROFILE_STEP = 4                # the profiled window's first step
+RUN_MODEL = dict(CLUSTER_PIN, steps_per_epoch=4, compute="modeled",
+                 run_model=True)
+# card against CPU: fp32 sums in another order (the SpMM, atomics in the
+# scatter path), compounded over the AdamW steps
+TOL_CLUSTER_LOSS = dict(rtol=1e-4, atol=0.0)
 BUDGETED = dict(method="static_w", dataset="ooc_community",
                 compute="measured", scenario="clean", batch_size=2000,
                 n_epochs=2, warmup_epochs=1, steps_per_epoch=4,
@@ -2759,6 +2807,545 @@ def spmm_wide_timing_row(torch, device, launches: int, err: float):
     }
 
 
+# ------------------------------------------------------ the cluster phase
+@contextlib.contextmanager
+def swaps_by_thread():
+    """Log every ``DoubleBufferedCache.swap`` with the thread that made
+    it: (thread name, plan). A rank's synchronous rebuilds swap on its own
+    ``trainer-worker-{rank}`` thread."""
+    import threading
+
+    from repro_torch.core.windowed_cache import DoubleBufferedCache
+
+    swap = DoubleBufferedCache.swap
+    swaps = []
+
+    def logged(self, plan):
+        swaps.append((threading.current_thread().name, plan))
+        return swap(self, plan)
+
+    DoubleBufferedCache.swap = logged
+    try:
+        yield swaps
+    finally:
+        DoubleBufferedCache.swap = swap
+
+
+@contextlib.contextmanager
+def global_steps_timed():
+    """Host clock at each global step's publish (the driver's end of a
+    lockstep round): the host wall per global step is their spacing."""
+    from repro_torch.train import cluster as cl
+
+    publish = cl._StepGate.publish_sync
+    stamps = []
+
+    def stamped(self, g, sync):
+        stamps.append(time.perf_counter())
+        return publish(self, g, sync)
+
+    cl._StepGate.publish_sync = stamped
+    try:
+        yield stamps
+    finally:
+        cl._StepGate.publish_sync = publish
+
+
+@contextlib.contextmanager
+def launches_by_rank():
+    """Each rank's kernel launches, read as the wrappers' totals before
+    and after each of its steps: the gate runs one rank's step at a time,
+    and a step's launches (its backward's too, which PyTorch's autograd
+    engine runs on a thread of its own for a CUDA device) end inside it.
+    {wrapper name: {rank: launches}}."""
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.segment_mm import csr_spmm
+    from repro_torch.train.worker import TrainerWorker
+
+    step = TrainerWorker.step
+    wrappers = {"csr_spmm": csr_spmm, "embedding_bag": embedding_bag}
+    by_rank = {name: {} for name in wrappers}
+
+    def counted(self, epoch, s):
+        before = {name: w.launches for name, w in wrappers.items()}
+        out = step(self, epoch, s)
+        for name, w in wrappers.items():
+            got = by_rank[name]
+            got[self.rank] = got.get(self.rank, 0) + w.launches - before[name]
+        return out
+
+    TrainerWorker.step = counted
+    try:
+        yield by_rank
+    finally:
+        TrainerWorker.step = step
+
+
+def counted_cluster(torch, cfg, cc, bundles):
+    """``run_cluster`` with every launch count zeroed just before and read
+    just after: (report, {wrapper: launches by thread, and "by_rank":
+    {wrapper: launches by rank}}, wall seconds, the swaps by thread, host
+    seconds per global step)."""
+    import numpy as np
+
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.segment_mm import block_spmm, csr_spmm
+    from repro_torch.train import cluster as cl
+
+    wrappers = {"csr_spmm": csr_spmm, "block_spmm": block_spmm,
+                "embedding_bag": embedding_bag}
+    with swaps_by_thread() as swaps, global_steps_timed() as stamps, \
+            launches_by_rank() as by_rank:
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+            wrapper.launches_by_thread = {}
+        t0 = time.perf_counter()
+        rep = cl.run_cluster(cfg, cc, trace_bundles=bundles)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: dict(w.launches_by_thread)
+                  for name, w in wrappers.items()}
+    counts["by_rank"] = by_rank
+    return rep, counts, wall, swaps, list(np.diff(stamps))
+
+
+def require_rank_counts(label, rep, counts, swaps, measured=True):
+    """Each active rank launched its own kernels: 3 CSR launches a
+    measured step and 2 in its parity check, one gather a step with hits
+    and one persisted-row gather a rebuild that keeps rows. The forward
+    launches and the gathers run on the rank's ``trainer-worker-{rank}``
+    thread; the backward's CSR launch (layer 1 transposed) on the thread
+    PyTorch's autograd engine keeps for the card, one a measured step;
+    no other thread launched, and the dense-block kernel never ran."""
+    ranks = {f"trainer-worker-{r}" for r in rep.active_ranks}
+    backward = 0
+    for r in rep.active_ranks:
+        name = f"trainer-worker-{r}"
+        res = rep.results[r]
+        n_steps = len(res.step_hits)
+        with_hits = int((res.step_hits > 0).sum())
+        kept = sum(bool(plan.persisted.any())
+                   for t, plan in swaps if t == name)
+        csr = counts["by_rank"]["csr_spmm"].get(r, 0)
+        bags = counts["by_rank"]["embedding_bag"].get(r, 0)
+        want = 3 * n_steps + 2 if measured else 0
+        require(csr == want, f"{label}: rank {r} launched csr_spmm {csr} "
+                f"times, not {want}")
+        fwd = counts["csr_spmm"].get(name, 0)
+        want_fwd = 2 * n_steps + 2 if measured else 0
+        require(fwd == want_fwd, f"{label}: rank {r}'s thread launched "
+                f"csr_spmm {fwd} times, not {want_fwd}")
+        backward += n_steps if measured else 0
+        require(bags == counts["embedding_bag"].get(name, 0)
+                == with_hits + kept,
+                f"{label}: rank {r} launched embedding_bag {bags} times "
+                f"({counts['embedding_bag'].get(name, 0)} on its thread), "
+                f"not {with_hits} steps with hits + {kept} rebuilds with "
+                "persisted rows")
+    other = {t: n for t, n in counts["csr_spmm"].items() if t not in ranks}
+    require(sum(other.values()) == backward and len(other) <= 1,
+            f"{label}: csr_spmm off the ranks' threads {other}, not "
+            f"{backward} backward launches on the autograd engine's thread")
+    other = {t: n for t, n in counts["embedding_bag"].items()
+             if t not in ranks}
+    require(not other, f"{label}: embedding_bag launched off the ranks' "
+            f"threads: {other}")
+    require(not counts["block_spmm"],
+            f"{label}: the dense-block kernel ran: {counts['block_spmm']}")
+
+
+def rank_epoch_joules(res, epoch: int) -> float:
+    """One rank's node energy in one epoch (raw, as ``totals_kj`` sums)."""
+    marks = res.meter.epoch_marks
+    prev = marks[epoch - 1] if epoch else {"gpu_j": 0.0, "cpu_j": 0.0}
+    return float(marks[epoch]["gpu_j"] + marks[epoch]["cpu_j"]
+                 - prev["gpu_j"] - prev["cpu_j"])
+
+
+def log_cluster(label, rep, counts, wall, per_step, smi):
+    """One line a rank, and the cluster's totals."""
+    for r in range(rep.n_workers):
+        res = rep.results[r]
+        name = f"trainer-worker-{r}"
+        joules = [round(rank_epoch_joules(res, e), 4)
+                  for e in range(len(res.meter.epoch_marks))]
+        cr = res.compute_report
+        step_ms = (f", measured step {statistics.median(cr['step_s']) * 1e3:.3f}"
+                   " ms median" if cr else "")
+        log(f"cluster {label} rank {r} ({rep.methods[r]}): joules per epoch "
+            f"{joules}, wall {res.meter.wall_s:.6f} s, barrier wait "
+            f"{rep.sync_wait_s[r]:.6f} s, collective {rep.sync_coll_s[r]:.6f}"
+            f" s, queueing {rep.requester_metrics[r]['queue_s']:.6f} s, "
+            f"hits {int(res.step_hits.sum())}, misses "
+            f"{int(res.step_misses.sum())}, launches csr_spmm "
+            f"{counts['by_rank']['csr_spmm'].get(r, 0)} "
+            f"({counts['csr_spmm'].get(name, 0)} on its thread) "
+            f"embedding_bag {counts['by_rank']['embedding_bag'].get(r, 0)}"
+            f"{step_ms}")
+    host = (f"{statistics.median(per_step) * 1e3:.3f} ms median, "
+            f"{statistics.mean(per_step) * 1e3:.3f} ms mean"
+            if per_step else "n/a")
+    log(f"cluster {label}: csr_spmm launches by thread {counts['csr_spmm']}")
+    log(f"cluster {label}: totals_kj {rep.totals_kj()}, total queueing "
+        f"{rep.total_queue_s:.6f} s, grad wire bytes {rep.grad_wire_bytes:.0f}"
+        f" ({rep.grad_compression}), host wall per global step {host}, run "
+        f"{wall:.2f} s; {smi}")
+
+
+def cluster_cfg(device, **kw):
+    """CLUSTER with device payloads over an unlimited host tier."""
+    from repro_torch.store import MemoryBudget
+    from repro_torch.train import gnn_trainer as gt
+
+    return gt.RunConfig(**dict(CLUSTER, **kw),
+                        mem_budget=MemoryBudget(device_payloads=True),
+                        device=str(device))
+
+
+def phase_cluster(torch, device, smi, qnet):
+    """P = 4 GreenDyGNN trainers on the card over one shared fabric
+    (``repro_torch.train.cluster.run_cluster``), held against the CPU."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from repro_torch.analysis import digest as dg
+    from repro_torch.core import controller as ctl, cost_model as cm, dqn
+    from repro_torch.train import cluster as cl
+    from repro_torch.train import compute as comp
+    from repro_torch.train import gnn_trainer as gt
+
+    t_phase = time.perf_counter()
+    P = CLUSTER_P
+    cc = cl.ClusterConfig(n_workers=P)
+
+    # 1. modeled lane: the reference's pinned P = 4 digest, card and CPU
+    for dev in (str(device), "cpu"):
+        rep = cl.run_cluster(gt.RunConfig(**CLUSTER_PIN, device=dev), cc)
+        got = dg.report_digest(rep)
+        require(got == CLUSTER_PIN_DIGEST,
+                f"cluster pin on {dev}: report_digest {got[:8]}… != "
+                f"{CLUSTER_PIN_DIGEST[:8]}…")
+    log(f"cluster pin (P={P}, modeled): report_digest {got[:8]}… on the "
+        "card and on the CPU")
+    cpu_cfg = gt.RunConfig(**CLUSTER, device="cpu")
+    bundles = cl.build_cluster_traces(cpu_cfg, P)
+    dev_rows = int(cpu_cfg.cache_frac * bundles[0][0].n_nodes)
+    n_feat = bundles[0][0].features.shape[1]
+    log(f"cluster: {P} device tiers of {dev_rows} x {n_feat} float32 rows, "
+        f"{dev_rows * n_feat * 4 / 1e6:.2f} MB each, one per rank")
+    digests = []
+    for dev in (device, "cpu"):
+        cfg = cluster_cfg(dev, compute="modeled", scenario="paper_schedule")
+        rep, counts, wall, swaps, per_step = counted_cluster(
+            torch, cfg, cc, bundles)
+        if dev == device:
+            require_rank_counts("modeled paper_schedule", rep, counts, swaps,
+                                measured=False)
+            log_cluster("modeled paper_schedule (card)", rep, counts, wall,
+                        per_step, smi)
+        digests.append(dg.report_digest(rep))
+    require(digests[0] == digests[1],
+            "cluster modeled paper_schedule with device payloads: card "
+            f"digest {digests[0][:8]}… != CPU's {digests[1][:8]}…")
+    log(f"cluster modeled paper_schedule with device payloads: digest "
+        f"{digests[0][:8]}… on the card and on the CPU")
+
+    # 2. measured lane, static_w, under clean and paper_schedule
+    torch.cuda.reset_peak_memory_stats(device)
+    measured = {}
+    for scenario in ("clean", "paper_schedule"):
+        out = {}
+        for dev in (device, "cpu"):
+            cfg = cluster_cfg(dev, scenario=scenario)
+            out[str(dev)] = counted_cluster(torch, cfg, cc, bundles)
+        rep, counts, wall, swaps, per_step = out[str(device)]
+        cpu = out["cpu"][0]
+        require_rank_counts(f"measured {scenario}", rep, counts, swaps)
+        log_cluster(f"measured static_w {scenario}", rep, counts, wall,
+                    per_step, smi)
+        for r in range(P):
+            a, b = rep.results[r], cpu.results[r]
+            require(np.array_equal(a.step_hits, b.step_hits)
+                    and np.array_equal(a.step_misses, b.step_misses),
+                    f"cluster measured {scenario}: rank {r}'s hit/miss "
+                    "streams differ from the CPU's")
+            la = np.asarray(a.compute_report["losses"])
+            lb = np.asarray(b.compute_report["losses"])
+            require(np.all(np.isfinite(la))
+                    and np.allclose(la, lb, **TOL_CLUSTER_LOSS),
+                    f"cluster measured {scenario}: rank {r}'s losses max "
+                    f"rel diff {np.max(np.abs(la - lb) / np.abs(lb)):.3e}")
+        rel = max(float(np.max(np.abs(
+            np.asarray(rep.results[r].compute_report["losses"])
+            - np.asarray(cpu.results[r].compute_report["losses"]))
+            / np.abs(np.asarray(cpu.results[r].compute_report["losses"]))))
+            for r in range(P))
+        log(f"cluster measured static_w {scenario}: every rank's hit/miss "
+            f"streams equal the CPU's, losses max rel diff {rel:.3e}")
+        measured[scenario] = out[str(device)]
+    log(f"cluster measured: peak device memory "
+        f"{torch.cuda.max_memory_allocated(device) / 1e6:.1f} MB")
+
+    # 3. measured lane, greendygnn under the table-trained policy
+    decisions = []
+    decide = ctl.AdaptiveController.decide
+
+    def logged_decide(self, stats):
+        out = decide(self, stats)
+        decisions.append((threading.current_thread().name, int(out[0])))
+        return out
+
+    ctl.AdaptiveController.decide = logged_decide
+    try:
+        cfg = cluster_cfg(device, method="greendygnn",
+                          scenario="paper_schedule",
+                          q_fn=dqn.q_fn_of(qnet))
+        rep, counts, wall, swaps, per_step = counted_cluster(
+            torch, cfg, cc, bundles)
+    finally:
+        ctl.AdaptiveController.decide = decide
+    require_rank_counts("greendygnn", rep, counts, swaps)
+    log_cluster("measured greendygnn paper_schedule", rep, counts, wall,
+                per_step, smi)
+    for r in range(P):
+        mine = [w for t, w in decisions if t == f"trainer-worker-{r}"]
+        require(len(mine) >= 1, f"cluster greendygnn: rank {r} never decided")
+        require(all(w in cm.WINDOW_CHOICES for w in mine),
+                f"cluster greendygnn: rank {r} chose windows {mine}")
+        log(f"cluster greendygnn rank {r}: decisions {mine}, windows per "
+            f"epoch {rep.results[r].window_per_epoch.tolist()}")
+
+    # 4. emergent congestion (modeled lane, device payloads, on the card)
+    def modeled(**kw):
+        cfg = cluster_cfg(device, compute="modeled")
+        rep, counts, wall, swaps, _ = counted_cluster(
+            torch, cfg, dataclasses.replace(cc, **kw), bundles)
+        require_rank_counts(f"modeled {kw}", rep, counts, swaps,
+                            measured=False)
+        return rep
+
+    clean = modeled()
+    hot = modeled(link_rate_scale=(0.25, 1.0, 1.0, 1.0))
+    log(f"cluster hot owner (partition 0 at 0.25): total queueing "
+        f"{hot.total_queue_s:.6f} s against clean {clean.total_queue_s:.6f} "
+        "s; mean transfer by rank "
+        f"{[round(m['mean_transfer_s'], 6) for m in hot.requester_metrics]} "
+        "against "
+        f"{[round(m['mean_transfer_s'], 6) for m in clean.requester_metrics]}")
+    require(hot.total_queue_s > clean.total_queue_s,
+            "cluster: the hot owner did not raise the fabric's queueing")
+    slow = modeled(compute_scale=(2.0, 1.0, 1.0, 1.0))
+    stale = modeled(compute_scale=(2.0, 1.0, 1.0, 1.0), max_stale=1,
+                    max_lag=2)
+    log(f"cluster straggler (rank 0 at 2x t_base): barrier wait by rank "
+        f"{slow.sync_wait_s.tolist()}; with max_stale=1 "
+        f"{stale.sync_wait_s.tolist()}")
+    require(bool(np.all(slow.sync_wait_s[1:] > 0)),
+            "cluster: the straggler's peers did not wait at the barrier")
+    require(stale.sync_wait_s[1:].sum() < slow.sync_wait_s[1:].sum(),
+            "cluster: max_stale=1 did not cut the peers' barrier wait")
+
+    # 5. compression: the wire bytes charged, and card against CPU
+    graph = bundles[0][0]
+    none_bytes = measured["clean"][0].grad_wire_bytes
+    for scheme in ("int8", "topk"):
+        cfg = cluster_cfg(device, n_epochs=1)
+        ccs = dataclasses.replace(cc, grad_compression=scheme, topk_frac=0.05)
+        rep, counts, wall, swaps, per_step = counted_cluster(
+            torch, cfg, ccs, bundles)
+        require_rank_counts(f"measured {scheme}", rep, counts, swaps)
+        want = comp.model_wire_bytes(graph, scheme, 0.05)
+        require(rep.grad_wire_bytes == want
+                and all(r.compute_report["sync_wire_bytes"] == want
+                        for r in rep.results),
+                f"cluster {scheme}: grad_wire_bytes {rep.grad_wire_bytes} != "
+                f"model_wire_bytes {want}")
+        log_cluster(f"measured {scheme}", rep, counts, wall, per_step, smi)
+        log(f"cluster {scheme}: {want:.0f} wire bytes a sync, "
+            f"{none_bytes / want:.3f}x fewer than uncompressed "
+            f"({none_bytes:.0f})")
+        if scheme == "int8":
+            require(3.5 < none_bytes / want < 4.0,
+                    f"cluster int8: {none_bytes / want:.3f}x, not about 4x")
+    compression_card_vs_cpu(torch, device, bundles[0])
+
+    # 6. the modeled-lane model (run_model=True), P = 1, card against CPU,
+    # at RUN_MODEL: at the main path's batch (and the pin's 8 steps) a
+    # batch repeats a seed, and the model step (the reference's and so the
+    # port's) takes a label per seed against a logit per distinct seed
+    from repro_torch.train.worker import TrainerWorker
+
+    losses = {}
+    pin_bundle = gt.build_trace(gt.RunConfig(**RUN_MODEL, device="cpu"))
+    for dev in (str(device), "cpu"):
+        cfg = gt.RunConfig(**RUN_MODEL, device=dev)
+        w = TrainerWorker(cfg, pin_bundle)
+        for e in range(cfg.n_epochs):
+            w.begin_epoch(e)
+            for s in range(cfg.steps_per_epoch):
+                w.step(e, s)
+            w.end_epoch(e)
+        losses[dev] = (np.asarray(w.model_state["losses"]), w.acc_log[-1])
+    (la, acc_a), (lb, acc_b) = losses[str(device)], losses["cpu"]
+    require(np.all(np.isfinite(la)) and np.allclose(la, lb,
+                                                    **TOL_CLUSTER_LOSS),
+            f"run_model modeled lane: card losses {la} against CPU {lb}")
+    log(f"run_model (modeled lane, P=1): card losses "
+        f"{[round(float(x), 5) for x in la]}, max rel diff to the CPU "
+        f"{float(np.max(np.abs(la - lb) / np.abs(lb))):.3e}, accuracy "
+        f"{acc_a:.4f} (CPU {acc_b:.4f})")
+
+    cluster_profile(torch, device, bundles, measured["clean"][4])
+    cold_build_cluster(torch, device, bundles)
+    log(f"cluster phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def compression_card_vs_cpu(torch, device, bundle):
+    """int8 and top-k of one fixed set of SAGE gradients (the first
+    mini-batch's, an error of a hundredth of them carried in) on the card
+    and on the CPU: int8 bit for bit, top-k the same kept entries."""
+    import numpy as np
+
+    from repro_torch.optim import optimizers as optim
+    from repro_torch.train import compute as comp
+    from repro_torch.train import grad_compression as gc
+
+    graph, _, _, mbs = bundle
+    cfg = cluster_cfg(device)
+    eng = comp.ComputeEngine(graph, cfg)
+    mb = mbs[0][0]
+    layers, x_rows, _ = eng.prepare(mb)
+    x = eng.pad_input(np.asarray(graph.features[mb.input_nodes], np.float32),
+                      x_rows)
+    _, grads = eng.loss_and_grads(x, layers)
+    err = optim.tree_map(lambda g: g * 0.01, grads)
+    host = optim.tree_map(lambda g: g.cpu(), grads)
+    host_err = optim.tree_map(lambda g: g.cpu(), err)
+    for label, fn in (("int8", gc.compress_int8),
+                      ("topk", lambda g, e: gc.compress_topk(g, e, 0.05))):
+        card = fn(grads, err)
+        cpu = fn(host, host_err)
+        same = all(torch.equal(a.cpu(), b) for tree_a, tree_b in zip(card, cpu)
+                   for a, b in zip(optim.tree_leaves(tree_a),
+                                   optim.tree_leaves(tree_b)))
+        require(same, f"compression {label}: the card's result differs from "
+                "the CPU's")
+        kept = sum(int((t != 0).sum()) for t in optim.tree_leaves(card[0]))
+        log(f"compression {label} of the first mini-batch's SAGE gradients: "
+            f"card equal to the CPU bit for bit ({kept} nonzero entries "
+            "sent)")
+
+
+def cluster_profile(torch, device, bundles, per_step):
+    """Device busy and idle share over one ``torch.profiler`` window of 2
+    global steps of the measured static_w cluster (all ranks parked at the
+    gate at both ends), against the unprofiled host wall per global step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import cluster as cl
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as probe:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    lead = set(device_time_by_name(probe))
+    prof = profile(activities=acts)
+    arrived = cl._StepGate.await_all_arrived
+    seen = {"g": -1, "t": []}
+    first = CLUSTER_PROFILE_STEP
+
+    def hooked(self):
+        arrived(self)
+        seen["g"] += 1
+        if seen["g"] == first:
+            torch.cuda.synchronize()
+            prof.start()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            seen["t"].append(time.perf_counter())
+        elif seen["g"] == first + 2:
+            torch.cuda.synchronize()
+            seen["t"].append(time.perf_counter())
+            time.sleep(0.05)
+            prof.stop()
+
+    cl._StepGate.await_all_arrived = hooked
+    try:
+        cfg = cluster_cfg(device, n_epochs=1)
+        rep, counts, _, _, _ = counted_cluster(
+            torch, cfg, cl.ClusterConfig(n_workers=CLUSTER_P), bundles)
+    finally:
+        cl._StepGate.await_all_arrived = arrived
+    by_name = {n: v for n, v in device_time_by_name(prof).items()
+               if n not in lead}
+    require(bool(by_name), "cluster profile: no device time in the window")
+    busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / 2
+    profiled_ms = (seen["t"][1] - seen["t"][0]) * 1e3 / 2
+    host_ms = statistics.median(per_step) * 1e3
+    n_csr = sum(c for n, (_, c) in by_name.items() if "csr_spmm_kernel" in n)
+    n_bag = sum(c for n, (_, c) in by_name.items()
+                if "embedding_bag_kernel" in n)
+    log(f"cluster profile (2 global steps, P={CLUSTER_P}): device busy "
+        f"{busy_ms:.3f} ms a global step, idle share "
+        f"{1.0 - busy_ms / host_ms:.4f} of the unprofiled host wall "
+        f"({host_ms:.3f} ms a global step; {profiled_ms:.3f} ms profiled); "
+        f"{n_csr} csr_spmm_kernel and {n_bag} embedding_bag_kernel launches "
+        f"in the trace (want {3 * 2 * CLUSTER_P} csr_spmm)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    for name, (us, cnt) in top:
+        log(f"  device {us / 1e3 / 2:8.4f} ms/global step x{cnt / 2:5.1f}"
+            f"  {name[:80]}")
+
+
+def cold_build_cluster(torch, device, bundles):
+    """The kernels built from cold by the cluster's own first launches: a
+    fresh build directory, no library loaded, and a measured threaded
+    P = 4 run of 2 steps, whose 4 worker threads and 4 builder threads
+    launch first. The build runs once, under the build lock."""
+    import tempfile
+
+    from repro_torch.kernels import _build
+    from repro_torch.train import cluster as cl
+
+    saved_dir, saved_libs = _build.BUILD_DIR, dict(_build._libs)
+    build_all = _build.build_all
+    builds = []
+
+    def counted_build():
+        secs = build_all()
+        builds.append(secs)
+        return secs
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        _build.BUILD_DIR = pathlib.Path(tmp)
+        _build._libs.clear()
+        _build.build_all = counted_build
+        try:
+            cfg = cluster_cfg(device, n_epochs=1, steps_per_epoch=2,
+                              static_window=1, async_pipeline=True)
+            t0 = time.perf_counter()
+            rep, counts, _, _, _ = counted_cluster(
+                torch, cfg, cl.ClusterConfig(n_workers=CLUSTER_P), bundles)
+            wall = time.perf_counter() - t0
+        finally:
+            _build.BUILD_DIR = saved_dir
+            _build.build_all = build_all
+            _build._libs.clear()
+            _build._libs.update(saved_libs)
+    ranks = [f"trainer-worker-{r}" for r in range(CLUSTER_P)]
+    require(len(builds) == 1 and builds[0],
+            f"cold build: build_all ran {len(builds)} times ({builds})")
+    require(all(counts["csr_spmm"].get(t, 0) > 0 for t in ranks),
+            f"cold build: csr_spmm launches by thread {counts['csr_spmm']}")
+    log(f"cluster cold build: one build of {sorted(builds[0])} from the "
+        f"ranks' first launches ({max(builds[0].values()):.1f} s), P="
+        f"{CLUSTER_P} threaded run {wall:.2f} s, launches by thread "
+        f"{counts}")
+
+
 # ------------------------------------------------------------- phase 4
 def same_choice(a, b):
     """(argmax equal in every row, rows with equal argmax, max |a - b|)."""
@@ -3144,6 +3731,7 @@ def main() -> int:
     phase_pipeline_profile(torch, device)
     phase_pipeline_adaptive(torch, device, qnet)
     phase_pipeline_budgeted(torch, device)
+    phase_cluster(torch, device, smi, qnet)
     lm_counts, cfg, params, tokens = phase_serving(torch, device)
     phase_profile_prefill(torch, cfg, params, tokens)
     phase_profile_decode(torch, device, cfg, params)

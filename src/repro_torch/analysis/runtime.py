@@ -1,11 +1,11 @@
 """Opt-in runtime sanitizer: lock-held assertions for shared state.
 
-Port of the part of ``repro/analysis/runtime.py`` that ``net/fabric.py``
-and ``pipeline/`` use: the lock-held assertion and the single-owner
-thread assertion. Everything here is off by default (one boolean on the
-hot path) and is enabled per object (``Fabric(sanitize=True)``,
-``CacheBuilder(sanitize=True)``) or process-wide with
-``REPRO_SANITIZE=1``.
+Port of the part of ``repro/analysis/runtime.py`` that ``net/fabric.py``,
+``pipeline/`` and ``train/cluster.py`` use: the lock-held assertion, the
+single-owner thread assertion and the monotonic virtual clock. Everything
+here is off by default (one boolean on the hot path) and is enabled per
+object (``Fabric(sanitize=True)``, ``CacheBuilder(sanitize=True)``) or
+process-wide with ``REPRO_SANITIZE=1``.
 """
 from __future__ import annotations
 
@@ -63,3 +63,25 @@ class ThreadAffinity:
                 f"{self.role} role is owned by thread {self._name!r} — "
                 "single-consumer contract violated"
             )
+
+
+class MonotonicClock:
+    """Per-key non-decreasing time assertion (virtual clocks never rewind).
+
+    ``observe(key, t)`` raises if ``t`` is below the last value seen for
+    ``key``. The cluster driver feeds it every worker's virtual wall
+    clock once per lockstep round.
+    """
+
+    def __init__(self, what: str):
+        self.what = what
+        self._last: dict = {}
+
+    def observe(self, key, t: float) -> None:
+        prev = self._last.get(key)
+        if prev is not None and t < prev:
+            raise SanitizerError(
+                f"{self.what}: clock for {key!r} moved backwards "
+                f"({prev!r} -> {t!r}) — virtual time must be monotonic"
+            )
+        self._last[key] = t

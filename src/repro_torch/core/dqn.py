@@ -31,7 +31,11 @@ from repro_torch import optim
 from repro_torch.core import controller as ctl
 from repro_torch.core import simulator as sim
 from repro_torch.device import resolve
-from repro_torch.optim.optimizers import tree_leaves, tree_map
+from repro_torch.optim.optimizers import (
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 HIDDEN = 256
 GAMMA = 0.99
@@ -144,8 +148,8 @@ def loss_and_grads(online: dict, target: dict, batch
     """``dqn_loss`` and its gradients with respect to ``online``."""
     params = tree_map(lambda p: p.detach().requires_grad_(True), online)
     loss = dqn_loss(params, target, *batch)
-    grads = iter(torch.autograd.grad(loss, tree_leaves(params)))
-    return loss.detach(), tree_map(lambda _: next(grads), params)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    return loss.detach(), tree_unflatten(params, grads)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,7 +6,8 @@ a substitute: the reference divides the bias-corrected moments,
 ``(m / bc1) / (sqrt(v / bc2) + eps)``, where torch computes
 ``sqrt(v) / sqrt(bc2) + eps``, and the two apply weight decay differently.
 
-An optimizer is a pair (init, update) over nested dicts of tensors:
+An optimizer is a pair (init, update) over nested dicts (or lists and
+tuples) of tensors:
     state = init(params)
     updates, state = update(grads, state, params)
     params = apply_updates(params, updates)
@@ -25,16 +26,30 @@ Tree = Any
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """Apply ``fn`` leaf-wise over nested dicts of tensors."""
+    """Apply ``fn`` leaf-wise over nested dicts, lists and tuples of
+    tensors (``rest`` must have the same structure)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree: Tree) -> list:
+    """The leaves in the order :func:`tree_map` visits them."""
     if isinstance(tree, dict):
         return [leaf for k in tree for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
+
+
+def tree_unflatten(tree: Tree, leaves) -> Tree:
+    """A tree of ``tree``'s structure holding ``leaves`` in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 class Optimizer(NamedTuple):

@@ -10,13 +10,14 @@ eviction, no extra fabric calls).
 
 ``TierStats`` is the deterministic per-tier counter block the acceptance
 harness compares across same-seed runs (device hits / host hits / block
-fetches / evictions / peak residency). Port of ``repro/store/budget.py``;
-the cross-worker ``merge_tier_counts``/``TierStats.merge`` come with the
-cluster (ROADMAP queue 1, cluster).
+fetches / evictions / peak residency); the cluster merges the ranks'
+counters with ``merge_tier_counts``. Port of ``repro/store/budget.py``.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,3 +79,33 @@ class TierStats:
             "peak_resident_bytes": float(self.peak_resident_bytes),
             "pinned_over_budget": int(self.pinned_over_budget),
         }
+
+    @staticmethod
+    def merge(stats: list["TierStats | None"]) -> dict | None:
+        """Element-wise sum of counters (max for the peak) across workers,
+        through :func:`merge_tier_counts`."""
+        return merge_tier_counts(
+            [s.counts() for s in stats if s is not None]
+        )
+
+
+def merge_tier_counts(counts: list) -> dict | None:
+    """Merge per-worker ``TierStats.counts()`` dicts into cluster totals
+    (sum, except the resident peak which takes the max: budgets are
+    per-rank, so the cluster-wide figure is the worst rank), through the
+    shared reduce law :func:`repro_torch.obs.reduce.merge_counters`."""
+    from repro_torch.obs.reduce import merge_counters
+
+    out = merge_counters(counts, max_keys=("peak_resident_bytes",))
+    if out is None:
+        return None
+    return {
+        k: (float(v) if k == "peak_resident_bytes" else int(v))
+        for k, v in out.items()
+    }
+
+
+def tier_counts_array(counts: dict) -> np.ndarray:
+    """Fixed-order float64 vector of a ``TierStats.counts()`` dict (digest
+    input; keys in sorted order)."""
+    return np.asarray([counts[k] for k in sorted(counts)], np.float64)

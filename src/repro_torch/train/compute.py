@@ -30,7 +30,10 @@ float4 at any width (``full_graph_sm``'s 1,433 included); the pad columns
 are never read into a result. The step is timed with CUDA events on the card and
 ``time.perf_counter`` on the CPU. On the first step ``check_parity``
 holds the CSR path against the plain scatter path
-(``sage.apply_blocks``), tolerance 2e-3.
+(``sage.apply_blocks``), tolerance 2e-3. Gradient sync flows through
+``grad_compression`` with error feedback between the gradients and AdamW;
+``sync_wire_bytes`` is what the cluster driver feeds into
+``ring_collective_cost`` in place of the uncompressed payload.
 """
 from __future__ import annotations
 
@@ -91,19 +94,25 @@ def sage_config(graph, d_hidden: int = 16) -> sage.SageConfig:
     )
 
 
-def model_wire_bytes(graph, scheme: str = "none") -> float:
-    """Per-sync gradient payload bytes of the SAGE model on ``graph``."""
+def model_wire_bytes(graph, scheme: str = "none", frac: float = 0.05
+                     ) -> float:
+    """Per-sync gradient payload bytes of the SAGE model on ``graph`` under
+    a compression scheme (parameters on the meta device: nothing is
+    materialized). ``scheme="none"`` equals ``cluster.default_grad_bytes``
+    bit for bit."""
     params = sage.init(sage_config(graph), torch.Generator().manual_seed(0),
                        device="meta")
-    return float(gc.wire_bytes(params, scheme))
+    return float(gc.wire_bytes(params, scheme, frac))
 
 
 class ComputeEngine:
-    """Real SAGE step + timing for one worker, on ``cfg.device``."""
+    """Real SAGE step + timing + gradient compression for one worker, on
+    ``cfg.device``."""
 
     def __init__(self, graph, cfg):
         self.scheme = cfg.grad_compression
         gc.check_scheme(self.scheme)
+        self.topk_frac = float(cfg.topk_frac)
         self.device = resolve(cfg.device)
         self.mcfg = sage_config(graph)
         self.params = sage.init(
@@ -113,7 +122,9 @@ class ComputeEngine:
         self.opt = optim.adamw(LEARNING_RATE)
         self.opt_state = self.opt.init(self.params)
         self.error = gc.init_error_feedback(self.params)
-        self.sync_wire_bytes = float(gc.wire_bytes(self.params, self.scheme))
+        self.sync_wire_bytes = float(
+            gc.wire_bytes(self.params, self.scheme, self.topk_frac)
+        )
         self.labels_np = np.asarray(graph.labels)
 
         self._prep: OrderedDict = OrderedDict()   # mb key -> prepared batch
@@ -248,13 +259,17 @@ class ComputeEngine:
         last = layers[-1]
         logits = self._forward(params, x_pad, layers)
         loss = common.cross_entropy(logits, last["labels"], last["lmask"])
-        leaves = optim.tree_leaves(params)
-        grads = torch.autograd.grad(loss, leaves)
-        it = iter(grads)
-        return loss.detach(), optim.tree_map(lambda _: next(it), params)
+        grads = torch.autograd.grad(loss, optim.tree_leaves(params))
+        return loss.detach(), optim.tree_unflatten(params, grads)
 
     def _step_fn(self, x_pad, layers):
         loss, grads = self.loss_and_grads(x_pad, layers)
+        # the gradients a peer would receive, the error carried in float32
+        if self.scheme == "int8":
+            grads, self.error = gc.compress_int8(grads, self.error)
+        elif self.scheme == "topk":
+            grads, self.error = gc.compress_topk(grads, self.error,
+                                                 self.topk_frac)
         upd, self.opt_state = self.opt.update(grads, self.opt_state,
                                               self.params)
         self.params = optim.apply_updates(self.params, upd)

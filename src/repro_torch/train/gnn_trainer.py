@@ -8,7 +8,9 @@ cache-hit / remote miss) -> network time (the Eq. 4 closed form, or the
 per-boundary control (static, heuristic or RL) -> reports. With
 ``compute="measured"`` every step also runs a real GraphSAGE
 forward/backward/AdamW step on ``device`` (``train/compute.py``), through
-the hand-written CSR SpMM kernel; with a ``MemoryBudget`` whose
+the hand-written CSR SpMM kernel; with ``run_model=True`` in the modeled
+lane, the same model trains beside the trainer through the plain scatter
+path (``_init_model``, ``_model_step``); with a ``MemoryBudget`` whose
 ``device_payloads`` is set, cache hits are served by the EmbeddingBag
 kernel, and one whose ``host_bytes`` is set budgets the host tier.
 
@@ -80,7 +82,10 @@ class RunConfig:
         default_factory=cm.CostModelParams
     )
     q_fn: Callable | None = None     # RL policy (greendygnn methods)
-    run_model: bool = False          # evaluate accuracy per epoch (measured)
+    run_model: bool = False          # also train the real SAGE model: in
+                                     # the modeled lane a model step after
+                                     # each trainer step (_model_step), in
+                                     # both lanes accuracy per epoch
     pad_blocks: bool = False         # static block shapes in the sampler
     bgl_overlap_frac: float = 0.75   # fraction of t_base usable to hide stall
     async_pipeline: bool = False     # threaded builder + prefetcher
@@ -90,7 +95,11 @@ class RunConfig:
     compute: str = "modeled"         # "measured" runs the real SAGE step
                                      # each trainer step and charges its
                                      # measured time where t_base is charged
-    grad_compression: str = "none"   # only "none" is ported
+    grad_compression: str = "none"   # measured-lane gradient sync scheme:
+                                     # "none" | "int8" | "topk" (error
+                                     # feedback; wire bytes feed the ring
+                                     # collective in cluster runs)
+    topk_frac: float = 0.05          # kept fraction for "topk"
     trace: bool = False              # greentrace (not ported)
     device: str = "cuda"             # where the measured lane and the device
                                      # tier run; "cpu" for the CPU tests
@@ -222,9 +231,11 @@ def _chunked_fetch_time(params, per_owner_rows: np.ndarray,
 
 
 def run(cfg: RunConfig, trace_bundle=None) -> RunResult:
-    """Single-trainer entry point: one :class:`TrainerWorker` (partition
-    0) over the scenario's event fabric, or the closed form, driven
-    through its epochs in a plain loop."""
+    """Single-trainer entry point, the P=1 case of the cluster: one
+    :class:`TrainerWorker` (partition 0) over the scenario's event fabric,
+    or the closed form, driven through its epochs in a plain loop. P
+    workers over one requester-aware fabric are
+    ``repro_torch.train.cluster.run_cluster``."""
     from repro_torch.net import CLOSED_FORM, build_scenario
     from repro_torch.train.worker import TrainerWorker, check_supported
 
@@ -285,6 +296,65 @@ def _controller_stats(
         batches_remaining=1.0 - step / steps_per_epoch,
         headroom=headroom,
     )
+
+
+# --------------------------------------------------------------- real model
+def _init_model(graph, cfg: RunConfig, params: dict | None = None) -> dict:
+    """The modeled lane's model runner: the paper's SAGE model on the run's
+    device, its AdamW state, and a loss log. ``params``, numpy arrays in
+    the reference's layout, replace the seeded initialisation (through
+    ``convert``, with a fresh optimizer state)."""
+    from repro_torch.convert import sage_params_from_jax
+    from repro_torch.device import resolve
+    from repro_torch.models.gnn import sage
+    from repro_torch.optim import optimizers as optim
+    from repro_torch.train.compute import LEARNING_RATE, sage_config
+
+    device = resolve(cfg.device)
+    mcfg = sage_config(graph)
+    if params is None:
+        p = sage.init(mcfg, torch.Generator().manual_seed(int(cfg.seed)),
+                      device=device)
+    else:
+        p = sage_params_from_jax(params, device)
+    opt = optim.adamw(LEARNING_RATE)
+    return {
+        "params": p, "opt_state": opt.init(p), "opt": opt, "cfg": mcfg,
+        "device": device, "graph": graph, "losses": [],
+    }
+
+
+def _model_step(state: dict, mb) -> dict:
+    """One AdamW step of the model over ``mb``'s blocks (the plain scatter
+    path, ``sage.apply_blocks``) on the graph's own feature rows."""
+    from repro_torch.models.gnn import common, sage
+    from repro_torch.optim import optimizers as optim
+
+    graph, dev = state["graph"], state["device"]
+    blocks = [
+        {
+            "edge_src": torch.as_tensor(b.edge_src).to(dev),
+            "edge_dst": torch.as_tensor(b.edge_dst).to(dev),
+            "edge_mask": torch.as_tensor(b.edge_mask).to(dev),
+            "dst_pos": torch.as_tensor(b.dst_pos).to(dev),
+        }
+        for b in mb.blocks
+    ]
+    x_in = torch.as_tensor(
+        np.asarray(graph.features[mb.input_nodes], np.float32)).to(dev)
+    labels = torch.as_tensor(
+        np.asarray(graph.labels[mb.seeds], np.int64)).to(dev)
+    params = optim.tree_map(lambda p: p.detach().requires_grad_(True),
+                            state["params"])
+    loss = common.cross_entropy(
+        sage.apply_blocks(params, state["cfg"], x_in, blocks), labels)
+    grads = torch.autograd.grad(loss, optim.tree_leaves(params))
+    grads = optim.tree_unflatten(params, grads)
+    upd, state["opt_state"] = state["opt"].update(
+        grads, state["opt_state"], state["params"])
+    state["params"] = optim.apply_updates(state["params"], upd)
+    state["losses"].append(float(loss.detach()))
+    return state
 
 
 @torch.no_grad()

@@ -1,12 +1,16 @@
-"""One partition's trainer runtime (the P=1 slice).
+"""One partition's trainer runtime.
 
 Port of ``repro/train/worker.py``: a :class:`TrainerWorker` is the
 substrate of ONE partition (its feature store rank, hot cache, controller,
 energy meter, device payload tier and measured compute engine), assembled
 from small pure builders, with explicit per-epoch/per-step methods that
-``gnn_trainer.run`` drives in a plain loop.
+``gnn_trainer.run`` drives in a plain loop (P=1) and
+``train/cluster.py`` interleaves for P workers over one shared fabric
+(``cluster=True``: transfers carry ``requester=rank`` and the worker's own
+virtual clock, the fabric's ticked clock is left alone, and the driver
+charges each step's gradient-sync barrier through :meth:`apply_sync`).
 
-The worker runs at P=1 over either network substrate: the closed-form
+The worker runs over either network substrate: the closed-form
 Eq. 4 law, or the ``net/`` event fabric of a ``RunConfig.scenario``
 (delta and sigma refreshed every step from the worker's virtual clock,
 transfers queueing on the owner links). It runs every method, the
@@ -18,11 +22,12 @@ the builder thread (the alpha_crit leak), or the threaded pipeline
 (``async_pipeline=True``, ``pipeline/``), whose builder thread plans,
 fetches and, with device payloads, builds the next window's device table
 on a CUDA stream of its own while the consumer steps, and whose measured
-exposed wait is charged instead. Not ported yet, and refused with
+exposed wait is charged instead. The measured lane compresses its
+gradients (int8 or top-k with error feedback) when ``grad_compression``
+asks; ``run_model=True`` in the modeled lane trains the model beside the
+trainer (``gnn_trainer._model_step``). Not ported yet, and refused with
 ``NotImplementedError`` naming its ROADMAP item: greentrace
-(``trace=True``), the modeled-lane model runner (``run_model=True`` with
-``compute="modeled"``), the compressed gradient schemes, and the
-cluster's shared-fabric mode.
+(``trace=True``).
 
 The worker keeps a virtual clock (``meter.wall_s``); nothing here reads
 the OS clock on the timing path except the measured compute lane, whose
@@ -58,12 +63,6 @@ def check_supported(cfg) -> None:
     if cfg.compute not in ("modeled", "measured"):
         raise ValueError(
             f"compute must be 'modeled' or 'measured', got {cfg.compute!r}"
-        )
-    if cfg.run_model and cfg.compute != "measured":
-        raise NotImplementedError(
-            "run_model=True runs the modeled-lane model runner, not ported "
-            "yet (ROADMAP queue 1: compression and the modeled-lane model); "
-            "use compute='measured'"
         )
     gc.check_scheme(cfg.grad_compression)
 
@@ -171,6 +170,22 @@ def build_pipeline(cfg, cache, store, fabric, requester: int, clock_fn,
     return builder, prefetcher
 
 
+def worker_rngs(seed: int, n_workers: int) -> list[np.random.Generator]:
+    """Independent per-worker RNG streams via ``SeedSequence.spawn``.
+
+    Rank 0 consumes the ROOT stream, the single trainer's
+    ``default_rng(seed + 17)`` trace stream, so a P=1 cluster replays the
+    single-trainer run bit for bit; ranks >= 1 consume spawned children,
+    independent of the root and of each other whatever the spawn order or
+    thread scheduling.
+    """
+    root = np.random.SeedSequence(seed + 17)
+    children = root.spawn(max(n_workers - 1, 0))
+    return [np.random.default_rng(root)] + [
+        np.random.default_rng(c) for c in children
+    ]
+
+
 class TrainerWorker:
     """One partition's training substrate with explicit step methods.
 
@@ -186,16 +201,24 @@ class TrainerWorker:
         finally:
             w.close()
         result = w.result()
+
+    ``cluster=True`` marks the worker as one of P trainers sharing the
+    fabric: transfers carry ``requester=rank`` and the worker's own
+    virtual clock, and the shared fabric's ticked clock is left alone.
     """
 
-    def __init__(self, cfg, trace_bundle, rank: int = 0, fabric=None):
+    def __init__(self, cfg, trace_bundle, rank: int = 0, fabric=None,
+                 cluster: bool = False):
         check_supported(cfg)
         self.cfg = cfg
         self.rank = int(rank)
         self.device = resolve(cfg.device)
-        # the one requester of a P=1 run ticks the fabric's own clock
         self.fabric = fabric
-        self.requester = 0
+        self.cluster = bool(cluster)
+        self.requester = self.rank if cluster else 0
+        # the one requester of a P=1 run ticks the fabric's own clock (the
+        # builder thread may read it); a cluster worker never does
+        self._owns_clock = fabric is not None and not cluster
 
         graph, owner, traces, mbs = trace_bundle
         self.graph, self.owner = graph, owner
@@ -246,6 +269,11 @@ class TrainerWorker:
             # measured lane: a real SAGE step each trainer step; its time
             # replaces the modeled t_base charge below
             self.engine = ComputeEngine(graph, cfg)
+        self.model_state = None
+        if cfg.run_model and self.engine is None:
+            from repro_torch.train import gnn_trainer as gt
+
+            self.model_state = gt._init_model(graph, cfg)
 
         self.t_base = float(params.t_base)
         self.window = (
@@ -266,6 +294,8 @@ class TrainerWorker:
         self.step_hits: list[int] = []
         self.step_misses: list[int] = []
         self.fetched_rows_by_owner = np.zeros(self.n_owners, np.float64)
+        self.sync_wait_s = 0.0       # cluster: cumulative barrier wait
+        self.sync_coll_s = 0.0       # cluster: cumulative collective time
 
         # per-epoch scratch
         self._clk = NetClock()
@@ -297,10 +327,11 @@ class TrainerWorker:
 
     def _tick(self, gstep: int, epoch: int) -> NetClock:
         """Advance the worker's virtual network clock to its meter's wall
-        time and tick the fabric with it."""
+        time (and tick the fabric with it when the worker owns it)."""
         clk = NetClock(self.meter.wall_s, gstep, epoch)
         self._clk = clk
-        self.fabric.tick(clk.t_s, clk.step, clk.epoch)
+        if self._owns_clock:
+            self.fabric.tick(clk.t_s, clk.step, clk.epoch)
         return clk
 
     # ------------------------------------------------------ network substrate
@@ -465,7 +496,13 @@ class TrainerWorker:
             float(np.mean(self.epoch_windows)) if self.epoch_windows else 0
         )
         self.wall_log.append(self.meter.wall_s - self._wall0)
-        if cfg.run_model and self.engine is not None:
+        if cfg.run_model and self.model_state is not None:
+            from repro_torch.train import gnn_trainer as gt
+
+            st = self.model_state
+            self.acc_log.append(gt._model_eval(st["params"], st["cfg"],
+                                               self.graph, st["device"]))
+        elif cfg.run_model and self.engine is not None:
             self.acc_log.append(self.engine.model_eval(self.graph))
         if self.controller is not None and epoch == cfg.warmup_epochs - 1:
             self.controller.observe_warmup()
@@ -632,6 +669,13 @@ class TrainerWorker:
                         o, t_o / max(per_owner[o], 1)
                     )
 
+        if cfg.run_model and self.model_state is not None:
+            from repro_torch.train import gnn_trainer as gt
+
+            self.model_state = gt._model_step(
+                self.model_state, self.mbs[epoch][step]
+            )
+
         self.window_left -= 1
 
     # ------------------------------------------------------ rebuild boundary
@@ -795,6 +839,21 @@ class TrainerWorker:
             np.asarray(self.store.peek_rows(ids[host_pos]), np.float32),
             host_pos, rows, dev_pos,
         )
+
+    # ------------------------------------------------------------ cluster sync
+    def apply_sync(self, wait_s: float, coll_wall_s: float,
+                   coll_cpu_s: float = 0.0, coll_bytes: float = 0.0,
+                   coll_msgs: int = 0) -> None:
+        """Charge this step's gradient-sync barrier wait + collective cost.
+
+        Called on the worker's own thread after the cluster driver has
+        published the step's charges (no thread races this meter)."""
+        self.meter.record_sync(
+            wait_s + coll_wall_s, cpu_comm_s=coll_cpu_s,
+            remote_bytes=coll_bytes, n_rpcs=coll_msgs,
+        )
+        self.sync_wait_s += wait_s
+        self.sync_coll_s += coll_wall_s
 
     # --------------------------------------------------------------- result
     def close(self) -> None:

@@ -200,11 +200,8 @@ class TestRefused:
 
     @pytest.mark.parametrize("override,exc", [
         (dict(trace=True), NotImplementedError),
-        (dict(run_model=True), NotImplementedError),
-        (dict(grad_compression="int8", compute="measured"),
-         NotImplementedError),
-        (dict(grad_compression="topk"), NotImplementedError),
         (dict(grad_compression="zfp", compute="measured"), ValueError),
+        (dict(grad_compression="zfp"), ValueError),
         (dict(compute="sampled"), ValueError),
         (dict(method="greendygnn", q_fn=None), ValueError),
         (dict(scenario="no_such_scenario"), KeyError),
@@ -214,6 +211,35 @@ class TestRefused:
         cfg = dataclasses.replace(cfg, **override)
         with pytest.raises(exc):
             pgt.run(cfg)
+
+    @pytest.mark.parametrize("override", [
+        # seed 0: under seed 1 a batch's seeds repeat a node, and both
+        # packages' model step fails on its labels/logits mismatch
+        dict(run_model=True, seed=0),
+        dict(grad_compression="int8", compute="measured"),
+        dict(grad_compression="topk", compute="measured", topk_frac=0.25),
+        dict(grad_compression="topk"),
+    ], ids=["run_model", "int8", "topk_measured", "topk_modeled"])
+    def test_once_refused_runs(self, override):
+        """The modeled-lane model and the compressed schemes, once refused
+        here, run: the model logs an accuracy per epoch, a compressed
+        measured run its scheme's wire bytes."""
+        cfg = pgt.RunConfig(**dict(SWEEP, method="static_w", device="cpu"))
+        res = pgt.run(dataclasses.replace(cfg, **override))
+        assert len(res.step_hits) == cfg.n_epochs * cfg.steps_per_epoch
+        if override.get("run_model"):
+            assert res.accuracy_per_epoch.shape == (cfg.n_epochs,)
+        rep = res.compute_report
+        if rep is not None:
+            from repro_torch.graph import datasets
+            from repro_torch.train.compute import model_wire_bytes
+
+            graph = datasets.materialize(cfg.dataset, seed=0)
+            scheme = override["grad_compression"]
+            assert rep["grad_compression"] == scheme
+            assert rep["sync_wire_bytes"] == model_wire_bytes(
+                graph, scheme, override.get("topk_frac", 0.05)) \
+                < model_wire_bytes(graph)
 
     def test_async_pipeline_runs(self):
         """``async_pipeline=True``, once refused here, runs: the threaded
