@@ -15,8 +15,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    "wgmma.mma_async instructions are serialized". Likewise fail if an
    instance of the CSR SpMM (``csr_spmm_kernel<G, V>``, 12 of them) or of
    the EmbeddingBag kernel (``embedding_bag_kernel<G, V, U>``, 24 of them)
-   spills, or the queue env's window kernel at the path's owner bound
-   (``queue_window_kernel<4>``; those of 8 and 16 are logged).
+   spills, or the envs' window kernels at the path's owner bound
+   (``queue_window_kernel<4>``, ``cluster_window_kernel<4>``; those of 8
+   and 16 are logged).
 2. The policy phase, first after the build (the profiler has dropped
    kernels from later traces in a process that ran the training's
    millions of launches first): the paper's calibrate -> train -> deploy
@@ -56,6 +57,30 @@ Phases, each of which ends the run with a non-zero exit on failure:
    ``bursty_markov``, where the trained policy's discounted return must
    beat the fresh qnet's (energies logged beside static W = 2 and 16).
    After the timing, the profiled pairs of runs cover the queue env too.
+   The cluster-env phase follows (``phase_cluster_env``): the cluster env
+   (``envs/cluster_sim.py``) on the card against the CPU (reset and 12
+   steps of 28 envs over every queue code, archetype and live-peer count,
+   plain and at ``mem_budget_frac`` 0.3 with the headroom entry,
+   ``TOL_POLICY``); the ``cluster_window`` kernel against its plain
+   version for every archetype, live-peer count, sync mode, peer policy
+   and W at P = 3, 1, 8 and 16 and P = 3 under the spill
+   (``TOL_POLICY``, a relaunch bit-identical, live steps = eff_window);
+   the reduction: at zero peers and clean factors the kernel's outputs
+   ``torch.equal`` to ``queue_window``'s, and a 28-env card episode of
+   the cluster env equal to the queue env's bit for bit;
+   ``get_or_train_policy(env="cluster", n_workers=4)`` on the analytic
+   pool (32 envs, ``POLICY_ITERS`` iterations), 2 launches an iteration
+   + 1; held-out whole episodes (default pools; the full fleet under a
+   hot owner), the trained qnet's discounted return above the fresh
+   qnet's. Then the deployment, in a fresh process of this script
+   (``--deploy DIR``, the qnets passed as files): ``run_cluster`` at
+   P = 4, measured, batch 2000, 3 epochs of 8 steps (1 of warmup), under
+   ``clean``, ``paper_schedule`` and partition 0's NIC at 0.35, with
+   static_w, greendygnn under the cluster-trained policy and greendygnn
+   under the queue-trained one: joules per rank-epoch and barrier wait
+   logged side by side, every rank's launch counts held, and the
+   process's first run's epoch 0 within ``EPOCH0_BAND`` of its later
+   epochs' joules on every rank.
 3. Hold each kernel against its plain PyTorch version on the card, at the
    shapes its main path gives it. The trainer's kernels at the first
    mini-batch of the default ``reddit`` trace: the CSR SpMM for layer 0,
@@ -100,8 +125,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    batch 2000, 3 epochs (2 of warmup) of 8 steps, its controller running
    the table-trained policy of phase 2.
    Every launch count is zeroed just before and read just after; the run
-   must have launched both of its kernels (the CSR SpMM 3 times a step
-   and twice in the parity check; the dense-block kernel never; the
+   must have launched both of its kernels (the CSR SpMM 3 times a step,
+   twice in the parity check and 3 times in each of the engine's untimed
+   first runs of a new shape signature, ``n_compiles``; the dense-block
+   kernel never; the
    EmbeddingBag kernel once a step with hits and once a rebuild that keeps
    rows of the active table, its persisted-row gather), passed
    the CSR-path/scatter parity check (< 2e-3), given finite losses and
@@ -157,7 +184,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    25), device payloads, 3 epochs of 8 steps). Each run zeroes the counts
    just before it and reads them just after; each rank's launches are
    read around its steps (the gate runs one rank at a time): 3 CSR SpMM
-   launches a measured step and 2 in its parity check (the forward ones
+   launches a measured step, 2 in its parity check and 3 in each untimed
+   first run of a new shape signature (the forward ones
    on its ``trainer-worker-{rank}`` thread, the backward's on the thread
    PyTorch's autograd engine keeps for the card), and one EmbeddingBag
    launch a step with hits and one a rebuild that keeps rows, on its own
@@ -213,7 +241,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    ``embedding_bag_persisted``, times the persisted-row gather at the
    threaded run's median rebuild. The ``queue_window`` row times the
    queue env's window kernel at 32 envs and W = 128 (every step live)
-   against its plain version, with its launches in the queue training.
+   against its plain version, with its launches in the queue training;
+   the ``cluster_window`` row likewise at 32 envs (every archetype and
+   live-peer count), P = 3 and W = 128, with its launches in the cluster
+   training.
    TF32 is off throughout: float32 results are compared in full float32.
 8. The last line is ``{"ok": true, "device": {...}}``.
 
@@ -428,7 +459,10 @@ def phase_card_and_build(torch):
     check_wgmma_build(_build.build_log("flash_attention") or "")
     check_csr_build(_build.build_log("csr_spmm") or "")
     check_bag_build(_build.build_log("embedding_bag") or "")
-    check_queue_build(_build.build_log("queue_window") or "")
+    check_window_build(_build.build_log("queue_window") or "",
+                       "queue_window")
+    check_window_build(_build.build_log("cluster_window") or "",
+                       "cluster_window")
     return smi
 
 
@@ -507,28 +541,29 @@ def check_csr_build(text: str) -> None:
                 f"csr_spmm_kernel<{g}, {v}> spills")
 
 
-def check_queue_build(text: str) -> None:
-    """The queue window kernel's ptxas report: one instance per owner
-    bound (4, 8, 16); the path's (P = 3: the instance of 4) must not
+def check_window_build(text: str, stem: str) -> None:
+    """An env window kernel's ptxas report (``queue_window`` or
+    ``cluster_window``, both fluid_window.cuh's code): one instance per
+    owner bound (4, 8, 16); the path's (P = 3: the instance of 4) must not
     spill; the wider ones are logged (their register arrays outgrow 255
     registers)."""
     import re
 
     found = {}
     for name, info in ptxas_functions(text).items():
-        hit = re.search(r"queue_window_kernelILi(\d+)E", name)
+        hit = re.search(rf"{stem}_kernelILi(\d+)E", name)
         if hit:
             found[int(hit.group(1))] = info
     require(sorted(found) == [4, 8, 16],
-            f"ptxas report lists queue_window_kernel instances "
+            f"ptxas report lists {stem}_kernel instances "
             f"{sorted(found)}, not 4, 8 and 16 (is the build log missing?)")
     for p, info in sorted(found.items()):
-        log(f"  ptxas[queue_window] queue_window_kernel<{p}>: "
+        log(f"  ptxas[{stem}] {stem}_kernel<{p}>: "
             f"{info.get('registers')} registers, {info.get('spill_stores')} "
             f"bytes spill stores, {info.get('spill_loads')} bytes spill loads")
     require(found[4].get("spill_stores") == 0
             and found[4].get("spill_loads") == 0,
-            "queue_window_kernel<4> spills")
+            f"{stem}_kernel<4> spills")
 
 
 def check_bag_build(text: str) -> None:
@@ -1024,7 +1059,8 @@ def fixed_draws(torch, draws_cls, device, cover_pool: bool = False):
     """A ``draws_cls`` (an env's ``Draws``) whose draws are a seeded CPU
     generator's, moved to ``device``: the same draws on the card and on
     the CPU. ``cover_pool`` makes env e take entry e % len of the
-    scenario pool, so a batch covers the pool."""
+    scenario pool (and, in the cluster env, of the archetype pool, with
+    the peer counts in turn), so a batch covers the pools."""
     import dataclasses
 
     def to(x):
@@ -1046,6 +1082,16 @@ def fixed_draws(torch, draws_cls, device, cover_pool: bool = False):
 
         def window(self, cfg, n):
             return to(super().window(cfg, n))
+
+        def cluster(self, cfg, n):
+            c = super().cluster(cfg, n)
+            if cover_pool:
+                idx = torch.arange(n)
+                c = dataclasses.replace(
+                    c, kind_idx=idx % len(cfg.cluster_pool),
+                    peers_idx=(idx // len(cfg.cluster_pool))
+                    % len(cfg.resolved_peer_pool()))
+            return to(c)
 
     return FixedDraws(torch.Generator().manual_seed(SEED))
 
@@ -1139,13 +1185,19 @@ def syncs_during(torch, fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def training_cfg(env_name: str):
+def training_cfg(env_name: str, **kw):
     """The env configuration ``train_policy`` trains ``env_name`` at: 30
-    epochs of 32 steps (the queue env: its default scenario pool)."""
+    epochs of 32 steps (the queue env: its default scenario pool; the
+    cluster env: ``CLUSTER_P`` ranks and its default pools), ``kw``
+    replacing fields of the cluster env's."""
     from repro_torch.core import queue_sim as qs, simulator as sim
+    from repro_torch.envs import cluster_sim as cs
 
     if env_name == "queue":
         return qs.QueueEnvConfig(steps_per_epoch=32, n_epochs=30)
+    if env_name == "cluster":
+        return cs.ClusterEnvConfig(n_parts=CLUSTER_P, steps_per_epoch=32,
+                                   n_epochs=30, **kw)
     return sim.EnvConfig(schedule=0, steps_per_epoch=32, n_epochs=30)
 
 
@@ -1644,6 +1696,565 @@ def queue_window_timing_row(torch, device, info):
     }
 
 
+# ------------------------------------------------- the cluster-env phase
+def cluster_env_cfg(n_owners=3, **kw):
+    """The cluster env at ``n_owners + 1`` ranks, 30 epochs of 32 steps
+    (``train_policy``'s), every peer count and archetype in its pools."""
+    from repro_torch.envs import cluster_sim as cs
+
+    return cs.ClusterEnvConfig(**dict(dict(
+        n_parts=n_owners + 1, steps_per_epoch=32, n_epochs=30,
+        peer_pool=tuple(range(n_owners + 1))), **kw))
+
+
+def cluster_window_operands(torch, device, theta, n_owners, windows,
+                            mem=0.0, sync="allreduce", policy="mixed",
+                            seed=SEED, clean=False):
+    """A batch of cluster windows as the env hands them to the kernel:
+    one env for each (archetype, live peers, W), the injected overlay
+    cycling through every queue code, carried fabric and peer states
+    (some peers at their rebuild boundary), eff_window W but cut for some
+    envs. ``clean`` makes every env the zero-peer clean configuration.
+    Returns (cfg, the ego's params, the overlay scenario, Volumes,
+    FabricState, Peers, PeerState, uniforms, window, eff_window, step_pos)
+    on ``device``, drawn on the CPU."""
+    import dataclasses
+
+    from repro_torch.core import controller as ctl, queue_sim as qs
+    from repro_torch.envs import cluster_sim as cs
+    from repro_torch.kernels.cluster_window import ops as cw
+    from repro_torch.train import policy as pol
+
+    g = torch.Generator().manual_seed(seed)
+    cfg = cluster_env_cfg(n_owners, mem_budget_frac=mem, sync=sync,
+                          peer_policy=policy)
+    n_kinds, n_peers = cs.N_CLUSTER, n_owners + 1
+    kinds = torch.arange(n_kinds).repeat_interleave(n_peers * len(windows))
+    peers = torch.arange(n_peers).repeat_interleave(len(windows)).repeat(
+        n_kinds)
+    window = torch.as_tensor(windows, dtype=torch.float32).repeat(
+        n_kinds * n_peers)
+    n = window.shape[0]
+    if clean:
+        kinds, peers = torch.zeros_like(kinds), torch.zeros_like(peers)
+    draws = qs.Draws(g)
+    u = draws.scenario(cfg, n)
+    u = dataclasses.replace(u, pool_idx=torch.arange(n) % len(
+        cfg.scenario_pool))
+    c = dataclasses.replace(cs.ClusterDraws(g).cluster(cfg, n),
+                            kind_idx=kinds, peers_idx=peers)
+    sc = cs.sample_scenario(u, draws.profile(cfg, n), c, cfg)
+    alloc = torch.randint(0, n_owners + 1, (n,), generator=g)
+    weights = ctl.allocation_weights_t(alloc, n_owners)
+    step_pos = torch.floor(torch.rand(n, generator=g) * cfg.total_steps)
+    eff = window.clone()
+    eff[3::5] = torch.floor(window[3::5] / 2)
+    eff[4::7] = 0.0
+    carried = ((torch.rand((n, n_owners), generator=g) < 0.5).float(),
+               40 * torch.rand((n, n_owners), generator=g),
+               0.05 * torch.rand((n, n_owners), generator=g),
+               0.05 * torch.rand((n, n_owners), generator=g),
+               0.05 * torch.rand(n, generator=g))
+    peer_state = cw.PeerState(
+        0.05 * torch.rand((n, n_owners), generator=g) * (peers > 0)[:, None],
+        torch.randint(-1, 24, (n,), generator=g).float(),
+        torch.randint(4, 33, (n,), generator=g).float())
+    uniforms = draws.window(cfg, n)
+    sc, window, weights, step_pos, eff, uniforms, carried, peer_state = \
+        to_device((sc, window, weights, step_pos, eff, uniforms, carried,
+                   peer_state), device)
+    params = pol.make_params_pool([theta] * n, device=device)
+    ego = dataclasses.replace(params, t_base=params.t_base * sc.ego_compute)
+    _, vol, fabric = qs.window_operands(cfg, ego, window, weights, *carried,
+                                        demand=sc.demand_skew)
+    return (cfg, ego, sc.base, vol, fabric, cs.peer_operands(cfg, params, sc),
+            peer_state, uniforms, window, eff, step_pos)
+
+
+def cluster_kernel_vs_plain(torch, device, theta):
+    """The ``cluster_window`` kernel against its plain version on the card,
+    on the same operands: every archetype, every live-peer count, every
+    W and every queue code, at P = 3 (the path's), 1, 8 and 16, and P = 3
+    under ``mem_budget_frac`` 0.3; each of those in three batches (the
+    sync modes, with the static, reactive and mixed peers); every output
+    within ``TOL_POLICY``, a relaunch bit-identical, live steps =
+    eff_window. Returns the largest |diff|."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.kernels.cluster_window import ops as cw
+
+    worst = 0.0
+    batches = (("allreduce", "static"), ("reduce_scatter", "greendygnn"),
+               ("none", "mixed"))
+    for p, mem in ((3, 0.0), (3, 0.3), (1, 0.0), (8, 0.0), (16, 0.0)):
+        n_env = live = 0
+        for b, (sync, policy) in enumerate(batches):
+            args = cluster_window_operands(
+                torch, device, theta, p, cm.WINDOW_CHOICES, mem=mem,
+                sync=sync, policy=policy, seed=SEED + b)
+            got = cw.as_dict(*cw.cluster_window(*args))
+            again = cw.as_dict(*cw.cluster_window(*args))
+            want = cw.as_dict(*cw.cluster_window_plain(*args))
+            for k, v in want.items():
+                err = float((got[k] - v).abs().max())
+                worst = max(worst, err)
+                require(torch.allclose(got[k], v, **TOL_POLICY),
+                        f"cluster_window P={p} mem {mem} {sync}/{policy}: "
+                        f"{k} max |diff| {err:.3e} against the plain version")
+                require(torch.equal(got[k], again[k]),
+                        f"cluster_window P={p}: {k} differs between launches")
+            require(torch.equal(got["n"], args[9]),
+                    f"cluster_window P={p}: live steps != eff_window")
+            n_env += args[8].shape[0]
+            live += int(args[9].sum())
+        log(f"cluster_window P={p} mem {mem}: 4 archetypes x {p + 1} peer "
+            f"counts x {len(cm.WINDOW_CHOICES)} windows, 3 sync modes and "
+            f"peer policies ({n_env} envs, {live} live steps) within rtol "
+            f"{TOL_POLICY['rtol']}, atol {TOL_POLICY['atol']} of the plain "
+            f"version, relaunch identical")
+    log(f"cluster_window against plain: max |diff| {worst:.3e}")
+    return worst
+
+
+def equal_or_both_nan(torch, a, b) -> bool:
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def cluster_reduction_on_card(torch, device, theta):
+    """With no live peer and clean factors: the ``cluster_window`` kernel's
+    outputs ``torch.equal`` to the ``queue_window`` kernel's on the same
+    operands (every queue code, every W, P = 3 and 8, and P = 3 under the
+    memory spill), and a card episode of the cluster env (reset and 12
+    steps of 28 envs) equal to the queue env's on the same draws, bit for
+    bit (a finished episode's 0 / 0 is NaN on both sides)."""
+    from repro_torch.core import controller as ctl, cost_model as cm
+    from repro_torch.core import queue_sim as qs
+    from repro_torch.envs import cluster_sim as cs
+    from repro_torch.kernels.cluster_window import ops as cw
+    from repro_torch.kernels.queue_window import ops as qw
+    from repro_torch.train import policy as pol
+
+    for p, mem in ((3, 0.0), (3, 0.3), (8, 0.0)):
+        args = cluster_window_operands(torch, device, theta, p,
+                                       cm.WINDOW_CHOICES, mem=mem,
+                                       clean=True)
+        cfg, ego, sc, vol, fabric, peers, peer_state = args[:7]
+        require(float(peers.n_live.sum()) == 0.0
+                and bool((peers.link_scale == 1).all()),
+                "cluster reduction: the operands have live peers")
+        qcfg = qs.QueueEnvConfig(n_owners=p, n_epochs=cfg.n_epochs,
+                                 steps_per_epoch=cfg.steps_per_epoch,
+                                 mem_budget_frac=mem)
+        acc_c, fab_c, ps_c = cw.cluster_window(*args)
+        acc_q, fab_q = qw.queue_window(qcfg, ego, sc, vol, fabric,
+                                       *args[7:])
+        got = cw.as_dict(acc_c, fab_c, ps_c)
+        want = cw.as_dict(acc_q, fab_q, cw.PeerState(
+            torch.zeros_like(fab_q.backlog), ps_c.peer_left,
+            ps_c.peer_window))
+        for k, v in want.items():
+            require(torch.equal(got[k], v),
+                    f"cluster reduction P={p} mem {mem}: {k} of the "
+                    "cluster_window kernel differs from queue_window's")
+    n = 28
+    codes = tuple(sorted(qs.SCENARIO_CODES.values()))
+    ccfg = cs.ClusterEnvConfig(n_parts=4, n_epochs=4, steps_per_epoch=32,
+                               scenario_pool=codes, peer_pool=(0,),
+                               cluster_pool=(0,))
+    qcfg = qs.QueueEnvConfig(n_owners=3, n_epochs=4, steps_per_epoch=32,
+                             scenario_pool=codes)
+    params = pol.make_params_pool([theta] * n, device=device)
+    gc_, gq = (torch.Generator(device=device).manual_seed(SEED + 5)
+               for _ in range(2))
+    dc, dq = cs.ClusterDraws(gc_), qs.Draws(gq)
+    sc_, sq = cs.reset(ccfg, dc, params), qs.reset(qcfg, dq, params)
+    require(torch.equal(sc_.obs, sq.obs),
+            "cluster reduction episode: reset observations differ")
+    actions = torch.Generator().manual_seed(SEED + 6)
+    for i in range(12):
+        a = torch.randint(0, ctl.n_actions(3), (n,),
+                          generator=actions).to(device)
+        sc_, oc, rc, d_c = cs.step(ccfg, sc_, a, dc)
+        sq, oq, rq, d_q = qs.step(qcfg, sq, a, dq)
+        for k, x, y in (("obs", oc, oq), ("reward", rc, rq),
+                        ("backlog", sc_.backlog, sq.backlog),
+                        ("rb_backlog", sc_.rb_backlog, sq.rb_backlog),
+                        ("total_energy", sc_.total_energy, sq.total_energy),
+                        ("total_time", sc_.total_time, sq.total_time)):
+            require(equal_or_both_nan(torch, x, y),
+                    f"cluster reduction episode: step {i} {k} differs from "
+                    "the queue env's")
+        require(torch.equal(d_c, d_q), f"cluster reduction episode: step "
+                f"{i} done differs")
+    log(f"cluster reduction on the card: cluster_window == queue_window "
+        f"(torch.equal) at zero peers (P = 3, 8; the spill), and a {n}-env "
+        f"episode (reset, 12 steps, {int(d_c.sum())} finished) equal to the "
+        f"queue env's bit for bit")
+
+
+def cluster_card_vs_cpu(torch, device, theta):
+    """The cluster env's reset and 12 steps of 28 envs on the card against
+    the same calls on the CPU (the plain version), draws fixed on the host:
+    every queue code and archetype runs, live peers 0 to 3, the actions
+    cycling W = 1, 16 and 128; once by default and once at
+    ``mem_budget_frac`` 0.3 with the headroom entry. Returns the largest
+    |diff|."""
+    from repro_torch.core import controller as ctl, queue_sim as qs
+    from repro_torch.envs import cluster_sim as cs
+    from repro_torch.train import policy as pol
+
+    n = 28
+    codes = tuple(sorted(qs.SCENARIO_CODES.values()))
+    w_idx = (0, 4, 7)
+    actions = [[ctl.encode_action(w_idx[(i + e) % 3], (i * e) % 4, 3)
+                for e in range(n)] for i in range(12)]
+    worst = 0.0
+    for mem, headroom in ((0.0, False), (0.3, True)):
+        cfg = cluster_env_cfg(3, n_epochs=4, scenario_pool=codes,
+                              mem_budget_frac=mem, observe_headroom=headroom)
+
+        def outputs(dev):
+            draws = fixed_draws(torch, cs.ClusterDraws, dev, cover_pool=True)
+            state = cs.reset(cfg, draws,
+                             pol.make_params_pool([theta] * n, device=dev))
+            out = {"reset obs": state.obs}
+            for i, a in enumerate(actions):
+                state, obs, reward, done = cs.step(
+                    cfg, state, torch.as_tensor(a, device=dev), draws)
+                for k, v in (("obs", obs), ("reward", reward),
+                             ("done", done)):
+                    out[f"step {i} {k}"] = v.float()
+                for k in ("total_energy", "total_time", "backlog",
+                          "rb_backlog", "shared_backlog", "peer_backlog",
+                          "peer_left", "peer_window"):
+                    out[f"step {i} {k}"] = getattr(state, k)
+            out["kinds"] = state.scenario.cluster_kind.float()
+            out["peers"] = state.scenario.n_peers.float()
+            return out
+
+        card, cpu = outputs(device), outputs(torch.device("cpu"))
+        require(sorted(set(cpu["kinds"].long().tolist())) == [0, 1, 2, 3]
+                and sorted(set(cpu["peers"].long().tolist())) == [0, 1, 2, 3],
+                "cluster card vs CPU: an archetype or peer count did not run")
+        for k, want in cpu.items():
+            got = card[k].cpu()
+            both_nan = torch.isnan(got) & torch.isnan(want)
+            err = float((got - want).abs().masked_fill(both_nan, 0).max())
+            worst = max(worst, err)
+            require(torch.allclose(got, want, equal_nan=True, **TOL_POLICY),
+                    f"cluster card vs CPU (mem {mem}): {k} max |diff| "
+                    f"{err:.3e}")
+        log(f"cluster card vs CPU, mem_budget_frac {mem}, headroom "
+            f"{headroom}: reset and 12 steps of {n} envs (14 codes, 4 "
+            f"archetypes, 0-3 live peers, W = 1/16/128) within rtol "
+            f"{TOL_POLICY['rtol']}, atol {TOL_POLICY['atol']}")
+    log(f"cluster card vs CPU: max |diff| {worst:.3e}")
+    return worst
+
+
+def phase_cluster_env(torch, device, smi, pools):
+    """The cluster env on the card: card against CPU, the kernel against
+    its plain version, the zero-peer reduction, then
+    ``train_policy(env="cluster", n_workers=4)`` through
+    ``get_or_train_policy`` on the analytic pool (``POLICY_ENVS`` envs,
+    ``POLICY_ITERS`` iterations), its kernel launches counted, and
+    held-out whole episodes. Returns the cluster-trained qnet and what the
+    timing row needs."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.core import controller as ctl, cost_model as cm, dqn
+    from repro_torch.envs import cluster_sim as cs
+    from repro_torch.kernels.cluster_window import ops as cw
+    from repro_torch.train import policy as pol
+
+    t_phase = time.perf_counter()
+    pool = pools["analytic"]
+    theta = cm.CostModelParams(**{
+        f.name: float(getattr(pool, f.name)[0])
+        for f in dataclasses.fields(pool)})
+    cluster_card_vs_cpu(torch, device, theta)
+    err = cluster_kernel_vs_plain(torch, device, theta)
+    cluster_reduction_on_card(torch, device, theta)
+    t_checks = time.perf_counter() - t_phase
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cached, pol.ARTIFACT_DIR = pol.ARTIFACT_DIR, tmp
+        try:
+            torch.cuda.synchronize()
+            cw.cluster_window.launches = 0
+            t0 = time.perf_counter()
+            _, qnet = pol.get_or_train_policy(
+                pool, name="smoke", iterations=POLICY_ITERS, force=True,
+                env="cluster", n_workers=CLUSTER_P, device=str(device),
+                n_envs=POLICY_ENVS, seed=SEED)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = cw.cluster_window.launches
+            with open(pathlib.Path(tmp)
+                      / f"smoke_cluster_p{CLUSTER_P}.json") as f:
+                meta = json.load(f)
+        finally:
+            pol.ARTIFACT_DIR = cached
+    log(f"policy cluster (P={CLUSTER_P}): {POLICY_ITERS} iterations x "
+        f"{POLICY_ENVS} envs on the card in {wall:.2f} s "
+        f"({POLICY_ITERS / wall:.1f} iterations/s, artifact write "
+        f"included), {meta['episodes']} episodes, {meta['grad_steps']} "
+        f"gradient steps, mean reward of the last 200 iterations "
+        f"{meta['final_reward']:.4f}; cluster_window launches {launches} "
+        f"({launches / POLICY_ITERS:.4f} an iteration); {smi}")
+    require(meta["grad_steps"] > 0 and meta["episodes"] > 0,
+            "policy cluster: no gradient step or episode")
+    require(launches == 2 * POLICY_ITERS + 1,
+            f"policy cluster: {launches} cluster_window launches, not 2 an "
+            "iteration + 1")
+
+    fresh = dqn.init_qnet(torch.Generator().manual_seed(99), 23, 32,
+                          device=device)
+    policies = {"trained": dqn.greedy_policy(qnet),
+                "fresh": dqn.greedy_policy(fresh)}
+    for w in (2, 16):
+        a = ctl.encode_action(cm.WINDOW_CHOICES.index(w), 0, 3)
+        policies[f"static W={w}"] = (
+            lambda obs, a=a: torch.full((obs.shape[0],), a,
+                                        device=obs.device))
+    returns = {name: [] for name in policies}
+    for label, kw in (("default pools", {}),
+                      ("full fleet, hot owner", {
+                          "peer_pool": (3,),
+                          "cluster_pool": (cs.CLUSTER_CODES["hot_owner"],)})):
+        cfg = training_cfg("cluster", **kw)
+        for name, fn in policies.items():
+            energy, ret = held_out(torch, device, "cluster", pool, fn,
+                                   cfg=cfg)
+            returns[name].append(ret)
+            log(f"  held-out cluster {label} {name}: energy (J) "
+                f"{_fmt(energy)}, discounted return {_fmt(ret)}")
+    mean = {k: float(torch.cat(v).mean()) for k, v in returns.items()}
+    log(f"policy cluster: held-out mean discounted return {mean}; checks "
+        f"{t_checks:.1f} s, phase {time.perf_counter() - t_phase:.1f} s; "
+        f"{smi}")
+    require(mean["trained"] > mean["fresh"],
+            "policy cluster: the trained policy's discounted return does "
+            "not beat the fresh qnet's on the held-out episodes")
+    return qnet, {"launches": launches, "iterations": POLICY_ITERS,
+                  "max_abs_err": err, "theta": theta}
+
+
+def cluster_window_timing_row(torch, device, info):
+    """The kernel at 32 envs, P = 3 and W = 128 (the training's batch at
+    its longest window, every step live, every archetype and peer count),
+    by CUDA events as the other rows; its plain version on the same
+    operands; the bound from the bytes of the packed operands and outputs
+    and the operations of this batch's live steps."""
+    from repro_torch.kernels.cluster_window import ops as cw
+    from repro_torch.kernels.queue_window import ops as qw
+
+    timer = Timer(torch, device)
+    # 4 archetypes x 4 peer counts x 2 windows = the training's 32 envs
+    args = cluster_window_operands(torch, device, info["theta"], 3,
+                                   (128, 128), seed=SEED + 1)
+    cfg, ego, sc, vol, fabric, peers, peer_state, uniforms, window, eff, \
+        pos = args
+    eff = window.clone()                      # every step live
+    args = args[:9] + (eff, pos)
+    scal, ints, own, state = qw.pack(cfg, ego, sc, vol, fabric, window, eff,
+                                     pos)
+    pscal, pown = cw.pack_peers(ego, peers, peer_state)
+    out = cw.outputs(state)
+    n, p = fabric.backlog.shape
+    before = cw.cluster_window.launches
+    ms = timer.ms(lambda: cw.launch(scal, ints, own, state, uniforms, pscal,
+                                    pown, *out, cfg.n_epochs,
+                                    cfg.steps_per_epoch))
+    cw.cluster_window.launches = before
+    plain = timer.ms(lambda: cw.cluster_window_plain(*args), repeats=5)
+    n_bytes = sum(t.numel() * t.element_size() for t in (
+        scal, ints, own, state, uniforms, pscal, pown, *out))
+    # per live step: the queue window's ~60 operations an env and ~75 an
+    # owner, and the cluster's ~40 an env and ~25 an owner (the peers'
+    # window and volumes, the barrier, the collective's energy, the
+    # drain's peer term), counted from fluid_window.cuh
+    live = float(eff.clamp(max=qw.MAX_WINDOW).sum())
+    n_flops = live * (100 + 100 * p)
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    log(f"time cluster_window n={n} P={p} W=128: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {n_bytes / 1e3:.1f} "
+        f"KB, {n_flops:.4g} operations), kernel / bound "
+        f"{ms / b_ms:.0f}x; {smi_line()}")
+    return {
+        "name": "cluster_window", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cluster_window.cu",
+        "replaces": "src/repro/envs/cluster_sim.py:545 (lax.scan of "
+                    "substep; no pl.pallas_call)",
+        "launches": info["launches"], "max_abs_err": info["max_abs_err"],
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "launches_per_iteration": info["launches"] / info["iterations"],
+    }
+
+
+
+# -------------------------------------------- the cluster deployment phase
+DEPLOY = dict(CLUSTER, warmup_epochs=1)     # 3 epochs of 8 steps
+DEPLOY_SCENARIOS = (("clean", "clean", None),
+                    ("paper_schedule", "paper_schedule", None),
+                    ("hot owner 0.35", "clean", (0.35, 1.0, 1.0, 1.0)))
+# epoch 0's joules a rank against the later epochs' [min, max]
+EPOCH0_BAND = 0.15
+
+
+def phase_cluster_deploy(torch, device, smi, qnets):
+    """The cluster-trained policy deployed where the reference judges it:
+    ``run_cluster`` with P = 4 ranks, the measured lane, batch 2000, 3
+    epochs of 8 steps (1 of warmup), under ``clean``, ``paper_schedule``
+    and partition 0's NIC at 0.35 of its rate; greendygnn under the
+    cluster-trained policy, greendygnn under the queue-trained policy, and
+    static_w, side by side. Each run's launch counts are held
+    (``require_rank_counts``, the engine's untimed first runs included).
+    Run first in a process of its own (``--deploy``), so that its first
+    run, static_w under ``clean``, is the process's first use of the
+    card's training kernels: that run's epoch 0 must cost, on every rank,
+    within ``EPOCH0_BAND`` of the later epochs' joules. Returns {run
+    label: {joules per rank-epoch, barrier wait, ...}}."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core import controller as ctl, cost_model as cm, dqn
+    from repro_torch.train import cluster as cl
+
+    t_phase = time.perf_counter()
+    cc = cl.ClusterConfig(n_workers=CLUSTER_P)
+    decisions = []
+    decide = ctl.AdaptiveController.decide
+
+    def logged_decide(self, stats):
+        out = decide(self, stats)
+        decisions.append((threading.current_thread().name, int(out[0])))
+        return out
+
+    bundles = cl.build_cluster_traces(
+        cluster_cfg("cpu", **DEPLOY), CLUSTER_P)
+    methods = (("static_w", {"method": "static_w"}),
+               ("greendygnn cluster-trained",
+                {"method": "greendygnn",
+                 "q_fn": dqn.q_fn_of(qnets["cluster"])}),
+               ("greendygnn queue-trained",
+                {"method": "greendygnn", "q_fn": dqn.q_fn_of(qnets["queue"])}))
+    out = {}
+    for scen_label, scenario, link in DEPLOY_SCENARIOS:
+        for label, kw in methods:
+            cfg = cluster_cfg(device, **dict(DEPLOY, scenario=scenario,
+                                             **kw))
+            ccs = dataclasses.replace(cc, link_rate_scale=link)
+            decisions.clear()
+            ctl.AdaptiveController.decide = logged_decide
+            try:
+                rep, counts, wall, swaps, per_step = counted_cluster(
+                    torch, cfg, ccs, bundles)
+            finally:
+                ctl.AdaptiveController.decide = decide
+            name = f"{label} {scen_label}"
+            require_rank_counts(f"deploy {name}", rep, counts, swaps)
+            log_cluster(f"deploy {name}", rep, counts, wall, per_step, smi)
+            joules = np.array([[rank_epoch_joules(rep.results[r], e)
+                                for e in range(cfg.n_epochs)]
+                               for r in range(CLUSTER_P)])
+            require(bool(np.all(np.isfinite(joules)) and np.all(joules > 0)),
+                    f"deploy {name}: joules per rank-epoch {joules}")
+            compiles = [rep.results[r].compute_report["n_compiles"]
+                        for r in range(CLUSTER_P)]
+            chosen = [[w for t, w in decisions
+                       if t == f"trainer-worker-{r}"] for r in range(CLUSTER_P)]
+            if kw["method"] == "greendygnn":
+                for r, mine in enumerate(chosen):
+                    require(len(mine) >= 1
+                            and all(w in cm.WINDOW_CHOICES for w in mine),
+                            f"deploy {name}: rank {r} decided {mine}")
+            if not out:
+                # the process's first run (static_w, clean: its epochs
+                # cost alike): the card's first use must stay out of it
+                later = joules[:, 1:]
+                lo = later.min(1) * (1 - EPOCH0_BAND)
+                hi = later.max(1) * (1 + EPOCH0_BAND)
+                require(bool(np.all((joules[:, 0] >= lo)
+                                    & (joules[:, 0] <= hi))),
+                        f"deploy {name}: epoch 0 joules a rank "
+                        f"{joules[:, 0].round(4).tolist()} outside the later "
+                        f"epochs' band [{lo.round(4).tolist()}, "
+                        f"{hi.round(4).tolist()}]")
+                log(f"deploy {name} (first in its process): epoch 0 "
+                    f"{joules[:, 0].round(4).tolist()} J a rank, within "
+                    f"{EPOCH0_BAND:.0%} of the later epochs' "
+                    f"[{later.min():.4f}, {later.max():.4f}]")
+            out[name] = {
+                "joules_per_rank_epoch": float(joules.mean()),
+                "epoch0_j": joules[:, 0].tolist(),
+                "later_j": joules[:, 1:].tolist(),
+                "barrier_wait_s": float(np.sum(rep.sync_wait_s)),
+                "windows": [rep.results[r].window_per_epoch.tolist()
+                            for r in range(CLUSTER_P)],
+                "decisions": chosen,
+                "n_compiles": compiles,
+                "compile_s": [rep.results[r].compute_report["compile_s"]
+                              for r in range(CLUSTER_P)],
+            }
+            log(f"deploy {name}: {out[name]['joules_per_rank_epoch']:.4f} J "
+                f"per rank-epoch (mean), barrier wait "
+                f"{out[name]['barrier_wait_s']:.6f} s over the ranks, "
+                f"decisions by rank {chosen}, mean window per epoch by rank "
+                f"{out[name]['windows']}, "
+                f"untimed first runs {compiles} a rank "
+                f"({max(out[name]['compile_s']):.3f} s at most); {smi}")
+    for scen_label, _, _ in DEPLOY_SCENARIOS:
+        row = {label: round(out[f"{label} {scen_label}"]
+                            ["joules_per_rank_epoch"], 4)
+               for label, _ in methods}
+        log(f"deploy {scen_label}: joules per rank-epoch {row}")
+    log(f"deploy phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def run_deploy_process(torch, qnets):
+    """``phase_cluster_deploy`` in a fresh process (this script with
+    ``--deploy``), the qnets passed as files; its log lines go to this
+    process's output. Returns its results."""
+    import tempfile
+
+    from repro_torch.core import dqn
+
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for name, qnet in qnets.items():
+            dqn.save_qnet(str(pathlib.Path(tmp) / f"{name}.npz"), qnet)
+        sys.stdout.flush()
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--deploy", tmp], timeout=600)
+        require(proc.returncode == 0,
+                f"the deployment process exited {proc.returncode}")
+        with open(pathlib.Path(tmp) / "deploy.json") as f:
+            out = json.load(f)
+    log(f"deploy: the fresh process took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def deploy_main(torch, device, tmp) -> int:
+    """The ``--deploy DIR`` entry: the deployment phase first in this
+    process, on the qnets in DIR; its results to DIR/deploy.json."""
+    from repro_torch.core import dqn
+
+    smi = smi_line()
+    qnets = {name: dqn.load_qnet(str(pathlib.Path(tmp) / f"{name}.npz"),
+                                 device=device)
+             for name in ("cluster", "queue")}
+    out = phase_cluster_deploy(torch, device, smi, qnets)
+    with open(pathlib.Path(tmp) / "deploy.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 # ------------------------------------------------------------- phase 3
 def phase_main_path(torch, device, qnet):
     """The GreenDyGNN trainer's main path, its controller driven by
@@ -1689,9 +2300,11 @@ def phase_main_path(torch, device, qnet):
         f"{len(plans)} rebuilds ({kept} carrying persisted rows), "
         f"decisions {decisions}")
     log(f"main path: losses {[round(x, 4) for x in rep['losses']]}")
-    # 2 forward + 1 backward per step, and 2 forward in the parity check
-    require(counts["csr_spmm"] == 3 * n_steps + 2,
-            f"csr_spmm launches {counts['csr_spmm']} != 3 per step + 2")
+    # 2 forward + 1 backward per step, 2 forward in the parity check, and
+    # 3 in the engine's untimed first run of each new shape signature
+    require(counts["csr_spmm"] == 3 * n_steps + 2 + 3 * rep["n_compiles"],
+            f"csr_spmm launches {counts['csr_spmm']} != 3 per step + 2 + 3 "
+            f"per untimed first run ({rep['n_compiles']})")
     require(counts["block_spmm"] == 0,
             f"the trainer launched the dense-block kernel "
             f"{counts['block_spmm']} times")
@@ -1710,7 +2323,8 @@ def phase_main_path(torch, device, qnet):
     require(len(decisions) >= 1, "the controller never decided")
     step_ms = statistics.median(rep["step_s"]) * 1e3
     log(f"main path: parity_max_diff {rep['parity_max_diff']:.3e}, median "
-        f"measured step {step_ms:.3f} ms")
+        f"measured step {step_ms:.3f} ms, {rep['n_compiles']} untimed first "
+        f"runs ({rep['compile_s']:.3f} s, agg_impl {rep['agg_impl']})")
     return counts, step_ms, n_steps
 
 
@@ -1824,7 +2438,10 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
 
     for attempt in (1, 2):
         bags0, csr0 = embedding_bag.launches, csr_spmm.launches
+        compiles0 = w.engine.n_compiles
         by_name = traced(torch, lambda: window(n_warm + attempt * n_each))
+        # a new shape signature's untimed first run launches 3 more
+        warm_runs = w.engine.n_compiles - compiles0
         wrapper_bags = embedding_bag.launches - bags0
         traced_csr = sum(cnt for name, (_, cnt) in by_name.items()
                          if "csr_spmm_kernel" in name)
@@ -1863,9 +2480,11 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
     log(f"profile: {n_csr} csr_spmm_kernel launches in {n_each} steps, "
         f"{sum(us for us, _ in csr) / 1e3 / n_each:.4f} ms/step of device "
         f"time; {n_dense} block_spmm_kernel launches")
-    require(n_csr == 3 * n_each and n_dense == 0,
-            f"profile: {n_csr} csr_spmm_kernel launches (want {3 * n_each}) "
-            f"and {n_dense} block_spmm_kernel (want 0)")
+    want_csr = 3 * (n_each + warm_runs)
+    require(n_csr == want_csr and n_dense == 0,
+            f"profile: {n_csr} csr_spmm_kernel launches (want {want_csr}: "
+            f"{warm_runs} untimed first runs) and {n_dense} "
+            "block_spmm_kernel (want 0)")
     bags = [(us, cnt) for name, (us, cnt) in by_name.items()
             if "embedding_bag_kernel" in name]
     n_bags = sum(cnt for _, cnt in bags)
@@ -2032,8 +2651,9 @@ def counted_run(torch, cfg, bundle):
 
 
 def require_path_counts(label, res, counts, plans, measured=True):
-    """The main path's launch rules: 3 CSR launches a measured step and 2
-    in the parity check, no dense-block launch, one gather a step with
+    """The main path's launch rules: 3 CSR launches a measured step, 2 in
+    the parity check and 3 in each untimed first run of a new shape
+    signature (``n_compiles``), no dense-block launch, one gather a step with
     hits and one persisted-row gather for each rebuild in ``plans`` that
     keeps rows of the active table; with the threaded pipeline, every
     persisted-row gather is launched on the builder thread, and no other
@@ -2042,10 +2662,10 @@ def require_path_counts(label, res, counts, plans, measured=True):
     n_steps = len(res.step_hits)
     with_hits = int((res.step_hits > 0).sum())
     if measured:
-        require(counts["csr_spmm"] == 3 * n_steps + 2,
-                f"{label}: csr_spmm launches {counts['csr_spmm']} != 3 per "
-                "step + 2")
         rep = res.compute_report
+        require(counts["csr_spmm"] == 3 * n_steps + 2 + 3 * rep["n_compiles"],
+                f"{label}: csr_spmm launches {counts['csr_spmm']} != 3 per "
+                f"step + 2 + 3 per untimed first run ({rep['n_compiles']})")
         require(rep["n_steps"] == n_steps, f"{label}: measured steps missing")
         require(all(math.isfinite(v) for v in rep["losses"]),
                 f"{label}: non-finite loss")
@@ -2911,12 +3531,14 @@ def counted_cluster(torch, cfg, cc, bundles):
 
 def require_rank_counts(label, rep, counts, swaps, measured=True):
     """Each active rank launched its own kernels: 3 CSR launches a
-    measured step and 2 in its parity check, one gather a step with hits
-    and one persisted-row gather a rebuild that keeps rows. The forward
-    launches and the gathers run on the rank's ``trainer-worker-{rank}``
-    thread; the backward's CSR launch (layer 1 transposed) on the thread
-    PyTorch's autograd engine keeps for the card, one a measured step;
-    no other thread launched, and the dense-block kernel never ran."""
+    measured step, 2 in its parity check and 3 in each of its engine's
+    untimed first runs of a new shape signature (``n_compiles``), one
+    gather a step with hits and one persisted-row gather a rebuild that
+    keeps rows. The forward launches and the gathers run on the rank's
+    ``trainer-worker-{rank}`` thread; the backward's CSR launch (layer 1
+    transposed) on the thread PyTorch's autograd engine keeps for the
+    card, one a measured step and one an untimed first run; no other
+    thread launched, and the dense-block kernel never ran."""
     ranks = {f"trainer-worker-{r}" for r in rep.active_ranks}
     backward = 0
     for r in rep.active_ranks:
@@ -2928,14 +3550,15 @@ def require_rank_counts(label, rep, counts, swaps, measured=True):
                    for t, plan in swaps if t == name)
         csr = counts["by_rank"]["csr_spmm"].get(r, 0)
         bags = counts["by_rank"]["embedding_bag"].get(r, 0)
-        want = 3 * n_steps + 2 if measured else 0
+        warm = res.compute_report["n_compiles"] if measured else 0
+        want = 3 * n_steps + 2 + 3 * warm if measured else 0
         require(csr == want, f"{label}: rank {r} launched csr_spmm {csr} "
-                f"times, not {want}")
+                f"times, not {want} ({warm} untimed first runs)")
         fwd = counts["csr_spmm"].get(name, 0)
-        want_fwd = 2 * n_steps + 2 if measured else 0
+        want_fwd = 2 * n_steps + 2 + 2 * warm if measured else 0
         require(fwd == want_fwd, f"{label}: rank {r}'s thread launched "
                 f"csr_spmm {fwd} times, not {want_fwd}")
-        backward += n_steps if measured else 0
+        backward += n_steps + warm if measured else 0
         require(bags == counts["embedding_bag"].get(name, 0)
                 == with_hits + kept,
                 f"{label}: rank {r} launched embedding_bag {bags} times "
@@ -3293,7 +3916,8 @@ def cluster_profile(torch, device, bundles, per_step):
         f"{1.0 - busy_ms / host_ms:.4f} of the unprofiled host wall "
         f"({host_ms:.3f} ms a global step; {profiled_ms:.3f} ms profiled); "
         f"{n_csr} csr_spmm_kernel and {n_bag} embedding_bag_kernel launches "
-        f"in the trace (want {3 * 2 * CLUSTER_P} csr_spmm)")
+        f"in the trace ({3 * 2 * CLUSTER_P} csr_spmm for the steps, and 3 for "
+        "each untimed first run of a new shape signature)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     for name, (us, cnt) in top:
         log(f"  device {us / 1e3 / 2:8.4f} ms/global step x{cnt / 2:5.1f}"
@@ -3707,12 +4331,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    if sys.argv[1:2] == ["--deploy"]:
+        return deploy_main(torch, device, sys.argv[2])
 
     t_start = time.perf_counter()
     smi = phase_card_and_build(torch)
     qnet, policy_pools = phase_policy(torch, device, smi)
     queue_qnet, queue_info = phase_queue(torch, device, smi, policy_pools)
+    cluster_qnet, cluster_info = phase_cluster_env(torch, device, smi,
+                                                   policy_pools)
+    run_deploy_process(torch, {"cluster": cluster_qnet, "queue": queue_qnet})
     policy_pools["queue"] = policy_pools["analytic"]
+    policy_pools["cluster"] = policy_pools["analytic"]
     ops = main_path_operands(torch, device)
     ops["errs"] = phase_kernels_vs_plain(torch, device, ops)
     wide_err = phase_spmm_widths(torch, device, ops)
@@ -3745,6 +4375,7 @@ def main() -> int:
     rows.append(flash_timing_row(torch, device, flash_operands,
                                  lm_counts["flash_attention"], flash_err))
     rows.append(queue_window_timing_row(torch, device, queue_info))
+    rows.append(cluster_window_timing_row(torch, device, cluster_info))
     phase_policy_profile(torch, device, policy_pools)
     log(f"median measured step: {step_ms:.4f} ms; total "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -524,16 +524,17 @@ def _window_dynamics(cfg, params, sc: QueueScenario, uniforms, window,
 
 
 def window_operands(cfg, params, window, weights, util_state, delta_level,
-                    backlog, rb_backlog, shared_backlog):
+                    backlog, rb_backlog, shared_backlog, demand=None):
     """What a window's loop takes besides the scenario and the draws: the
     per-owner hit rates (n, P), the decision's ``Volumes`` (the memory
     spill applied) and the ``FabricState`` it starts from, the boundary's
-    rebuild work queued on the links."""
+    rebuild work queued on the links. ``demand`` (n, P) skews per-owner
+    demand (the cluster twin's); None keeps the queue env's operations."""
     n_owners = cfg.n_owners
     h_o, miss_rows, miss_work, active, rb_work, rb_cpu = action_volumes(
-        params, window, weights, n_owners)
+        params, window, weights, n_owners, demand=demand)
     miss_work_ref, active_ref, rb_work_ref, rb_cpu_ref = reference_volumes(
-        params, n_owners)
+        params, n_owners, demand=demand)
     if cfg.mem_budget_frac > 0.0:
         # the working set past the host budget is evicted mid-window and
         # re-fetched over the same links; the reference action pays its

@@ -18,8 +18,12 @@ uniformly:
   queue         ``core.queue_sim``            single-requester fluid
                                               fabric twin, scenario-
                                               conditioned
-  cluster       not ported (ROADMAP queue 1   P-requester fluid twin
-                item 4)
+  cluster       ``envs.cluster_sim``          P-requester fluid twin:
+                                              shared owner NICs, peer
+                                              rebuild storms, barrier and
+                                              ring-collective coupling,
+                                              rank heterogeneity, demand
+                                              skew
   ============ ============================= ===========================
 """
 from __future__ import annotations
@@ -27,20 +31,15 @@ from __future__ import annotations
 # Named training environments, in lineage order.
 ENVS = ("analytic", "table", "queue", "cluster")
 
-_NOT_PORTED = {
-    "cluster": "the cluster env (envs/cluster_sim.py) is not ported yet: "
-               "ROADMAP queue 1 item 4 (the cluster)",
-}
-
 
 def resolve_env(env, params_pool=None):
     """Resolve an env spec (name, module, or None) to an env module.
 
-    ``None`` infers analytic-vs-table from the pool's parameter type.
-    ``"cluster"`` raises ``NotImplementedError``."""
+    ``None`` infers analytic-vs-table from the pool's parameter type."""
     from repro_torch.core import queue_sim
     from repro_torch.core import simulator as sim
     from repro_torch.core import table_sim
+    from repro_torch.envs import cluster_sim
 
     if env is None:
         return (
@@ -48,11 +47,9 @@ def resolve_env(env, params_pool=None):
             if isinstance(params_pool, table_sim.TableParams) else sim
         )
     if isinstance(env, str):
-        if env in _NOT_PORTED:
-            raise NotImplementedError(_NOT_PORTED[env])
         try:
             return {"analytic": sim, "table": table_sim,
-                    "queue": queue_sim}[env]
+                    "queue": queue_sim, "cluster": cluster_sim}[env]
         except KeyError:
             raise ValueError(
                 f"unknown training env {env!r}; expected one of {ENVS}"

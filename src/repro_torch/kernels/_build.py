@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes``; the sources
 are compiled in parallel, one ``nvcc`` each. Libraries land in
 ``build/kernels/<hash>/`` at the repository root (listed in
-``.gitignore``), keyed by a hash of the source text and the flags, so an
-edited source is rebuilt on first use and an unchanged one is reused.
+``.gitignore``), keyed by a hash of the source text, of the ``csrc/``
+headers it includes and of the flags, so an edited source or header is
+rebuilt on first use and an unchanged one is reused.
 
 Nothing is built at import time: the first kernel launch (or an explicit
 :func:`build_all`) builds. Without ``nvcc`` the build raises; there is no
@@ -17,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -46,11 +48,15 @@ ENTRIES = {
     # scal, ints, own, state, unif, acc, acc_own, state_out, n, P,
     # n_epochs, steps_per_epoch, stream
     "queue_window_f32": ("queue_window", (_P,) * 8 + (_I,) * 4 + (_P,)),
+    # scal, ints, own, state, unif, pscal, pown, acc, acc_own, state_out,
+    # pstate_out, pback_out, n, P, n_epochs, steps_per_epoch, stream
+    "cluster_window_f32": ("cluster_window", (_P,) * 12 + (_I,) * 4 + (_P,)),
 }
-# Flags a source takes beyond NVCC_FLAGS: the queue env's window scan keeps
-# every product and sum apart (no FMA contraction), as its plain version's
+# Flags a source takes beyond NVCC_FLAGS: the envs' window scans keep every
+# product and sum apart (no FMA contraction), as their plain versions'
 # eager operations round them.
-EXTRA_FLAGS = {"queue_window": ("-fmad=false",)}
+EXTRA_FLAGS = {"queue_window": ("-fmad=false",),
+               "cluster_window": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _launch_lock = threading.Lock()
@@ -75,9 +81,17 @@ def _flags(stem: str) -> tuple[str, ...]:
     return NVCC_FLAGS + EXTRA_FLAGS.get(stem, ())
 
 
+def sources(stem: str) -> list[pathlib.Path]:
+    """The source ``stem.cu`` and the ``csrc/`` headers it includes
+    (``#include "name"``), the source first."""
+    src = CSRC / f"{stem}.cu"
+    headers = re.findall(r'^#include "([^"]+)"', src.read_text(), re.M)
+    return [src] + [CSRC / h for h in headers]
+
+
 def _lib_path(stem: str) -> pathlib.Path:
-    src = (CSRC / f"{stem}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(_flags(stem)).encode()).hexdigest()[:16]
+    text = b"".join(p.read_bytes() for p in sources(stem))
+    h = hashlib.sha256(text + " ".join(_flags(stem)).encode()).hexdigest()[:16]
     return BUILD_DIR / h / f"lib{stem}.so"
 
 

@@ -95,7 +95,10 @@ def queue_window_plain(cfg, params, sc, vol: Volumes, fabric: FabricState,
     acc["active"] = torch.zeros_like(backlog)
     active, miss_work = vol.active, vol.miss_work
 
-    for i in range(MAX_WINDOW):
+    # past every env's eff_window a step changes nothing (the kernel's
+    # threads stop there): one read of the longest, and the loop ends
+    for i in range(min(MAX_WINDOW, int(torch.ceil(eff_window.max())))
+                   if eff_window.numel() else 0):
         live = (i < eff_window).float()
         on = live[:, None] > 0
         step = step_pos + i

@@ -203,8 +203,8 @@ class CacheBuilder:
             ticket, window_batches, weights = item
             try:
                 ticket.result = self._build(ticket, window_batches, weights)
-            # thread boundary: the ticket ferries the exception to the
-            # consumer, which re-raises it in wait()
+            # greenlint: broad-except — thread boundary: the ticket ferries
+            # the exception to the consumer, which re-raises it in wait()
             except BaseException as e:
                 ticket.error = e
             finally:

@@ -258,9 +258,13 @@ def build_cluster_traces(cfg, n_workers: int, silent_ranks: tuple = (),
     from repro_torch.train import gnn_trainer as gt
 
     if graph is None:
-        # the graph/partition are fixtures shared by every method and seed
+        # greenlint: literal-ok — the graph/partition are fixtures shared by
+        # every method and seed; plumbing cfg.seed here would change the
+        # dataset per run and break cross-method comparability
         graph = datasets.materialize(cfg.dataset, seed=0)
     if owner is None:
+        # greenlint: literal-ok — same fixture contract as the dataset above:
+        # the partition layout is shared by every method/seed on purpose
         owner = partition_graph(graph, cfg.n_parts, seed=0)
     rngs = worker_rngs(cfg.seed, n_workers)
     empty = np.empty(0, np.int64)
@@ -369,7 +373,8 @@ class _StepGate:
             self._raise_if_failed()
 
     def _raise_if_failed(self) -> None:
-        # callers hold self.cv
+        # greenlint: lock-ok — contract: callers hold self.cv (every call
+        # site is inside `with self.cv:` in this class)
         if self.error is not None:
             raise RuntimeError("cluster worker failed") from self.error
 
@@ -552,8 +557,8 @@ def run_cluster(cfg, cluster: ClusterConfig | None = None,
                         gate.depart(w.rank, g)
                         w.apply_sync(*gate.finish_step(w.rank, g))
                     w.end_epoch(epoch)
-        # the thread boundary: gate.fail ferries the exception to the
-        # driver, which re-raises it
+        # greenlint: broad-except — thread boundary: gate.fail ferries the
+        # exception to the driver, which re-raises via _raise_if_failed
         except BaseException as exc:  # noqa: BLE001
             gate.fail(exc)
 

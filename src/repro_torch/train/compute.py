@@ -30,8 +30,15 @@ float4 at any width (``full_graph_sm``'s 1,433 included); the pad columns
 are never read into a result. The step is timed with CUDA events on the card and
 ``time.perf_counter`` on the CPU. On the first step ``check_parity``
 holds the CSR path against the plain scatter path
-(``sage.apply_blocks``), tolerance 2e-3. Gradient sync flows through
-``grad_compression`` with error feedback between the gradients and AdamW;
+(``sage.apply_blocks``), tolerance 2e-3. A step whose shape signature
+(the padded input's shape and each layer's padded sizes, the
+reference's) is new first runs once whole, untimed, on clones of the
+parameters, the optimizer state and the error feedback: the backward,
+the autograd engine's device thread, cuBLAS and AdamW's kernels meet
+the shape there, where the reference compiles it ahead of time, and the
+time goes to ``compile_s`` and ``n_compiles``, not to ``step_s``.
+Gradient sync flows through ``grad_compression`` with error feedback
+between the gradients and AdamW;
 ``sync_wire_bytes`` is what the cluster driver feeds into
 ``ring_collective_cost`` in place of the uncompressed payload.
 """
@@ -134,6 +141,10 @@ class ComputeEngine:
         self.step_edges: list[int] = []
         self.parity_max_diff: float | None = None
         self._parity_tol = 2e-3
+        self._warmed: set = set()          # shape signatures run untimed
+        self.compile_s = 0.0
+        self.n_compiles = 0
+        self.agg_impl = "csr" if self.device.type == "cuda" else "plain"
 
     def load_params(self, tree: dict) -> None:
         """Replace the parameters with numpy arrays in the reference's
@@ -275,17 +286,44 @@ class ComputeEngine:
         self.params = optim.apply_updates(self.params, upd)
         return loss
 
+    def _warm_up(self, x_pad, layers) -> None:
+        """The whole step once, untimed, on clones of the parameters, the
+        optimizer state and the error feedback, which are put back: the
+        run's state and streams are those of a run without it."""
+        state = (self.params, self.opt_state, self.error)
+        self.params, self.error = (
+            optim.tree_map(torch.clone, t) for t in (self.params, self.error))
+        self.opt_state = dataclasses.replace(
+            self.opt_state, mu=optim.tree_map(torch.clone, self.opt_state.mu),
+            nu=optim.tree_map(torch.clone, self.opt_state.nu))
+        t0 = time.perf_counter()
+        try:
+            self._step_fn(x_pad, layers)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        finally:
+            self.params, self.opt_state, self.error = state
+        self.compile_s += time.perf_counter() - t0
+        self.n_compiles += 1
+
     # --------------------------------------------------------------- step
     def step(self, mb, x_in, key=None) -> float:
         """One measured forward/backward/optimizer step over ``x_in``, the
         resolved feature rows for ``mb.input_nodes`` (an
-        :class:`InputRows` or an array). Returns its measured seconds;
+        :class:`InputRows` or an array). Returns its measured seconds (a
+        new shape signature's untimed first run is in ``compile_s``);
         loss/edge-count/timing streams accumulate on the engine.
         """
         layers, x_rows, n_edges = self.prepare(mb, key)
         x_pad = self.input_rows(x_in, x_rows)
         if self.parity_max_diff is None:
             self.check_parity(mb, x_in, _prep=(layers, x_pad))
+        sig = (tuple(x_pad.shape),) + tuple(
+            (layer["counts"].shape[0], layer["fwd"].n_cols)
+            for layer in layers)
+        if sig not in self._warmed:
+            self._warm_up(x_pad, layers)
+            self._warmed.add(sig)
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -348,12 +386,20 @@ class ComputeEngine:
 
         return gt._model_eval(self.params, self.mcfg, graph, self.device)
 
+    def calibration_samples(self) -> tuple[np.ndarray, np.ndarray]:
+        """(n_edges, step_s) pairs for ``calibration.calibrate_compute``."""
+        return (np.asarray(self.step_edges, np.float64),
+                np.asarray(self.step_s, np.float64))
+
     def report(self) -> dict:
         return {
             "n_steps": len(self.step_s),
             "losses": list(self.losses),
             "step_s": list(self.step_s),
             "step_edges": list(self.step_edges),
+            "compile_s": self.compile_s,
+            "n_compiles": self.n_compiles,
+            "agg_impl": self.agg_impl,
             "device": str(self.device),
             "grad_compression": self.scheme,
             "sync_wire_bytes": self.sync_wire_bytes,

@@ -1,11 +1,11 @@
 """End-to-end policy pipeline: calibrate -> train Double-DQN -> deploy.
 
-Port of ``repro/train/policy.py`` for the analytic, table and queue envs:
-the
-paper's three phases (Section IV), Algorithm-1 calibration against the
-port's trace-driven trainer, simulator training with domain
-randomization (``core/dqn.py``, on the card by default), and a deployable
-``q_fn`` for the ``AdaptiveController`` that runs on the qnet's device.
+Port of ``repro/train/policy.py`` for the analytic, table, queue and
+cluster envs: the paper's three phases (Section IV), Algorithm-1
+calibration against the port's trace-driven trainer, simulator training
+with domain randomization (``core/dqn.py``, on the card by default), and
+a deployable ``q_fn`` for the ``AdaptiveController`` that runs on the
+qnet's device.
 
 Artifacts (the qnet's npz and a JSON of its training summary) are cached
 under a directory of the port's own, ``$REPRO_TORCH_ARTIFACTS`` or
@@ -66,6 +66,8 @@ def calibrate_from_bundle(bundle, run_cfg) -> tuple[cm.CostModelParams, dict]:
     """
     from repro_torch.train import gnn_trainer as gt
 
+    # greenlint: literal-ok — the reference fits hit rate and rebuild cost on
+    # the bundle's first 4 epochs (traces[:4]), whatever run_cfg.n_epochs
     remote_trace, owner_idx, capacity, bytes_per_row = _remote_trace(
         bundle, run_cfg, 4)
     base = cm.CostModelParams(feature_bytes=bytes_per_row)
@@ -107,6 +109,8 @@ def calibrate_from_bundle(bundle, run_cfg) -> tuple[cm.CostModelParams, dict]:
 def calibrate_table_from_bundle(bundle, run_cfg) -> table_sim.TableParams:
     """Tabular Phase-2 calibration (see core/table_sim.py): replay the real
     trace through the real cache per (W, allocation) pair."""
+    # greenlint: literal-ok — the reference measures its tables on the
+    # bundle's first 3 epochs (traces[:3]), whatever run_cfg.n_epochs
     remote_trace, owner_idx, capacity, bytes_per_row = _remote_trace(
         bundle, run_cfg, 3)
     tables = table_sim.measure_table(
@@ -139,9 +143,8 @@ def make_params_pool(thetas: list, device: str | torch.device = "cuda"):
 def resolve_env(env, params_pool=None):
     """Resolve an env spec (name, module, or None) to an env module:
     ``"analytic"`` (core.simulator), ``"table"`` (core.table_sim),
-    ``"queue"`` (core.queue_sim); None infers from the pool's parameter
-    type; ``"cluster"`` raises ``NotImplementedError`` (see
-    :func:`repro_torch.envs.resolve_env`)."""
+    ``"queue"`` (core.queue_sim), ``"cluster"`` (envs.cluster_sim, the
+    P-requester twin); None infers from the pool's parameter type."""
     return envs_lib.resolve_env(env, params_pool)
 
 
@@ -156,42 +159,64 @@ def train_policy(
                                  # normalized to [0, 1], so deployment may
                                  # use a different epoch length
     n_epochs: int = 30,
-    scenario_pool=None,          # queue env: registry specs or codes
+    scenario_pool=None,          # queue/cluster env: registry specs or
+                                 # codes
     n_owners: int | None = None,  # remote owners per worker (n_parts - 1,
                                  # default 3); sizes the obs/action spaces
-    n_workers: int | None = None,  # cluster env: cluster size P
-    cluster_kwargs: dict | None = None,  # cluster env: ClusterEnvConfig
-                                 # fields
+    n_workers: int | None = None,  # cluster env: cluster size P (implies
+                                 # n_owners = P - 1)
+    cluster_kwargs: dict | None = None,  # cluster env: extra
+                                 # ClusterEnvConfig fields (cluster_pool,
+                                 # peer_pool, sync, ...)
     device: str = "cuda",
 ) -> dict:
-    """Train a Double-DQN policy in the analytic, table or queue env on
-    ``device`` (the pool must live there). It refuses what the reference
-    refuses: ``scenario_pool`` outside the queue env, an empty pool,
-    ``n_workers`` outside the cluster env; and ``cluster_kwargs``, until
-    the cluster env is ported (ROADMAP queue 1 item 4)."""
+    """Train a Double-DQN policy in the analytic, table, queue or cluster
+    env on ``device`` (the pool must live there). It refuses what the
+    reference refuses: ``scenario_pool`` outside the queue and cluster
+    envs, an empty pool, ``n_workers`` outside the cluster env, and
+    ``n_owners`` other than ``n_workers - 1``; ``cluster_kwargs`` applies
+    to the cluster env only."""
+    from repro_torch.envs import cluster_sim
+
     env = resolve_env(env, params_pool)
-    if scenario_pool is not None and env is not queue_sim:
+    if scenario_pool is not None and env not in (queue_sim, cluster_sim):
         raise ValueError(
             "scenario_pool only applies to the queue/cluster envs; the "
             "analytic/table envs draw from the legacy archetype schedule"
         )
-    if n_workers is not None:
+    if n_workers is not None and env is not cluster_sim:
         raise ValueError("n_workers only applies to the cluster env")
     if scenario_pool is not None and not scenario_pool:
         raise ValueError("scenario_pool is empty; pass None for the "
                          "default training pool")
-    if cluster_kwargs is not None:
-        raise NotImplementedError(
-            "cluster_kwargs configures the cluster env, which is not "
-            "ported yet: ROADMAP queue 1 item 4")
-    n_owners = 3 if n_owners is None else n_owners
-    if env is queue_sim:
-        pool = queue_sim.default_training_pool() if scenario_pool is None \
-            else tuple(queue_sim.code_for(s) if isinstance(s, str)
-                       else int(s) for s in scenario_pool)
+    if scenario_pool is not None:
+        scenario_pool = tuple(
+            queue_sim.code_for(s) if isinstance(s, str) else int(s)
+            for s in scenario_pool)
+    if env is not cluster_sim and n_owners is None:
+        n_owners = 3
+    if env is cluster_sim:
+        if n_workers is None:
+            n_workers = (3 if n_owners is None else n_owners) + 1
+        elif n_owners is not None and n_owners != n_workers - 1:
+            raise ValueError(
+                f"n_workers={n_workers} implies n_owners="
+                f"{n_workers - 1}, got n_owners={n_owners}"
+            )
+        n_owners = n_workers - 1
+        kw = dict(cluster_kwargs or {})
+        if scenario_pool is not None:
+            kw["scenario_pool"] = scenario_pool
+        env_cfg = cluster_sim.ClusterEnvConfig(
+            n_parts=n_workers, steps_per_epoch=steps_per_epoch,
+            n_epochs=n_epochs, **kw,
+        )
+    elif env is queue_sim:
+        if scenario_pool is None:
+            scenario_pool = queue_sim.default_training_pool()
         env_cfg = queue_sim.QueueEnvConfig(
             n_owners=n_owners, steps_per_epoch=steps_per_epoch,
-            n_epochs=n_epochs, scenario_pool=pool,
+            n_epochs=n_epochs, scenario_pool=scenario_pool,
         )
     else:
         env_cfg = sim.EnvConfig(
@@ -223,15 +248,22 @@ def get_or_train_policy(
     network under :data:`ARTIFACT_DIR`.
 
     Named envs get per-env artifacts (``<name>_<env>.npz``), so
-    checkpoints trained on different dynamics never collide. A missing or
+    checkpoints trained on different dynamics never collide; the cluster
+    env's also carry the cluster size (``<name>_cluster_p<P>.npz``, from
+    ``n_workers=P``), since its spaces and its congestion are per P. A
+    missing or
     unreadable .npz (fresh clone, partial write, stale format) falls
     through to retraining instead of crashing the caller; regenerate
     explicitly with ``scripts/export_qnet_torch.py``.
     """
     dev = resolve(device)
     if isinstance(env, str):
-        resolve_env(env)        # refuses the envs not ported yet
+        resolve_env(env)        # refuses an unknown name
         name = f"{name}_{env}"
+        if env == "cluster":
+            n_workers = train_kw.get("n_workers") or (
+                (train_kw.get("n_owners") or 3) + 1)
+            name = f"{name}_p{int(n_workers)}"
     os.makedirs(ARTIFACT_DIR, exist_ok=True)
     path = os.path.join(ARTIFACT_DIR, f"{name}.npz")
     qnet = None

@@ -29,6 +29,9 @@ def test_lib_path_follows_the_source_and_the_flags(stem, build_dir,
     monkeypatch.undo()
     csrc = build_dir / "csrc"
     csrc.mkdir()
+    # the headers the source includes come along unedited
+    for header in _build.sources(stem)[1:]:
+        (csrc / header.name).write_text(header.read_text())
     src = (_build.CSRC / f"{stem}.cu").read_text()
     (csrc / f"{stem}.cu").write_text(src + "\n// edited\n")
     monkeypatch.setattr(_build, "CSRC", csrc)

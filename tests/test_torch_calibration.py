@@ -27,6 +27,7 @@ from repro_torch.core import dqn as pdqn
 from repro_torch.core import queue_sim as pqs
 from repro_torch.core import simulator as psim
 from repro_torch.core import table_sim as ptab
+from repro_torch.envs import cluster_sim as pclu
 from repro_torch.train import gnn_trainer as pgt
 from repro_torch.train import policy as ppolicy
 from _jax_release import release_jax_executables  # noqa: F401
@@ -186,12 +187,13 @@ def test_resolve_env_names_and_refusals():
                                           "hit")})
     assert ppolicy.resolve_env(None, tables) is ptab
     assert ppolicy.resolve_env("queue") is pqs
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ppolicy.resolve_env("cluster")
+    assert ppolicy.resolve_env("cluster") is pclu
     with pytest.raises(ValueError, match="unknown training env"):
         ppolicy.resolve_env("nope")
-    with pytest.raises(NotImplementedError):
-        ppolicy.train_policy(None, env="cluster", device="cpu")
+    # refused before any training, as the reference refuses it
+    with pytest.raises(ValueError, match="n_workers"):
+        ppolicy.train_policy(None, env="cluster", n_workers=4, n_owners=2,
+                             device="cpu")
 
 
 def test_artifacts_cache_and_retrain_on_corrupt(tmp_path, monkeypatch):

@@ -445,8 +445,11 @@ def _wrapper_inputs(n=6, p=P, seed=0, pcfg=None):
 
 
 def test_layout_matches_the_kernel_source():
-    """The wrapper's column names, in the order of the .cu's enums."""
-    src = (_build.CSRC / "queue_window.cu").read_text()
+    """The wrapper's column names, in the order of the enums of the .cu
+    and the window header it includes (``fluid_window.cuh``, shared with
+    the cluster env's kernel)."""
+    cu = (_build.CSRC / "queue_window.cu").read_text()
+    src = "".join(p.read_text() for p in _build.sources("queue_window"))
 
     def enum(name):
         body = re.search(r"enum %s\s*\{([^}]*)\}" % name, src).group(1)
@@ -470,8 +473,8 @@ def test_layout_matches_the_kernel_source():
         == pqs.PROP_RTT_S_PER_MS
     assert float(consts["REF_W"].rstrip("f")) == pqs.REFERENCE_WINDOW
     assert [int(x) for x in re.findall(
-        r"launch<(\d+)>\(", src)] == [4, 8, 16]
-    assert max(int(x) for x in re.findall(r"launch<(\d+)>\(", src)) \
+        r"launch<(\d+)>\(", cu)] == [4, 8, 16]
+    assert max(int(x) for x in re.findall(r"launch<(\d+)>\(", cu)) \
         == qw.MAX_OWNERS
     assert _build.ENTRIES["queue_window_f32"][0] == "queue_window"
     assert (_build.CSRC / "queue_window.cu").is_file()
@@ -592,9 +595,11 @@ def test_wrapper_operand_checks():
 
 # -------------------------------------------------- training and policy
 def test_resolve_env_queue_is_the_port_module():
+    from repro_torch.envs import cluster_sim
+
     assert resolve_env("queue") is pqs
-    with pytest.raises(NotImplementedError, match="item 4"):
-        resolve_env("cluster")
+    # the cluster env is ported too (tests/test_torch_cluster_sim.py)
+    assert resolve_env("cluster") is cluster_sim
 
 
 def test_trains_with_dqn_protocol():
@@ -624,8 +629,9 @@ def test_train_policy_refuses_what_the_reference_refuses():
     with pytest.raises(ValueError, match="n_workers"):
         ppol.train_policy(pool, iterations=2, env="queue", n_workers=4,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="cluster"):
-        ppol.train_policy(pool, iterations=2, env="queue",
+    # cluster_kwargs configure the cluster env, which refuses a bad one
+    with pytest.raises(ValueError, match="sync"):
+        ppol.train_policy(pool, iterations=2, env="cluster",
                           cluster_kwargs={"sync": True}, device="cpu")
     with pytest.raises(KeyError):
         ppol.train_policy(pool, iterations=2, env="queue",

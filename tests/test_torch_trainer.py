@@ -7,6 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.analysis import digest as dg
 from repro.core import controller as rctl
@@ -164,3 +165,69 @@ class TestMeasuredStaticW:
         assert rep["parity_max_diff"] < 2e-3
         assert len(rep["step_s"]) == rep["n_steps"] == 12
         assert all(t > 0 for t in rep["step_s"])
+
+
+def _drive_port(monkeypatch, warm: bool):
+    """A measured static_w run of the port (MOTIVATION's steps, device
+    payloads) with the untimed warm-up on or off: (its result, its engine,
+    the shape signatures its steps prepared, in order)."""
+    from repro_torch.train import compute as pcomp
+
+    sigs = []
+    prepare = pcomp.ComputeEngine.prepare
+
+    def recorded(self, mb, key=None):
+        layers, x_rows, n_edges = prepare(self, mb, key)
+        sigs.append((x_rows,) + tuple(
+            (int(layer["counts"].shape[0]), layer["fwd"].n_cols)
+            for layer in layers))
+        return layers, x_rows, n_edges
+
+    monkeypatch.setattr(pcomp.ComputeEngine, "prepare", recorded)
+    if not warm:
+        monkeypatch.setattr(pcomp.ComputeEngine, "_warm_up",
+                            lambda self, x_pad, layers: None)
+    kw = dict(MOTIVATION, method="static_w", compute="measured")
+    pcfg = pgt.RunConfig(**kw, mem_budget=MemoryBudget(device_payloads=True),
+                         device="cpu")
+    pw = TrainerWorker(pcfg, pgt.build_trace(pcfg))
+    res = _drive(pw, pcfg)
+    monkeypatch.undo()
+    return res, pw.engine, sigs
+
+
+class TestComputeWarmUp:
+    """A new shape signature's untimed first run (the reference compiles
+    it ahead of time) leaves the run's state and streams as they were."""
+
+    def test_report_has_the_reference_keys(self, measured_runs):
+        ref, port = measured_runs
+        rep = port.compute_report
+        assert set(ref.compute_report) <= set(rep)
+        assert rep["agg_impl"] == "plain"
+        assert rep["n_compiles"] >= 1 and rep["compile_s"] > 0.0
+        assert rep["n_compiles"] == ref.compute_report["n_compiles"]
+
+    def test_losses_params_and_streams_bit_equal(self, monkeypatch):
+        on, engine_on, sigs = _drive_port(monkeypatch, warm=True)
+        off, engine_off, _ = _drive_port(monkeypatch, warm=False)
+        assert on.compute_report["losses"] == off.compute_report["losses"]
+        assert on.compute_report["step_edges"] \
+            == off.compute_report["step_edges"]
+        for name in ("step_hits", "step_misses", "fetched_rows_by_owner"):
+            np.testing.assert_array_equal(getattr(on, name),
+                                          getattr(off, name))
+        for layer, sub in engine_on.params.items():
+            for k, v in sub.items():
+                assert torch.equal(v, engine_off.params[layer][k]), (layer, k)
+        for a, b in zip(engine_on.opt_state.mu["layer_1"].values(),
+                        engine_off.opt_state.mu["layer_1"].values()):
+            assert torch.equal(a, b)
+        assert engine_on.opt_state.step == engine_off.opt_state.step == 12
+        # one untimed run a distinct signature; none with it off
+        assert engine_on.n_compiles == len(set(sigs)) >= 1
+        assert engine_off.n_compiles == 0
+        edges, secs = engine_on.calibration_samples()
+        assert edges.dtype == secs.dtype == np.float64
+        assert edges.tolist() == on.compute_report["step_edges"]
+        assert secs.tolist() == on.compute_report["step_s"]
