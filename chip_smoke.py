@@ -211,6 +211,33 @@ Phases, each of which ends the run with a non-zero exit on failure:
    of 2 global steps, and ends with the kernels built from cold by the
    ranks' own first launches (a fresh build directory, a threaded run of
    2 steps): one build, under the build lock.
+   The trace phase (``phase_trace``) follows: greentrace
+   (``repro_torch.obs``) on the card. ``python -m repro_torch.obs capture
+   --workers 4`` (modeled lane, the card's device) must write files
+   byte-equal to the reference's ``results/traces/{clean,hot_owner}.json``,
+   reconciled, ``diff``'s top row ``link0/queue`` with more joules under
+   the hot owner, and ``report --chrome`` a Chrome trace. Then, each with
+   the counts zeroed just before it and read just after, ``trace=True``
+   through: the main path (greendygnn, device payloads, the table-trained
+   qnet, 3 x 8 steps; untraced, traced, traced, untraced, the first run's
+   decisions replayed in the others so all take the same windows): launch
+   counts equal traced and untraced, the ledger reconciled bit for bit,
+   one ``controller/decide`` instant a decision, every
+   ``compute/measured`` span naming the card and memory-bound at its
+   peaks (``repro_torch.launch.roofline``); the threaded pipeline
+   (static_w, W = 4): launches equal to the untraced run's, each
+   rebuild's ``plan`` and ``fetch`` spans from the builder thread and its
+   ``exposed-wait`` and ``swap`` spans from the consumer, reconciled;
+   ``ooc_community`` at a host budget of 0.3 of its matrix: one
+   ``store/tier-window`` counter a window, summing to the tier counts at
+   the last window's boundary and equal to the CPU's; the measured P = 4
+   ``run_cluster`` (static_w, ``clean``: untraced, traced, traced,
+   untraced; then partition 0's NIC at 0.35, traced): launches by rank
+   equal, every rank reconciled, every fabric span decomposed per owner,
+   ``link0/queue`` attributed more joules under the hot owner. It logs
+   the host wall a step (P = 1) and a global step (P = 4), traced and
+   untraced, and its results go on a ``{"trace": ...}`` line before the
+   ``kernels`` line.
 6. Run the LM serving path at full width: ``tinyllama-1.1b`` (22 layers,
    d_model 2048, bf16, seeded random weights). Counts zeroed, then
    ``repro_torch.launch.serve.run`` (batch 4, prompt 8, generation 16;
@@ -246,6 +273,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    live-peer count), P = 3 and W = 128, with its launches in the cluster
    training.
    TF32 is off throughout: float32 results are compared in full float32.
+   Every bound is read from ``repro_torch.launch.roofline``'s peaks for
+   the card's name (a card missing from its table fails the run).
 8. The last line is ``{"ok": true, "device": {...}}``.
 
 Kernel builds land in ``build/kernels/`` (listed in ``.gitignore``).
@@ -263,12 +292,6 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
-# fp32 FLOP/s outside the tensor cores, at the full 700 W power limit.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12   # dense, tensor cores
 
 TOL_SPMM = dict(atol=1e-4, rtol=1e-5)
 TOL_BAGS = dict(atol=1e-5, rtol=0.0)
@@ -418,9 +441,17 @@ class Timer:
 
 
 def bound_ms(n_bytes: float, n_flops: float,
-             flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / flop_per_s * 1e3
+             dtype: str = "fp32") -> tuple[float, str]:
+    """The least time the card could take: the bytes over its HBM rate or
+    the operations over its peak for ``dtype``, whichever is larger, at
+    the peaks ``repro_torch.launch.roofline`` holds for the card's name
+    (published dense rates at the full power limit)."""
+    import torch
+
+    from repro_torch.launch import roofline
+
+    peaks = roofline.device_peaks(torch.device("cuda", 0))
+    t_ops, t_bytes = (t * 1e3 for t in peaks.terms(n_flops, n_bytes, dtype))
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3977,6 +4008,404 @@ def same_choice(a, b):
     return bool(exact.all()), int(exact.sum()), float((a - b).abs().max())
 
 
+# -------------------------------------------------------- the trace phase
+# the reference's cluster sweep's hot owner: partition 0's NIC at 0.35
+TRACE_HOT = (0.35, 1.0, 1.0, 1.0)
+
+
+@contextlib.contextmanager
+def steps_timed():
+    """Host seconds of each ``TrainerWorker.step`` (a measured step ends
+    in a device synchronisation, so its host wall covers its device
+    work)."""
+    from repro_torch.train.worker import TrainerWorker
+
+    step = TrainerWorker.step
+    walls = []
+
+    def timed(self, epoch, s):
+        t0 = time.perf_counter()
+        out = step(self, epoch, s)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    TrainerWorker.step = timed
+    try:
+        yield walls
+    finally:
+        TrainerWorker.step = step
+
+
+@contextlib.contextmanager
+def span_threads():
+    """The threads each kind of greentrace span is emitted from:
+    {(component, name): {thread name}}."""
+    import threading
+
+    from repro_torch.obs.tracer import Tracer
+
+    span = Tracer.span
+    seen = {}
+
+    def recorded(self, component, name, *a, **k):
+        seen.setdefault((component, name), set()).add(
+            threading.current_thread().name)
+        return span(self, component, name, *a, **k)
+
+    Tracer.span = recorded
+    try:
+        yield seen
+    finally:
+        Tracer.span = span
+
+
+def trace_events(payload, component=None, kind=None):
+    return [e for sec in payload["ranks"] for e in sec["events"]
+            if (component is None or e["component"] == component)
+            and (kind is None or e["kind"] == kind)]
+
+
+def require_owner_spans(label, payload):
+    """Every fabric span decomposes per owner link: ready <= start <=
+    finish, queueing >= 0, service > 0. Returns the spans."""
+    spans = trace_events(payload, "fabric", "span")
+    require(spans, f"{label}: no fabric spans")
+    for s in spans:
+        owners = s["args"]["owners"]
+        require(owners, f"{label}: a fabric span without owners")
+        for o in owners:
+            require(o["finish_s"] >= o["start_s"] >= o["ready_s"]
+                    and o["queue_s"] >= 0 and o["service_s"] > 0,
+                    f"{label}: fabric span owner {o} does not decompose")
+    return spans
+
+
+def trace_capture(torch, device):
+    """``python -m repro_torch.obs capture --workers 4`` on the card (the
+    modeled lane): both files byte-equal to the committed reference
+    captures, reconciled, the hot owner's link-0 queueing the top mover,
+    and ``report --chrome`` writes a Chrome trace."""
+    import tempfile
+
+    from repro_torch.obs import __main__ as cli
+    from repro_torch.obs import load_trace, reconcile, report
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        require(cli.main(["capture", "--workers", "4", "--device",
+                          str(device), "--out", str(tmp)]) == 0,
+                "trace capture: exit code")
+        wall = time.perf_counter() - t0
+        for name in ("clean", "hot_owner"):
+            got = (tmp / f"{name}.json").read_bytes()
+            want = (ROOT / "results" / "traces" / f"{name}.json").read_bytes()
+            require(got == want, f"trace capture: {name}.json differs from "
+                    f"results/traces/{name}.json ({len(got)} against "
+                    f"{len(want)} bytes)")
+        clean = load_trace(tmp / "clean.json")
+        hot = load_trace(tmp / "hot_owner.json")
+        reconcile(clean)
+        reconcile(hot)
+        top = report.diff(clean, hot)[0]
+        require(top["key"] == "link0/queue" and top["delta_j"] > 0,
+                f"trace capture: top diff row {top}")
+        chrome = tmp / "hot_owner.chrome.json"
+        require(cli.main(["report", str(tmp / "hot_owner.json"), "--chrome",
+                          str(chrome)]) == 0, "trace report --chrome")
+        n_chrome = len(json.loads(chrome.read_text())["traceEvents"])
+    n_events = sum(len(s["events"]) for s in hot["ranks"])
+    log(f"trace capture (P=4, modeled, on the card): clean.json and "
+        f"hot_owner.json byte-equal to results/traces, {n_events} events, "
+        f"reconciled; diff top {top['key']} {top['delta_j']:+.3f} J; chrome "
+        f"{n_chrome} trace events; {wall:.2f} s")
+    return {"byte_equal": True, "events": n_events, "diff_top": top["key"],
+            "diff_top_delta_j": top["delta_j"], "chrome_events": n_chrome}
+
+
+def trace_main_path(torch, device, smi, qnet):
+    """The main path (greendygnn, device payloads, the table-trained
+    qnet, 3 x 8 measured steps) untraced, traced, traced, untraced. The
+    first run's decisions are replayed in the others (each decision's
+    argmax forced), so all four take the same windows: the traced runs'
+    SpMM and EmbeddingBag launches must equal the untraced runs', their
+    ledgers reconcile bit for bit, one ``controller/decide`` instant
+    carries each decision, and every ``compute/measured`` span names the
+    card and is memory-bound at its peaks."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import dqn
+    from repro_torch.obs import reconcile
+    from repro_torch.store import MemoryBudget
+    from repro_torch.train import gnn_trainer as gt
+
+    q_base = dqn.q_fn_of(qnet)
+    recorded = []
+    policy = []        # a replaying run's own argmax at each decision
+
+    def record(state):
+        q = np.asarray(q_base(state))
+        recorded.append(int(np.argmax(q)))
+        return q
+
+    def replay(state):
+        q = np.asarray(q_base(state), np.float64).copy()
+        policy[-1].append(int(np.argmax(q)))
+        q[recorded[len(policy[-1]) - 1]] = q.max() + 1.0
+        return q
+
+    cfg = gt.RunConfig(**MAIN_PATH, q_fn=record,
+                       mem_budget=MemoryBudget(host_bytes=None,
+                                               device_payloads=True),
+                       device=str(device))
+    bundle = gt.build_trace(cfg)
+    card = torch.cuda.get_device_name(device)
+    n_steps = cfg.n_epochs * cfg.steps_per_epoch
+    walls = {False: [], True: []}
+    counts_by = {False: [], True: []}
+    for i, traced in enumerate((False, True, True, False)):
+        run_cfg = dataclasses.replace(cfg, trace=traced,
+                                      q_fn=record if i == 0 else replay)
+        policy.append([])
+        with steps_timed() as step_walls:
+            res, counts, wall, plans = counted_run(torch, run_cfg, bundle)
+        label = f"trace main path ({'traced' if traced else 'untraced'})"
+        require_path_counts(label, res, counts, plans)
+        walls[traced].append(statistics.median(step_walls) * 1e3)
+        counts_by[traced].append(
+            {k: counts[k] for k in ("csr_spmm", "embedding_bag")})
+        if not traced:
+            require(res.trace is None, f"{label}: trace=False gave a trace")
+            continue
+        totals = reconcile(res.trace)
+        m = res.trace["ranks"][0]["meter"]
+        require(totals[0]["gpu_j"] == m["gpu_j"] == res.meter.gpu_j
+                and totals[0]["cpu_j"] == m["cpu_j"] == res.meter.cpu_j,
+                f"{label}: the ledger's totals differ from the meter's")
+        decides = trace_events(res.trace, "controller", "instant")
+        require([e["args"]["action"] for e in decides] == recorded,
+                f"{label}: decide instants "
+                f"{[e['args']['action'] for e in decides]} != decisions "
+                f"{recorded}")
+        spans = trace_events(res.trace, "compute", "span")
+        require(len(spans) == n_steps,
+                f"{label}: {len(spans)} compute spans for {n_steps} steps")
+        for s in spans:
+            a = s["args"]
+            require(a["roof_device"] == card and a["bound"] == "memory",
+                    f"{label}: compute span args {a}")
+        roof = spans[-1]["args"]
+    require(len(recorded) >= 1, "trace main path: the controller never "
+            "decided")
+    require(all(c == counts_by[False][0]
+                for c in counts_by[False] + counts_by[True]),
+            f"trace main path: launch counts differ, untraced "
+            f"{counts_by[False]}, traced {counts_by[True]}")
+    agree = sum(a == b for run in policy for a, b in zip(run, recorded))
+    n_replayed = sum(len(run) for run in policy)
+    ms = (f"{statistics.median(walls[True]):.3f} (runs "
+          f"{[round(w, 3) for w in walls[True]]}) traced, "
+          f"{statistics.median(walls[False]):.3f} (runs "
+          f"{[round(w, 3) for w in walls[False]]}) untraced")
+    log(f"trace main path (P=1, greendygnn, measured): reconciled "
+        f"bit-exact, decisions {recorded} (the replaying runs' own argmax "
+        f"agreed at {agree} of {n_replayed}), launches "
+        f"{counts_by[True][0]} traced and untraced; last compute span "
+        f"{roof}; host wall a step, median ms: {ms}; {smi}")
+    return {"reconciled": True, "decisions": len(recorded),
+            "launches": counts_by[True][0],
+            "host_ms_per_step_traced": statistics.median(walls[True]),
+            "host_ms_per_step_untraced": statistics.median(walls[False]),
+            "roof_device": card, "bound": roof["bound"],
+            "roof_memory_s": roof["roof_memory_s"],
+            "roof_compute_s": roof["roof_compute_s"]}
+
+
+def trace_pipeline(torch, device):
+    """The threaded pipeline (static_w, W = 4) traced, beside the same run
+    untraced: equal launches; each rebuild's ``plan`` and ``fetch`` spans
+    from the builder thread and its ``exposed-wait`` and ``swap`` spans
+    from the consumer; the ledger reconciles bit for bit."""
+    from repro_torch.obs import reconcile
+    from repro_torch.train import gnn_trainer as gt
+
+    out = {}
+    for traced in (False, True):
+        cfg = pipeline_cfg(device, async_pipeline=True, trace=traced)
+        with span_threads() as seen:
+            res, counts, wall, plans = counted_run(torch, cfg,
+                                                   gt.build_trace(cfg))
+        require_path_counts(f"trace pipeline (trace={traced})", res, counts,
+                            plans)
+        out[traced] = (res, counts, seen)
+    res, counts, seen = out[True]
+    require(counts == out[False][1],
+            f"trace pipeline: launches {counts} traced, {out[False][1]} "
+            "untraced")
+    reconcile(res.trace)
+    n = res.pipeline.n_rebuilds
+    names = {}
+    for e in trace_events(res.trace, "pipeline", "span"):
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    require(n > 0 and names == {"plan": n, "fetch": n, "exposed-wait": n,
+                                "swap": n},
+            f"trace pipeline: spans {names} for {n} rebuilds")
+    require(seen[("pipeline", "plan")] == {"cache-builder"}
+            and seen[("pipeline", "fetch")] == {"cache-builder"}
+            and "cache-builder" not in seen[("pipeline", "exposed-wait")]
+            and "cache-builder" not in seen[("pipeline", "swap")],
+            f"trace pipeline: span threads {seen}")
+    log(f"trace pipeline (static_w W=4, threaded): {n} rebuilds, spans "
+        f"{names}, plan/fetch on the builder thread, reconciled bit-exact, "
+        f"launches {counts} traced and untraced")
+    return {"rebuilds": n, "spans": names, "reconciled": True}
+
+
+def trace_budgeted(torch, device):
+    """ooc_community under a host budget of 0.3 of its matrix, traced,
+    synchronous, on the card and on the CPU: one ``store/tier-window``
+    counter a window, the counters' deltas summing to the tier counts at
+    the last window's boundary (the last window's own steps come after
+    it, as in the reference), the card's counters equal to the CPU's, and
+    both ledgers reconcile."""
+    from repro_torch.graph import datasets
+    from repro_torch.obs import reconcile
+    from repro_torch.store import MemoryBudget
+    from repro_torch.train import gnn_trainer as gt
+    from repro_torch.train.worker import TrainerWorker
+
+    src = datasets.materialize("ooc_community", seed=0).feature_source
+    host = 0.3 * src.n_rows * src.bytes_per_row
+    counters = TrainerWorker._trace_tier_counters
+    tiers = []                # the card's run's tier-window counters, the CPU's
+    for dev in (str(device), "cpu"):
+        snapshots = []
+
+        def snapshot(self, *a, _s=snapshots):
+            counters(self, *a)
+            _s.append(self.store.tier_stats.counts())
+
+        cfg = gt.RunConfig(**BUDGETED, trace=True, mem_budget=MemoryBudget(
+            host_bytes=host, chunk_rows=256, device_payloads=True),
+            device=dev)
+        TrainerWorker._trace_tier_counters = snapshot
+        try:
+            res, counts, wall, plans = counted_run(torch, cfg,
+                                                   gt.build_trace(cfg))
+        finally:
+            TrainerWorker._trace_tier_counters = counters
+        if not tiers:
+            require_path_counts("budgeted trace", res, counts, plans)
+            card_res, card_counts = res, counts
+        reconcile(res.trace)
+        cs = [e["args"] for e in trace_events(res.trace, "store", "counter")]
+        windows = trace_events(res.trace, "window", "instant")
+        require(len(cs) == len(windows) == len(snapshots) > 0,
+                f"budgeted trace on {dev}: {len(cs)} counters for "
+                f"{len(windows)} windows")
+        total = {}
+        for c in cs:
+            for k, v in c.items():
+                if k != "peak_resident_bytes":
+                    total[k] = total.get(k, 0) + v
+        last = dict(snapshots[-1])
+        require(last.pop("peak_resident_bytes")
+                == cs[-1]["peak_resident_bytes"]
+                and total == last, f"budgeted trace on {dev}: counter sums "
+                f"{total} != tier counts at the last boundary {last}")
+        tiers.append(cs)
+    cs = tiers[0]
+    require(cs == tiers[1],
+            "budgeted trace: the card's tier counters differ from the CPU's")
+    log(f"trace budgeted ooc_community: {len(cs)} tier-window counters, "
+        f"equal to the CPU's, summing to the last boundary's tier counts; "
+        f"tier_counts {card_res.tier_counts}; launches {card_counts}; "
+        "reconciled")
+    return {"windows": len(cs), "counters_equal_cpu": True,
+            "reconciled": True}
+
+
+def trace_cluster(torch, device, smi):
+    """P = 4 measured ``run_cluster`` (static_w, device payloads) under
+    ``clean``: untraced, traced, traced, untraced, the traced runs'
+    launches by rank equal to the untraced runs'; then traced with
+    partition 0's NIC at 0.35. Every rank reconciles bit for bit, every
+    fabric span decomposes per owner, and the hot owner's link-0
+    queueing attribution is larger than under ``clean``."""
+    from repro_torch.obs import reconcile, report
+    from repro_torch.train import cluster as cl
+    from repro_torch.train import gnn_trainer as gt
+
+    P = CLUSTER_P
+    bundles = cl.build_cluster_traces(gt.RunConfig(**CLUSTER, device="cpu"),
+                                      P)
+    walls = {False: [], True: []}
+    by_rank = {False: [], True: []}
+    reps = {}
+    runs = [(False, "clean"), (True, "clean"), (True, "clean"),
+            (False, "clean"), (True, "hot")]
+    for traced, scen in runs:
+        cc = cl.ClusterConfig(n_workers=P, **(
+            {"link_rate_scale": TRACE_HOT} if scen == "hot" else {}))
+        cfg = cluster_cfg(device, scenario="clean", trace=traced)
+        rep, counts, wall, swaps, per_step = counted_cluster(
+            torch, cfg, cc, bundles)
+        label = f"trace cluster {scen} (trace={traced})"
+        require_rank_counts(label, rep, counts, swaps)
+        if scen == "clean":
+            walls[traced].append(float(statistics.median(per_step)) * 1e3)
+            by_rank[traced].append(counts["by_rank"])
+        if not traced:
+            require(rep.trace is None, f"{label}: trace=False gave a trace")
+            continue
+        totals = reconcile(rep.trace)
+        require(sorted(totals) == list(range(P))
+                and all(totals[r]["gpu_j"] == rep.results[r].meter.gpu_j
+                        and totals[r]["cpu_j"] == rep.results[r].meter.cpu_j
+                        for r in range(P)),
+                f"{label}: a rank's ledger differs from its meter")
+        require_owner_spans(label, rep.trace)
+        reps[scen] = rep
+    require(all(c == by_rank[False][0] for c in by_rank[False] + by_rank[True]),
+            f"trace cluster: launches by rank differ, untraced "
+            f"{by_rank[False]}, traced {by_rank[True]}")
+    att = {s: report.attribution(r.trace) for s, r in reps.items()}
+    q_clean = att["clean"].get("link0/queue", 0.0)
+    q_hot = att["hot"].get("link0/queue", 0.0)
+    require(q_hot > q_clean, f"trace cluster: link0/queue {q_hot} J under "
+            f"the hot owner, not above clean's {q_clean} J")
+    ms = (f"{statistics.median(walls[True]):.3f} (runs "
+          f"{[round(w, 3) for w in walls[True]]}) traced, "
+          f"{statistics.median(walls[False]):.3f} (runs "
+          f"{[round(w, 3) for w in walls[False]]}) untraced")
+    log(f"trace cluster (P={P}, measured static_w): every rank reconciled "
+        f"bit-exact, fabric spans per owner, launches by rank "
+        f"{by_rank[True][0]} traced and untraced; link0/queue {q_clean:.6f}"
+        f" J clean, {q_hot:.6f} J hot owner; host wall a global step, "
+        f"median ms: {ms}; {smi}")
+    return {"reconciled": True, "link0_queue_j_clean": q_clean,
+            "link0_queue_j_hot": q_hot,
+            "host_ms_per_global_step_traced": statistics.median(walls[True]),
+            "host_ms_per_global_step_untraced":
+                statistics.median(walls[False])}
+
+
+def phase_trace(torch, device, smi, qnet):
+    """greentrace on the card: the modeled capture byte-equal to the
+    reference's, then ``trace=True`` through the main path, the threaded
+    pipeline, the budgeted tier and the P = 4 cluster."""
+    t_phase = time.perf_counter()
+    out = {"capture": trace_capture(torch, device),
+           "p1": trace_main_path(torch, device, smi, qnet),
+           "pipeline": trace_pipeline(torch, device),
+           "budgeted": trace_budgeted(torch, device),
+           "p4": trace_cluster(torch, device, smi)}
+    log(f"trace phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def phase_serving(torch, device):
     """The LM serving path at full width, through the user's entry points,
     with the launch counts zeroed just before and read just after."""
@@ -4298,7 +4727,7 @@ def flash_timing_row(torch, device, operands, launches: int, err: float):
     n_bytes = (q.numel() + k.numel() + v.numel() + o.numel()) * q.element_size()
     # both products over the causal half: the key j <= query i pairs
     n_flops = 4.0 * b * hq * d * (s * (s + 1) / 2)
-    b_ms, b_by = bound_ms(n_bytes, n_flops, BF16_FLOP_PER_S)
+    b_ms, b_by = bound_ms(n_bytes, n_flops, "bf16")
     log(f"time flash_attention q={tuple(q.shape)} kv={tuple(k.shape)} bf16 "
         f"causal: kernel {ms:.4f} ms ({n_flops / ms / 1e9:.2f} TFLOP/s), "
         f"plain {plain:.4f} ms, F.scaled_dot_product_attention {lib:.4f} ms, "
@@ -4362,6 +4791,7 @@ def main() -> int:
     phase_pipeline_adaptive(torch, device, qnet)
     phase_pipeline_budgeted(torch, device)
     phase_cluster(torch, device, smi, qnet)
+    trace = phase_trace(torch, device, smi, qnet)
     lm_counts, cfg, params, tokens = phase_serving(torch, device)
     phase_profile_prefill(torch, cfg, params, tokens)
     phase_profile_decode(torch, device, cfg, params)
@@ -4380,6 +4810,7 @@ def main() -> int:
     log(f"median measured step: {step_ms:.4f} ms; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
+    print(json.dumps({"trace": trace}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 """Deterministic discrete-event congestion fabric (Stage-0 of the pipeline).
 
 Port of ``repro/net/fabric.py`` (numpy float64, the same operations in the
-same order, so transfers are bit-equal to the reference's). Greentrace's
-per-transfer spans (``Fabric.set_tracer``) come with the tracing item
-(ROADMAP queue 1, tracing): ``set_tracer`` raises.
+same order, so transfers are bit-equal to the reference's). A traced
+requester (``Fabric.set_tracer``) gets a greentrace span per transfer with
+each owner link's queue, service and propagation times.
 
 The trainer used to compute every remote fetch from the closed-form Eq. (4)
 law ``alpha + beta*P + gamma_c*P*delta`` — no queueing, no bandwidth
@@ -239,15 +239,20 @@ class Fabric:
         # opt-in runtime sanitizer (REPRO_SANITIZE=1 or sanitize=True):
         # _transfer_locked asserts the lock is actually held on entry
         self._sanitize = _sanitizer.sanitize_enabled(sanitize)
+        # greentrace: per-requester tracer slots (None until a traced worker
+        # registers via set_tracer), guarded by the lock. A plain optional
+        # list, so the fabric never imports repro_torch.obs and the
+        # untraced path costs one None check per transfer.
+        self._tracers: list | None = None
         self.reset()
 
     def set_tracer(self, requester: int, tracer) -> None:
-        """Per-transfer span emission needs greentrace (``obs/``), not
-        ported yet: raises."""
-        raise NotImplementedError(
-            "Fabric.set_tracer needs obs/ (greentrace), not ported yet "
-            "(ROADMAP queue 1: tracing)"
-        )
+        """Register a worker's tracer for per-transfer span emission
+        (queue/service/propagation decomposition per owner link)."""
+        with self._lock:
+            if self._tracers is None:
+                self._tracers = [None] * self.n_requesters
+            self._tracers[int(requester)] = tracer
 
     # ------------------------------------------------------------- clock
     def reset(self) -> None:
@@ -436,6 +441,19 @@ class Fabric:
         queue_s = 0.0
         n_rpcs = 0
 
+        # greentrace: per-owner queue/service/prop decomposition, collected
+        # only when this requester registered an enabled tracer
+        tr = None
+        if self._tracers is not None:
+            cand = self._tracers[requester]
+            if cand is not None and cand.enabled:
+                tr = cand
+                ready_arr = np.zeros(len(links))
+                start_arr = np.zeros(len(links))
+                q_arr = np.zeros(len(links))
+                svc_arr = np.zeros(len(links))
+                prop_arr = np.zeros(len(links))
+
         for o in np.flatnonzero(active):
             lnk = links[o]
             if chunk:
@@ -458,6 +476,11 @@ class Fabric:
             finish = start + payload[o] / rate_eff
             self.free_at[lnk] = finish
             wire_done[o] = finish
+            if tr is not None:
+                ready_arr[o] = ready
+                start_arr[o] = start
+                q_arr[o] = start - ready
+                svc_arr[o] = payload[o] / rate_eff
             cpu += n_chunks * self.alpha + payload[o] * (
                 self.beta + self.gamma_c * delta[lnk]
             )
@@ -489,6 +512,13 @@ class Fabric:
                     float(np.sum(done - arrive))
                     - float(payload[idx].sum()) / rate_sh,
                 )
+                if tr is not None:
+                    # everyone pays its own drain share as service, the
+                    # rest of (done - arrive) as queueing
+                    q_arr[idx] += np.maximum(
+                        0.0, done - arrive - payload[idx] / rate_sh
+                    )
+                    svc_arr[idx] += payload[idx] / rate_sh
                 wire_done[idx] = done
                 free_sh = done
             else:
@@ -497,6 +527,9 @@ class Fabric:
                     s_start = max(wire_done[o], free_sh)
                     queue_s += s_start - wire_done[o]
                     s_finish = s_start + payload[o] / rate_sh
+                    if tr is not None:
+                        q_arr[o] += s_start - wire_done[o]
+                        svc_arr[o] += payload[o] / rate_sh
                     free_sh = s_finish
                     wire_done[o] = s_finish
             self._shared_free_at[requester] = free_sh
@@ -510,6 +543,10 @@ class Fabric:
                 - t0
                 + prop_factor * (self.prop_delay_ms[links[o]] + delta[links[o]])
             )
+            if tr is not None:
+                prop_arr[o] = prop_factor * (
+                    self.prop_delay_ms[links[o]] + delta[links[o]]
+                )
 
         self.total_queue_s += queue_s
         self.n_transfers += 1
@@ -520,6 +557,31 @@ class Fabric:
         self.req_transfers[requester] += 1
         self.req_queue_s[requester] += queue_s
         self.req_wall_s[requester] += raw
+        if tr is not None:
+            tr.span(
+                "fabric", "chunked" if chunk else "bulk", t0, t0 + raw,
+                step=clock.step, epoch=clock.epoch,
+                args={
+                    "requester": int(requester),
+                    "bytes": nbytes,
+                    "rpcs": int(n_rpcs),
+                    "queue_s": float(queue_s),
+                    "owners": [
+                        {
+                            "slot": int(o),
+                            "link": int(links[o]),
+                            "bytes": float(payload[o]),
+                            "ready_s": float(ready_arr[o]),
+                            "start_s": float(start_arr[o]),
+                            "finish_s": float(wire_done[o]),
+                            "queue_s": float(q_arr[o]),
+                            "service_s": float(svc_arr[o]),
+                            "prop_s": float(prop_arr[o]),
+                        }
+                        for o in np.flatnonzero(active)
+                    ],
+                },
+            )
         return TransferResult(
             raw_s=raw,
             cpu_s=float(cpu),

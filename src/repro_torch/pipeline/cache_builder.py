@@ -31,6 +31,7 @@ import numpy as np
 
 from repro_torch.analysis import runtime as _sanitizer
 from repro_torch.core.windowed_cache import DoubleBufferedCache, RebuildPlan
+from repro_torch.obs.tracer import NULL_TRACER
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,14 +89,9 @@ class CacheBuilder:
         requester: int = 0,
         clock_fn=None,
         sanitize: bool | None = None,
-        tracer=None,
+        tracer=NULL_TRACER,
         build_table=None,
     ):
-        if tracer is not None:
-            raise NotImplementedError(
-                "CacheBuilder(tracer=...) needs obs/ (greentrace), not "
-                "ported yet (ROADMAP queue 1: tracing)"
-            )
         self.cache = cache
         self.fetch_fn = fetch_fn
         self.fabric = fabric
@@ -103,6 +99,11 @@ class CacheBuilder:
         self.requester = int(requester)
         self.clock_fn = clock_fn
         self.build_table = build_table
+        # greentrace: pipeline spans (plan/fetch/exposed-wait/swap) are
+        # anchored at the worker's virtual clock with MEASURED durations:
+        # the threaded pipeline is the measured lane, so these spans carry
+        # wall observations, not modeled time
+        self.tracer = tracer
         self._work: queue.Queue = queue.Queue()
         self._next_id = 0
         self._thread: threading.Thread | None = None
@@ -167,6 +168,16 @@ class CacheBuilder:
         self.n_builds += 1
         self.builder_wall_s += buf.t_total_s
         self.exposed_wait_s += exposed
+        if self.tracer.enabled:
+            t = self._vclock()
+            self.tracer.span(
+                "pipeline", "exposed-wait", t, t + exposed,
+                args={"exposed_s": float(exposed),
+                      "hidden_s": float(max(buf.t_total_s - exposed, 0.0)),
+                      "plan_s": float(buf.t_plan_s),
+                      "build_fetch_s": float(buf.t_fetch_s),
+                      "ticket": int(ticket.id)},
+            )
         return buf, exposed
 
     def swap(self, buf: PendingBuffer) -> float:
@@ -186,6 +197,13 @@ class CacheBuilder:
         self.cache.swap(buf.plan)
         dt = time.perf_counter() - t0
         self.swap_latency_s.append(dt)
+        if self.tracer.enabled:
+            t = self._vclock()
+            self.tracer.span(
+                "pipeline", "swap", t, t + dt,
+                args={"swap_s": float(dt),
+                      "generation": int(buf.generation)},
+            )
         return dt
 
     def build_sync(
@@ -195,6 +213,10 @@ class CacheBuilder:
         return self.wait(self.submit(window_batches, weights))
 
     # ------------------------------------------------------------- internals
+    def _vclock(self) -> float:
+        """The owning worker's virtual time (0.0 without a clock_fn)."""
+        return float(self.clock_fn().t_s) if self.clock_fn is not None else 0.0
+
     def _loop(self) -> None:
         while True:
             item = self._work.get()
@@ -226,6 +248,20 @@ class CacheBuilder:
                 plan.per_owner_fetched.astype(np.float64), self.bytes_per_row,
                 requester=self.requester,
                 clock=self.clock_fn() if self.clock_fn is not None else None,
+            )
+        if self.tracer.enabled:
+            # builder-thread spans: anchored at the virtual clock, measured
+            # durations laid back to back (plan, then gather)
+            t = self._vclock()
+            self.tracer.span(
+                "pipeline", "plan", t, t + (t1 - t0),
+                args={"plan_s": float(t1 - t0), "ticket": int(ticket.id),
+                      "n_fetch": int(plan.fetched.sum())},
+            )
+            self.tracer.span(
+                "pipeline", "fetch", t + (t1 - t0), t + (t2 - t0),
+                args={"fetch_s": float(t2 - t1), "ticket": int(ticket.id),
+                      "rows": float(plan.per_owner_fetched.sum())},
             )
         table = None
         if self.build_table is not None:

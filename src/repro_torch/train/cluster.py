@@ -118,6 +118,8 @@ class ClusterReport:
     grad_compression: str = "none"   # wire scheme the collective charged
     grad_wire_bytes: float = 0.0     # per-worker per-sync payload bytes fed
                                      # to ring_collective_cost
+    trace: dict | None = None        # greentrace payload (cfg.trace=True):
+                                     # all ranks' event sections + run meta
 
     @property
     def active_ranks(self) -> list[int]:
@@ -644,12 +646,21 @@ def run_cluster(cfg, cluster: ClusterConfig | None = None,
         for w in workers:
             w.close()
 
+    results = [w.result() for w in workers]
+    trace_payload = None
+    if cfg.trace:
+        from repro_torch.obs import build_payload, run_meta
+
+        trace_payload = build_payload(
+            [r.trace for r in results],
+            meta=run_meta(cfg, scenario=scenario, n_workers=P),
+        )
     return ClusterReport(
         n_workers=P,
         n_parts=cfg.n_parts,
         scenario=scenario,
         sync=cluster.sync,
-        results=[w.result() for w in workers],
+        results=results,
         silent_ranks=silent,
         methods=tuple(w.cfg.method for w in workers),
         requester_metrics=fabric.requester_metrics(),
@@ -658,4 +669,5 @@ def run_cluster(cfg, cluster: ClusterConfig | None = None,
         total_queue_s=float(fabric.total_queue_s),
         grad_compression=cluster.grad_compression,
         grad_wire_bytes=float(grad_bytes),
+        trace=trace_payload,
     )

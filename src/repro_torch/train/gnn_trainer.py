@@ -22,7 +22,7 @@ Methods (paper Section VI-A + ablations VI-H):
   heuristic    windowed cache + Eq. 7 threshold rule
   greendygnn   windowed cache + Double-DQN controller (full system)
   greendygnn_nocw   RL for W only, uniform allocation (w/o cost weights)
-See ``worker.check_supported`` for every configuration not ported yet.
+``worker.check_supported`` refuses the configurations it does not run.
 """
 from __future__ import annotations
 
@@ -100,7 +100,11 @@ class RunConfig:
                                      # feedback; wire bytes feed the ring
                                      # collective in cluster runs)
     topk_frac: float = 0.05          # kept fraction for "topk"
-    trace: bool = False              # greentrace (not ported)
+    trace: bool = False              # greentrace: record virtual-time span/
+                                     # counter/charge events (repro_torch.
+                                     # obs); False keeps the modeled lane
+                                     # bit for bit (null tracer, no event
+                                     # work on the hot path)
     device: str = "cuda"             # where the measured lane and the device
                                      # tier run; "cpu" for the CPU tests
 
@@ -124,6 +128,11 @@ class RunResult:
     compute_report: dict | None = None  # ComputeEngine.report() when
                                      # compute="measured"
     scenario: str = "closed_form"    # the network substrate the run used
+    trace: dict | None = None        # greentrace payload (cfg.trace=True):
+                                     # the worker's rank section, wrapped
+                                     # into the run payload by run() or
+                                     # run_cluster (outside the digest
+                                     # surface: the trace observes the run)
 
     def totals(self) -> dict:
         return self.meter.totals_kj()
@@ -263,7 +272,15 @@ def run(cfg: RunConfig, trace_bundle=None) -> RunResult:
     finally:
         # threads must not outlive the run, even on error paths
         worker.close()
-    return worker.result()
+    res = worker.result()
+    if res.trace is not None:
+        from repro_torch.obs import build_payload, run_meta
+
+        res.trace = build_payload(
+            [res.trace],
+            meta=run_meta(cfg, scenario=res.scenario, n_workers=1),
+        )
+    return res
 
 
 def _controller_stats(

@@ -25,9 +25,12 @@ on a CUDA stream of its own while the consumer steps, and whose measured
 exposed wait is charged instead. The measured lane compresses its
 gradients (int8 or top-k with error feedback) when ``grad_compression``
 asks; ``run_model=True`` in the modeled lane trains the model beside the
-trainer (``gnn_trainer._model_step``). Not ported yet, and refused with
-``NotImplementedError`` naming its ROADMAP item: greentrace
-(``trace=True``).
+trainer (``gnn_trainer._model_step``). ``trace=True`` records the
+greentrace events of ``repro_torch.obs``: a charge event beside each meter
+record (the same charge law, so the ledger reconciles bit for bit), the
+controller's decisions, the rebuild windows, the host tier's counters, the
+fabric's per-owner spans, the pipeline's spans and, in the measured lane,
+the step's roofline terms at the card's peaks.
 
 The worker keeps a virtual clock (``meter.wall_s``); nothing here reads
 the OS clock on the timing path except the measured compute lane, whose
@@ -45,7 +48,9 @@ from repro_torch.core.energy import EnergyMeter, StepSample
 from repro_torch.core.windowed_cache import CacheStats, DoubleBufferedCache
 from repro_torch.device import resolve
 from repro_torch.graph.features import ShardedFeatureStore
+from repro_torch.launch.roofline import device_peaks
 from repro_torch.net.fabric import NetClock
+from repro_torch.obs.tracer import NULL_TRACER, Tracer
 from repro_torch.train import grad_compression as gc
 from repro_torch.train.compute import ComputeEngine, InputRows
 
@@ -54,12 +59,7 @@ ADAPTIVE_METHODS = ("heuristic", "greendygnn", "greendygnn_nocw")
 
 
 def check_supported(cfg) -> None:
-    """Refuse the configurations this slice does not port yet."""
-    if cfg.trace:
-        raise NotImplementedError(
-            "trace=True needs obs/ (greentrace), not ported yet "
-            "(ROADMAP queue 1: tracing)"
-        )
+    """Refuse the configurations the trainer does not run."""
     if cfg.compute not in ("modeled", "measured"):
         raise ValueError(
             f"compute must be 'modeled' or 'measured', got {cfg.compute!r}"
@@ -145,7 +145,7 @@ def build_meter(cfg) -> EnergyMeter:
 
 
 def build_pipeline(cfg, cache, store, fabric, requester: int, clock_fn,
-                   device_tier=None):
+                   device_tier=None, tracer=NULL_TRACER):
     """Threaded Stage-2 builder + Stage-3 prefetcher (async pipeline).
 
     With a device tier the builder also builds each window's device
@@ -162,6 +162,7 @@ def build_pipeline(cfg, cache, store, fabric, requester: int, clock_fn,
         cache, store.peek_rows,
         fabric=fabric, bytes_per_row=store.bytes_per_row,
         requester=requester, clock_fn=clock_fn, build_table=build_table,
+        tracer=tracer,
     ).start()
     prefetcher = PrefetchQueue(
         store.peek_rows,
@@ -245,6 +246,16 @@ class TrainerWorker:
         )
         self.meter = build_meter(cfg)
 
+        # greentrace: null object when disabled; every hot-path emission
+        # site guards on the single `tracer.enabled` attribute, so the
+        # untraced modeled lane does no event work
+        self.tracer = NULL_TRACER
+        self._trace_tiers: dict = {}
+        if cfg.trace:
+            self.tracer = Tracer(rank=self.rank, params=params)
+            if fabric is not None:
+                fabric.set_tracer(self.requester, self.tracer)
+
         # device payload tier: real capacity-bounded rows over the hot
         # cache, hit path served through the embedding_bag kernel
         self.device_tier = None
@@ -269,6 +280,12 @@ class TrainerWorker:
             # measured lane: a real SAGE step each trainer step; its time
             # replaces the modeled t_base charge below
             self.engine = ComputeEngine(graph, cfg)
+        # the card whose peaks price a traced measured step (None on the
+        # CPU; a CUDA card missing from the table raises here)
+        self._peaks = (
+            device_peaks(self.device)
+            if self.tracer.enabled and self.engine is not None else None
+        )
         self.model_state = None
         if cfg.run_model and self.engine is None:
             from repro_torch.train import gnn_trainer as gt
@@ -317,7 +334,7 @@ class TrainerWorker:
         if self.use_async:
             self.builder, self.prefetcher = build_pipeline(
                 cfg, self.cache, self.store, fabric, self.requester,
-                self._current_clock, self.device_tier,
+                self._current_clock, self.device_tier, self.tracer,
             )
 
     # --------------------------------------------------------------- clocks
@@ -430,10 +447,96 @@ class TrainerWorker:
             rebuild_stall=exposed_stall,
             headroom=(self.store.headroom() if self.tiered else 1.0),
         )
-        w, ww, _action = self.controller.decide(stats)
+        w, ww, action = self.controller.decide(stats)
         if cfg.method == "greendygnn_nocw":
             ww = np.full(self.n_owners, 1.0 / self.n_owners)
+        if self.tracer.enabled:
+            # the observation the policy saw and the (W, allocation) it
+            # chose
+            self.tracer.instant(
+                "controller", "decide", self.meter.wall_s, step=step,
+                args={
+                    "action": int(action),
+                    "window": int(w),
+                    "weights": [float(x) for x in ww],
+                    "sigma_hat": [
+                        float(x) for x in np.atleast_1d(
+                            self.controller.last_sigma
+                        )
+                    ],
+                    "obs": [
+                        float(x) for x in np.atleast_1d(
+                            self.controller.last_state
+                        )
+                    ],
+                },
+            )
         return w, ww
+
+    # -------------------------------------------------------------- tracing
+    def _trace_step(self, epoch, step, t_compute, stall, rebuild_stall,
+                    ar_penalty, cpu_comm, nbytes, nrpc, gpu_overlap,
+                    fetch_raw) -> None:
+        """Emit the step's charge event (and the measured compute span).
+
+        Builds the exact :class:`StepSample` the meter is about to record,
+        from the same expressions in the same order, so the ledger replay
+        reconciles bit for bit. Only reached when ``tracer.enabled``.
+        """
+        t0 = self.meter.wall_s
+        gstep = epoch * self.cfg.steps_per_epoch + step
+        if self.engine is not None and self.engine.step_edges:
+            # the reference's per-edge estimate of the measured SAGE step
+            # (order-of-magnitude attribution, not a fitted law), priced at
+            # the card's fp32 peaks: the step runs in float32
+            n_edges = int(self.engine.step_edges[-1])
+            width = float(self.engine.mcfg.d_in + self.engine.mcfg.d_hidden)
+            flops = 2.0 * n_edges * width
+            nbyte = 4.0 * n_edges * width
+            args = {"n_edges": n_edges, "flops_est": flops,
+                    "bytes_est": nbyte, "roof_device": "cpu"}
+            if self._peaks is not None:
+                comp_s, mem_s = self._peaks.terms(flops, nbyte)
+                args.update(
+                    roof_device=self._peaks.name, roof_compute_s=comp_s,
+                    roof_memory_s=mem_s,
+                    bound="memory" if mem_s >= comp_s else "compute",
+                )
+            self.tracer.span(
+                "compute", "measured", t0, t0 + t_compute, step=gstep,
+                epoch=epoch, args=args,
+            )
+        self.tracer.charge_step(
+            t0,
+            StepSample(
+                t_compute=t_compute,
+                t_stall=stall + rebuild_stall + ar_penalty,
+                t_cpu_comm=cpu_comm,
+                remote_bytes=nbytes,
+                n_rpcs=nrpc,
+                gpu_overlap=gpu_overlap,
+            ),
+            step=gstep, epoch=epoch,
+            args={"fetch_s": float(fetch_raw), "exposed_s": float(stall),
+                  "rebuild_s": float(rebuild_stall),
+                  "ar_s": float(ar_penalty)},
+        )
+
+    def _trace_tier_counters(self, t0, step, epoch) -> None:
+        """Per-window tier counter deltas (device-hit / host-hit /
+        CLOCK-eviction / remote-miss attribution between boundaries).
+        Only reached when ``tracer.enabled``."""
+        if not self.tiered:
+            return
+        counts = self.store.tier_stats.counts()
+        delta = {
+            k: (v if k == "peak_resident_bytes"
+                else v - self._trace_tiers.get(k, 0))
+            for k, v in counts.items()
+        }
+        self._trace_tiers = counts
+        self.tracer.counter("store", "tier-window", t0, step=step,
+                            epoch=epoch, args=delta)
 
     # ------------------------------------------------------------ epoch hooks
     def begin_epoch(self, epoch: int) -> None:
@@ -472,6 +575,23 @@ class TrainerWorker:
                 )
             if self.device_tier is not None:
                 self.device_tier.load(plan, self.store.peek_rows)
+            if self.tracer.enabled:
+                # the same charge laws in the order of the two meter calls
+                # below (ledger order == meter order)
+                t0 = self.meter.wall_s
+                self.tracer.charge_background(
+                    t0, cpu_rb, component="epoch-cache", name="epoch-rebuild",
+                    epoch=epoch,
+                    args={"bytes": float(nbytes), "rpcs": int(nrpc),
+                          "fetch_s": float(raw),
+                          "rows": float(plan.per_owner_fetched.sum())},
+                )
+                self.tracer.charge_step(
+                    t0,
+                    StepSample(0.0, float(self.params.alpha_crit) * raw, 0.0),
+                    component="epoch-cache", name="leak", epoch=epoch,
+                )
+                self._trace_tier_counters(t0, 0, epoch)
             self.meter.record_background(cpu_rb, nbytes, nrpc)
             self.meter.record_step(
                 StepSample(0.0, float(self.params.alpha_crit) * raw, 0.0)
@@ -636,6 +756,12 @@ class TrainerWorker:
             t_compute = self.engine.step(mb, x_in, key=(epoch, step))
         else:
             t_compute = self.t_base
+        if self.tracer.enabled:
+            self._trace_step(
+                epoch, step, t_compute, stall, rebuild_stall, ar_penalty,
+                cpu + blk_cpu, nbytes + blk_bytes, nrpc + blk_rpcs,
+                gpu_overlap, raw + blk_raw,
+            )
         self.meter.record_step(
             StepSample(
                 t_compute=t_compute,
@@ -684,6 +810,11 @@ class TrainerWorker:
         rebuild's wire time also occupies the owner links, so the next miss
         fetches queue behind it."""
         cfg = self.cfg
+        if self.tracer.enabled:
+            self.tracer.begin_window(
+                self.meter.wall_s,
+                step=epoch * cfg.steps_per_epoch + step, epoch=epoch,
+            )
         if adaptive_now:
             self.window, self.weights = self._decide(
                 self.pending_rebuild_cost / max(self.window, 1), step
@@ -716,6 +847,20 @@ class TrainerWorker:
             # are gathered device-to-device, on the current stream), so
             # load before swap
             self.device_tier.load(plan, self.store.peek_rows)
+        if self.tracer.enabled:
+            t0 = self.meter.wall_s
+            self.tracer.charge_background(
+                t0, cpu_rb, component="rebuild", name="rebuild-sync",
+                step=epoch * cfg.steps_per_epoch + step, epoch=epoch,
+                args={"bytes": float(nbytes), "rpcs": int(nrpc),
+                      "fetch_s": float(raw_rb),
+                      "leak_s": float(self.params.alpha_crit) * raw_rb,
+                      "window": int(self.window),
+                      "rows": float(plan.per_owner_fetched.sum())},
+            )
+            self._trace_tier_counters(
+                t0, epoch * cfg.steps_per_epoch + step, epoch
+            )
         self.meter.record_background(cpu_rb, nbytes, nrpc)
         self.pending_rebuild_cost = float(self.params.alpha_crit) * raw_rb
         self.cache.swap(plan)
@@ -728,6 +873,11 @@ class TrainerWorker:
 
         cfg = self.cfg
         trace = self.traces[epoch]
+        if self.tracer.enabled:
+            self.tracer.begin_window(
+                self.meter.wall_s,
+                step=epoch * cfg.steps_per_epoch + step, epoch=epoch,
+            )
         if self.pending_ticket is None:
             # cold start: nothing was built ahead; the rebuild is fully
             # exposed, exactly like the sync path
@@ -768,9 +918,9 @@ class TrainerWorker:
         if buf.net is not None:
             # bulk fetch already issued through the fabric on the builder
             # thread (shared Fabric.transfer API)
-            _, cpu_rb, nbytes, nrpc = buf.net.astuple()
+            raw_rb, cpu_rb, nbytes, nrpc = buf.net.astuple()
         else:
-            _, cpu_rb, nbytes, nrpc = gt._fetch_time(
+            raw_rb, cpu_rb, nbytes, nrpc = gt._fetch_time(
                 self.params,
                 plan.per_owner_fetched.astype(np.float64),
                 delta, self.bytes_per_row,
@@ -778,6 +928,24 @@ class TrainerWorker:
         # measured: builder work burned real host CPU in the background;
         # only the MEASURED exposed wait leaks onto the critical path (no
         # alpha_crit approximation)
+        if self.tracer.enabled:
+            t0 = self.meter.wall_s
+            self.tracer.charge_background(
+                t0, cpu_rb + buf.t_plan_s + buf.t_fetch_s + blk_cpu,
+                component="rebuild", name="rebuild-async",
+                step=epoch * cfg.steps_per_epoch + step, epoch=epoch,
+                args={"bytes": float(nbytes + blk_bytes),
+                      "rpcs": int(nrpc + blk_rpcs),
+                      "fetch_s": float(raw_rb),
+                      "exposed_s": float(exposed),
+                      "plan_s": float(buf.t_plan_s),
+                      "build_fetch_s": float(buf.t_fetch_s),
+                      "window": int(self.window),
+                      "rows": float(plan.per_owner_fetched.sum())},
+            )
+            self._trace_tier_counters(
+                t0, epoch * cfg.steps_per_epoch + step, epoch
+            )
         self.meter.record_background(
             cpu_rb + buf.t_plan_s + buf.t_fetch_s + blk_cpu,
             nbytes + blk_bytes, nrpc + blk_rpcs,
@@ -848,6 +1016,14 @@ class TrainerWorker:
 
         Called on the worker's own thread after the cluster driver has
         published the step's charges (no thread races this meter)."""
+        if self.tracer.enabled:
+            self.tracer.charge_sync(
+                self.meter.wall_s, wait_s + coll_wall_s,
+                cpu_comm_s=coll_cpu_s,
+                step=self._clk.step, epoch=self._clk.epoch,
+                args={"wait_s": float(wait_s), "coll_s": float(coll_wall_s),
+                      "bytes": float(coll_bytes), "msgs": int(coll_msgs)},
+            )
         self.meter.record_sync(
             wait_s + coll_wall_s, cpu_comm_s=coll_cpu_s,
             remote_bytes=coll_bytes, n_rpcs=coll_msgs,
@@ -896,5 +1072,9 @@ class TrainerWorker:
             ),
             scenario=(
                 "closed_form" if self.fabric is None else self.cfg.scenario
+            ),
+            trace=(
+                self.tracer.section(self.meter)
+                if self.tracer.enabled else None
             ),
         )

@@ -441,11 +441,18 @@ class TestRefusals:
         with pytest.raises(KeyError):
             pcluster.run_cluster(pcfg, pcluster.ClusterConfig(n_workers=2))
 
-    def test_trace_is_refused(self):
-        """greentrace is not ported: the port refuses ``trace=True``."""
-        _, pcfg = _cfgs(dict(SMALL, trace=True))
-        with pytest.raises(NotImplementedError, match="tracing"):
-            pcluster.run_cluster(pcfg, pcluster.ClusterConfig(n_workers=2))
+    def test_trace_runs(self):
+        """``trace=True``, once refused here, traces: the P=2 payload is
+        the reference's in canonical JSON and reconciles bit for bit on
+        every rank, and no worker thread is left."""
+        from repro.obs import dumps_canonical as ref_dumps
+        from repro_torch.obs import dumps_canonical, reconcile
+
+        cfg, pcfg = _cfgs(dict(SMALL, trace=True))
+        port = pcluster.run_cluster(pcfg, pcluster.ClusterConfig(n_workers=2))
+        ref = rcluster.run_cluster(cfg, rcluster.ClusterConfig(n_workers=2))
+        assert dumps_canonical(port.trace) == ref_dumps(ref.trace)
+        assert sorted(reconcile(port.trace)) == [0, 1]
         assert not _threads_left()
 
     def test_cuda_without_a_card_raises(self, monkeypatch):

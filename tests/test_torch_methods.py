@@ -199,7 +199,6 @@ class TestRefused:
     """Configurations later slices port raise instead of running."""
 
     @pytest.mark.parametrize("override,exc", [
-        (dict(trace=True), NotImplementedError),
         (dict(grad_compression="zfp", compute="measured"), ValueError),
         (dict(grad_compression="zfp"), ValueError),
         (dict(compute="sampled"), ValueError),
@@ -240,6 +239,18 @@ class TestRefused:
             assert rep["sync_wire_bytes"] == model_wire_bytes(
                 graph, scheme, override.get("topk_frac", 0.05)) \
                 < model_wire_bytes(graph)
+
+    def test_trace_runs(self):
+        """``trace=True``, once refused here, traces: the payload is the
+        reference's in canonical JSON and reconciles bit for bit."""
+        from repro.obs import dumps_canonical as ref_dumps
+        from repro_torch.obs import dumps_canonical, reconcile
+
+        kw = dict(SWEEP, method="static_w", trace=True)
+        port = pgt.run(pgt.RunConfig(**kw, device="cpu"))
+        ref = rgt.run(rgt.RunConfig(**kw))
+        assert dumps_canonical(port.trace) == ref_dumps(ref.trace)
+        assert reconcile(port.trace)[0]["gpu_j"] == port.meter.gpu_j
 
     def test_async_pipeline_runs(self):
         """``async_pipeline=True``, once refused here, runs: the threaded

@@ -249,8 +249,46 @@ def test_fabric_refusals_match():
     port = pfab.Fabric(PP, 3)
     with pytest.raises(ValueError):
         port.transfer(np.ones(4), 400.0)
-    with pytest.raises(NotImplementedError, match="tracing"):
-        port.set_tracer(0, object())
+
+
+@pytest.mark.parametrize("kw,chunk", [
+    ({}, None),
+    ({}, 64),
+    (dict(shared_rate=2e6, discipline="fifo"), None),
+    (dict(shared_rate=2e6, discipline="ps"), None),
+], ids=["bulk", "chunked", "shared_fifo", "shared_ps"])
+def test_set_tracer_spans_equal_reference(kw, chunk):
+    """A registered tracer gets one span a transfer, with each owner
+    link's queue, service and propagation times, equal to the
+    reference's; an unregistered requester gets none."""
+    from repro.obs import Tracer as RefTracer
+    from repro_torch.obs import Tracer as PortTracer
+
+    ref = rfab.Fabric(RP, 3, n_parts=4, n_requesters=4, **kw)
+    port = pfab.Fabric(PP, 3, n_parts=4, n_requesters=4, **kw)
+    rtr, ptr = RefTracer(rank=1, params=RP), PortTracer(rank=1, params=PP)
+    ref.set_tracer(1, rtr)
+    port.set_tracer(1, ptr)
+    rows = np.array([300.0, 0.0, 120.0])
+    for i, t in enumerate((0.0, 0.0001, 0.0002)):
+        for requester in (1, 2):
+            clock = pfab.NetClock(t, i, 0)
+            rclock = rfab.NetClock(t, i, 0)
+            a = port.transfer(rows, 400.0, chunk=chunk, requester=requester,
+                              clock=clock)
+            b = ref.transfer(rows, 400.0, chunk=chunk, requester=requester,
+                             clock=rclock)
+            assert a.raw_s == b.raw_s
+    assert json.dumps(ptr.events, sort_keys=True) \
+        == json.dumps(rtr.events, sort_keys=True)
+    assert len(ptr.events) == 3
+    for ev in ptr.events:
+        assert ev["args"]["requester"] == 1
+        assert [o["slot"] for o in ev["args"]["owners"]] == [0, 2]
+        for o in ev["args"]["owners"]:
+            assert o["finish_s"] >= o["start_s"] >= o["ready_s"]
+    assert sum(o["queue_s"] for ev in ptr.events
+               for o in ev["args"]["owners"]) > 0
 
 
 def test_sanitized_transfer_asserts_the_lock():

@@ -136,10 +136,55 @@ class TestCacheBuilder:
         ids, rows = buf.table
         np.testing.assert_array_equal(rows, features[ids])
 
-    def test_tracer_is_refused(self):
-        cache, features, _ = make_setup()
-        with pytest.raises(NotImplementedError, match="tracing"):
-            CacheBuilder(cache, lambda ids: features[ids], tracer=object())
+    def test_tracer_gets_pipeline_spans(self):
+        """``CacheBuilder(tracer=...)``, once refused here, traces: a build
+        gives the reference's span names and argument keys, the plan and
+        fetch spans from the builder thread and the exposed wait and swap
+        from the consumer, all at the consumer's virtual clock."""
+        from repro.core.cost_model import CostModelParams as RefParams
+        from repro.obs import Tracer as RefTracer
+        from repro.pipeline import CacheBuilder as RefBuilder
+        from repro_torch.core.cost_model import CostModelParams
+        from repro_torch.net.fabric import NetClock
+        from repro_torch.obs import Tracer
+
+        cache, features, rng = make_setup()
+        # make_setup's owner map, the first draw of its generator
+        ref_cache = RefCache(120, np.random.default_rng(0).integers(0, 3, 2000),
+                             3)
+        batches = [rng.integers(0, 2000, 128)]
+        weights = np.full(3, 1 / 3)
+        spans = {}
+        for name, builder, tracer in [
+            ("port", CacheBuilder, Tracer(rank=0, params=CostModelParams())),
+            ("ref", RefBuilder, RefTracer(rank=0, params=RefParams())),
+        ]:
+            threads = []
+            span = tracer.span
+
+            def recording(*a, _span=span, **k):
+                threads.append(threading.current_thread().name)
+                return _span(*a, **k)
+
+            tracer.span = recording
+            c = cache if name == "port" else ref_cache
+            with builder(c, lambda ids: features[ids], tracer=tracer,
+                         clock_fn=lambda: NetClock(1.5, 3, 0)) as b:
+                buf, _ = b.build_sync(batches, weights)
+                b.swap(buf)
+            spans[name] = tracer.events
+            if name == "port":
+                assert threads == ["cache-builder", "cache-builder",
+                                   threading.current_thread().name,
+                                   threading.current_thread().name]
+        for ev_p, ev_r in zip(spans["port"], spans["ref"], strict=True):
+            assert (ev_p["component"], ev_p["name"]) \
+                == (ev_r["component"], ev_r["name"])
+            assert set(ev_p["args"]) == set(ev_r["args"])
+            assert ev_p["t0"] == 1.5 or ev_p["name"] == "fetch"
+            assert ev_p["t1"] >= ev_p["t0"]
+        assert [e["name"] for e in spans["port"]] \
+            == ["plan", "fetch", "exposed-wait", "swap"]
 
     def test_sanitizer_binds_the_consumer_thread(self):
         cache, features, rng = make_setup()
