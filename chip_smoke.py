@@ -252,6 +252,35 @@ Phases, each of which ends the run with a non-zero exit on failure:
    them), and a window of decode steps into device kernels per step,
    device busy time against the unprofiled host wall, and the host ops
    that take the most CPU time.
+   The LM training phase (``phase_lm_train``) follows. The flash
+   backward kernel (``csrc/flash_attention_bwd.cu``, three kernels behind
+   one C entry) against its plain version on the same inputs: float32 at
+   D = 32, 64, 128, causal and not, a ragged S, Sk > Sq and strided GQA
+   heads (``TOL_BWD_F32``); bf16 at the training shape (B=1, S=4096,
+   Hq=32, Hkv=4, D=64, causal; rtol ``TOL_BWD_BF16_RTOL``, atol a
+   fraction of the tensor's largest |plain|), two launches bit-identical,
+   every gradient finite and non-zero; through autograd it must launch
+   once, on the autograd engine's thread, and give the direct call's
+   gradients. Then the train_4k cell's step
+   (``launch.train.make_train_step``: warmup-cosine AdamW 3e-4 / 2,000 /
+   100,000, wd 0.1, clip 1.0, ``grad_accum`` 2; ``lm_loss`` with remat
+   and ``loss_chunk`` 1,024) at TinyLlama-1.1B's full width, seeded
+   random bf16 weights, S = 4,096, the cell's global batch of 256 cut to
+   2: 6 steps with the counts zeroed just before and read just after
+   (flash forward 88 launches a step, the pass and remat's recompute;
+   backward 44, none on the main thread; the plain backward refused),
+   losses finite and the first within 1.5 of ln V; each step's time
+   (CUDA events), host wall and tokens/s, the peak memory, the step's
+   bound at the bf16 peak; ``wq``, ``wk``, ``wv`` gradients non-zero in
+   every layer. After step 3 the state is checkpointed blocking and
+   async (``train.checkpoint``); both restore into a freshly drawn tree
+   with every leaf ``torch.equal`` and step 3, and 3 steps from the
+   restored state give the uninterrupted run's losses (``TOL_RESUME``).
+   One profiled step gives the device busy time by kernel group and the
+   idle share. Then the user's entry point in subprocesses: ``python -m
+   repro_torch.launch.train --arch tinyllama-1.1b --steps 20
+   --ckpt-every 10`` and ``--resume --steps 10``, their printed lines
+   checked.
 7. Time each kernel, its plain version and the equivalent library call
    with CUDA events (median of 25 launches, L2 flushed before each and
    each queued behind a spin kernel so the host's enqueue time is not
@@ -271,7 +300,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
    against its plain version, with its launches in the queue training;
    the ``cluster_window`` row likewise at 32 envs (every archetype and
    live-peer count), P = 3 and W = 128, with its launches in the cluster
-   training.
+   training. The ``flash_attention_bwd`` row times the backward kernel at
+   the training shape against its plain version, the backward of
+   ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+   (the yardstick) and the bound of the gradient's five products over the
+   causal half, with its launches in the training run.
    TF32 is off throughout: float32 results are compared in full float32.
    Every bound is read from ``repro_torch.launch.roofline``'s peaks for
    the card's name (a card missing from its table fails the run).
@@ -353,6 +386,18 @@ RUN_MODEL = dict(CLUSTER_PIN, steps_per_epoch=4, compute="modeled",
 # card against CPU: fp32 sums in another order (the SpMM, atomics in the
 # scatter path), compounded over the AdamW steps
 TOL_CLUSTER_LOSS = dict(rtol=1e-4, atol=0.0)
+# the LM training phase: the train_4k cell's step (S = 4,096, grad_accum
+# 2) at TinyLlama's full width, its global batch of 256 cut to 2 (two
+# microbatches of 1); 6 steps, a checkpoint after the third
+TRAIN_S, TRAIN_BATCH, TRAIN_STEPS, TRAIN_SAVE_AT = 4096, 2, 6, 3
+# the backward kernel against its plain version: float32 in another
+# summation order; bf16 outputs one rounding apart (rtol), atol 1e-3 of the
+# tensor's largest |plain| for the float32 sums' reassociation near zero
+TOL_BWD_F32 = dict(atol=2e-5, rtol=1e-4)
+TOL_BWD_BF16_RTOL, TOL_BWD_BF16_ATOL_FRAC = 1e-2, 1e-3
+# a resumed run against the uninterrupted one: losses (the embedding's
+# backward may accumulate in another order)
+TOL_RESUME = dict(rtol=1e-3, atol=0.0)
 BUDGETED = dict(method="static_w", dataset="ooc_community",
                 compute="measured", scenario="clean", batch_size=2000,
                 n_epochs=2, warmup_epochs=1, steps_per_epoch=4,
@@ -494,6 +539,7 @@ def phase_card_and_build(torch):
                        "queue_window")
     check_window_build(_build.build_log("cluster_window") or "",
                        "cluster_window")
+    check_bwd_build(_build.build_log("flash_attention_bwd") or "")
     return smi
 
 
@@ -4590,6 +4636,489 @@ def phase_profile_prefill(torch, cfg, params, tokens):
             f"{n_flash} flash launches, not {cfg.n_layers}")
 
 
+# ------------------------------------------------ the LM training phase
+def check_bwd_build(text: str) -> None:
+    """The flash backward's ptxas report: its three kernels for float32
+    and bf16 at D = 32, 64 and 128 (18 instances), logged with their
+    registers and spills."""
+    import re
+
+    found = {}
+    for name, info in ptxas_functions(text).items():
+        hit = re.search(r"(bwd_(?:prep|dkdv|dq)_kernel)I(f|13__nv_bfloat16)"
+                        r"Li(\d+)E", name)
+        if hit:
+            kern, t, d = hit.groups()
+            found[(kern, "f32" if t == "f" else "bf16", int(d))] = info
+    want = sorted((k, t, d) for k in ("bwd_prep_kernel", "bwd_dkdv_kernel",
+                                      "bwd_dq_kernel")
+                  for t in ("f32", "bf16") for d in (32, 64, 128))
+    require(sorted(found) == want,
+            f"ptxas report lists flash backward instances {sorted(found)}, "
+            f"not {want} (is the build log missing?)")
+    for (kern, t, d), info in sorted(found.items()):
+        log(f"  ptxas[flash_attention_bwd] {kern}<{t}, {d}>: "
+            f"{info.get('registers')} registers, {info.get('spill_stores')} "
+            f"bytes spill stores, {info.get('spill_loads')} bytes spill loads")
+
+
+def bwd_vs_plain(torch, device):
+    """The backward kernel against its plain version on the same inputs:
+    float32 at every compiled D, causal and not, a ragged S, Sk > Sq and
+    GQA over strided head views; bf16 at the training shape (relaunched
+    bit-identical); then through autograd, where it must run on PyTorch's
+    autograd thread and give the direct call's gradients. Returns the
+    largest |kernel - plain| and the training-shape operands."""
+    import threading
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    )
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen).to(device=device,
+                                                    dtype=dtype)
+
+    def compare(label, got, want, bf16):
+        errs = []
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            require(bool(torch.isfinite(a).all()),
+                    f"flash bwd {label}: {name} not finite")
+            require(bool(a.abs().max() > 0), f"flash bwd {label}: {name} is 0")
+            e = float((a.float() - b.float()).abs().max())
+            tol = (dict(rtol=TOL_BWD_BF16_RTOL, atol=TOL_BWD_BF16_ATOL_FRAC
+                        * float(b.float().abs().max())) if bf16
+                   else TOL_BWD_F32)
+            require(torch.allclose(a.float(), b.float(), **tol),
+                    f"flash bwd {label} {name}: kernel vs plain {e:.3e}")
+            errs.append(e)
+        log(f"flash bwd {label}: max|kernel-plain| dq {errs[0]:.3e} dk "
+            f"{errs[1]:.3e} dv {errs[2]:.3e}")
+        return max(errs)
+
+    err = 0.0
+    cases = [(f"f32 d={d} causal={c} s=256 GQA 8/2", (2, 256, 8, d),
+              (2, 256, 2, d), c, None) for d in HEAD_DIMS for c in (True, False)]
+    cases += [("f32 d=64 causal=True s=200 (ragged)", (1, 200, 4, 64),
+               (1, 200, 1, 64), True, None),
+              ("f32 d=64 causal=False sq=128 sk=320", (1, 128, 4, 64),
+               (1, 320, 2, 64), False, None),
+              ("f32 d=32 causal=True strided heads", (2, 128, 16, 32),
+               (2, 128, 4, 32), True, "strided")]
+    for label, qs, ks, causal, how in cases:
+        if how == "strided":   # views into wider head axes
+            qb, kb = randn(*qs), randn(*ks)
+            q, k, v = qb[:, :, 4:12], kb[:, :, :2], kb[:, :, 2:]
+        else:
+            q, k, v = randn(*qs), randn(*ks), randn(*ks)
+        do = randn(*q.shape)
+        o = flash_attention(q, k, v, causal, q.shape[1], k.shape[1])
+        got = flash_attention_bwd(q, k, v, o, do, causal)
+        want = flash_attention_bwd_plain(q, k, v, o, do, causal)
+        err = max(err, compare(label, got, want, False))
+
+    # the training shape: one microbatch of TinyLlama at S = 4,096, bf16
+    bf = torch.bfloat16
+    b, s, hq, hkv, d = 1, TRAIN_S, 32, 4, 64
+    q, k, v = (randn(b, s, hq, d, dtype=bf), randn(b, s, hkv, d, dtype=bf),
+               randn(b, s, hkv, d, dtype=bf))
+    do = randn(b, s, hq, d, dtype=bf)
+    block_k = min(s, 1024)    # the model's attn_block_k
+    o = flash_attention(q, k, v, True, 128, block_k)
+    got = flash_attention_bwd(q, k, v, o, do, True)
+    again = flash_attention_bwd(q, k, v, o, do, True)
+    torch.cuda.synchronize()
+    require(all(torch.equal(x, y) for x, y in zip(got, again)),
+            "flash bwd: two launches on the same inputs differ")
+    want = flash_attention_bwd_plain(q, k, v, o, do, True)
+    err = max(err, compare(f"bf16 training shape q={tuple(q.shape)} "
+                           f"kv={tuple(k.shape)} causal, bit-identical "
+                           "relaunch", got, want, True))
+    del want
+
+    # through autograd: the Function's backward launches the kernel on the
+    # autograd engine's device thread
+    before = dict(flash_attention_bwd.launches_by_thread)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*leaves, True, 128, block_k)
+    require(type(out.grad_fn).__name__ == "FlashAttentionBackward",
+            f"flash_attention under grad has grad_fn {out.grad_fn}")
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = flash_attention_bwd.launches_by_thread
+    new = {t: n - before.get(t, 0) for t, n in after.items()
+           if n != before.get(t, 0)}
+    require(sum(new.values()) == 1
+            and threading.current_thread().name not in new,
+            f"autograd's backward launches by thread {new}: not one, on the "
+            "autograd thread")
+    require(all(torch.equal(x.grad, y) for x, y in zip(leaves, got)),
+            "flash bwd through autograd differs from the direct call")
+    log(f"flash bwd through autograd: one launch on thread {sorted(new)}, "
+        "gradients equal to the direct call's")
+    return err, (q, k, v, o, do)
+
+
+def train_bound(cfg, tokens: int) -> tuple[float, float]:
+    """(operations, bytes) a train_4k step needs at least: 6 N T for the
+    matrix products' forward and backward over N matrix parameters and T
+    tokens, 2 N T again for remat's recompute (every layer and the loss
+    chunks' logits), and attention's products over the causal half (the
+    forward's two, recomputed, and the backward's five) a layer and a
+    microbatch; bytes: AdamW reading and writing the bf16 parameters and
+    the float32 moments once."""
+    d, hd, kvd = cfg.d_model, cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    per_layer = d * hd + 2 * d * kvd + hd * d + 3 * d * cfg.d_ff
+    n_mat = cfg.n_layers * per_layer + d * cfg.padded_vocab
+    s = TRAIN_S
+    pairs = s * (s + 1) / 2
+    attn = (2 + 2 + 5) * 2.0 * cfg.n_heads * cfg.d_head * pairs
+    n_micro = tokens // s
+    n_flops = 8.0 * n_mat * tokens + attn * cfg.n_layers * n_micro
+    n_all = n_mat + d * cfg.padded_vocab + (2 * cfg.n_layers + 1) * d
+    n_bytes = 2.0 * n_all * (2 + 4 + 4)
+    return n_flops, n_bytes
+
+
+def phase_lm_train(torch, device, smi):
+    """LM training at TinyLlama-1.1B's full width through the user's entry
+    points: the train_4k cell's step (``launch.train.make_train_step``:
+    warmup-cosine AdamW, wd 0.1, clip 1.0, ``grad_accum`` microbatches;
+    ``lm_loss`` with remat and chunked cross-entropy), checkpoint and
+    resume (``train.checkpoint``), and the launcher in subprocesses.
+    Returns the backward kernel's timing row."""
+    import re
+    import tempfile
+
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd,
+    )
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.segment_mm import csr_spmm
+    from repro_torch.launch import train as lt
+    from repro_torch.models.lm import transformer as tf
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    bwd_err, operands = bwd_vs_plain(torch, device)
+
+    cfg = get_arch("tinyllama-1.1b").make_config()
+    require(cfg.remat and cfg.grad_accum == 2 and cfg.loss_chunk == 1024
+            and TRAIN_S >= cfg.blockwise_threshold,
+            "tinyllama-1.1b's config is not the train_4k cell's")
+    opt = optim.adamw(optim.warmup_cosine_schedule(3e-4, 2000, 100_000),
+                      weight_decay=0.1, max_grad_norm=1.0)
+    step = lt.make_train_step(cfg, opt, accum=cfg.grad_accum)
+
+    def batch(i):  # step i's tokens and their next tokens as targets
+        gen = torch.Generator().manual_seed(SEED + 100 + i)
+        seq = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_S + 1),
+                            generator=gen).to(device)
+        return seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
+
+    def clone(tree):
+        params, st = tree
+        return (tree_map(torch.clone, params),
+                optim.OptState(st.step, tree_map(torch.clone, st.mu),
+                               tree_map(torch.clone, st.nu)))
+
+    def equal_trees(a, b):
+        fa, fb = ckpt._flatten(a), ckpt._flatten(b)
+        return fa.keys() == fb.keys() and all(
+            (x == fb[key]) if isinstance(x, int)
+            else (x.dtype == fb[key].dtype and torch.equal(x, fb[key]))
+            for key, x in fa.items())
+
+    def run(params, state, first, n, saved=None):
+        losses, ev_ms, wall = [], [], []
+        for i in range(first, first + n):
+            tokens, targets = batch(i)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            params, state, loss = step(params, state, tokens, targets)
+            end.record()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            ev_ms.append(start.elapsed_time(end))
+            losses.append(float(loss))
+            log(f"train step {i + 1}: loss {losses[-1]:.4f}, {ev_ms[-1]:.1f} "
+                f"ms (events), host wall {wall[-1]:.1f} ms, "
+                f"{TRAIN_BATCH * TRAIN_S / ev_ms[-1] * 1e3:.0f} tokens/s")
+            if saved is not None and i + 1 == TRAIN_SAVE_AT:
+                # the training's own peak, before the clone kept for the
+                # restore check adds a copy of the state
+                saved["peak"] = torch.cuda.max_memory_allocated(device)
+                saved["state"] = clone((params, state))
+                t0 = time.perf_counter()
+                ckpt.save_checkpoint(saved["blocking"], i + 1,
+                                     (params, state))
+                t1 = time.perf_counter()
+                ckpt.save_checkpoint(saved["async"], i + 1, (params, state),
+                                     blocking=False)
+                saved["s"] = (t1 - t0, time.perf_counter() - t1)
+        return params, state, losses, ev_ms, wall
+
+    t0 = time.perf_counter()
+    params = tf.init(cfg, seed=SEED, device=device)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    log(f"train: tinyllama-1.1b params ({cfg.dtype}) and AdamW state drawn "
+        f"in {time.perf_counter() - t0:.2f} s; the train_4k cell's step at "
+        f"S={TRAIN_S}, global batch cut from 256 to {TRAIN_BATCH} "
+        f"({cfg.grad_accum} microbatches of {TRAIN_BATCH // cfg.grad_accum}), "
+        f"remat, loss_chunk {cfg.loss_chunk}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = {"blocking": f"{tmp}/blocking", "async": f"{tmp}/async"}
+        plain_bwd = flash_ops.flash_attention_bwd_plain
+
+        def refuse(*args, **kw):
+            raise SmokeError("the plain flash backward ran on the card")
+
+        # the main path's run, counts zeroed just before and read just after
+        for w in (flash_attention, flash_attention_bwd, csr_spmm,
+                  embedding_bag):
+            w.launches = 0
+            w.launches_by_thread.clear()
+        flash_ops.flash_attention_bwd_plain = refuse
+        torch.cuda.reset_peak_memory_stats(device)
+        try:
+            params, state, losses, ev_ms, wall = run(params, state, 0,
+                                                     TRAIN_STEPS, saved)
+        finally:
+            flash_ops.flash_attention_bwd_plain = plain_bwd
+        peak = torch.cuda.max_memory_allocated(device)
+        counts = {"flash_attention": flash_attention.launches,
+                  "flash_attention_bwd": flash_attention_bwd.launches,
+                  "csr_spmm": csr_spmm.launches,
+                  "embedding_bag": embedding_bag.launches}
+        by_thread = dict(flash_attention_bwd.launches_by_thread)
+        ckpt.wait_async()
+        per_fwd = cfg.n_layers * cfg.grad_accum * 2   # the pass and remat's
+        per_bwd = cfg.n_layers * cfg.grad_accum
+        log(f"train launches in {TRAIN_STEPS} steps: {counts} (backward by "
+            f"thread {by_thread}); per step flash forward "
+            f"{counts['flash_attention'] / TRAIN_STEPS:.1f}, backward "
+            f"{counts['flash_attention_bwd'] / TRAIN_STEPS:.1f}")
+        require(counts["flash_attention"] == per_fwd * TRAIN_STEPS,
+                f"flash forward launches {counts['flash_attention']}, not "
+                f"{per_fwd} a step")
+        require(counts["flash_attention_bwd"] == per_bwd * TRAIN_STEPS,
+                f"flash backward launches {counts['flash_attention_bwd']}, "
+                f"not {per_bwd} a step")
+        require("MainThread" not in by_thread,
+                "the flash backward launched on the main thread")
+        require(counts["csr_spmm"] == counts["embedding_bag"] == 0,
+                "LM training launched a trainer kernel")
+        require(all(math.isfinite(x) for x in losses),
+                f"train losses not finite: {losses}")
+        ln_v = math.log(cfg.vocab)
+        require(abs(losses[0] - ln_v) < 1.5,
+                f"first loss {losses[0]:.4f} is not near ln V = {ln_v:.4f}")
+
+        steady = statistics.median(ev_ms[1:])
+        steady_wall = statistics.median(wall[1:])
+        tokens = TRAIN_BATCH * TRAIN_S
+        n_flops, n_bytes = train_bound(cfg, tokens)
+        b_ms, b_by = bound_ms(n_bytes, n_flops, "bf16")
+        log(f"train step (median of steps 2-{TRAIN_STEPS}): {steady:.1f} ms "
+            f"(events), host wall {steady_wall:.1f} ms, "
+            f"{tokens / steady * 1e3:.0f} tokens/s; first step {ev_ms[0]:.1f}"
+            f" ms; peak memory {saved['peak'] / 2**30:.2f} GiB over steps "
+            f"1-{TRAIN_SAVE_AT} ({peak / 2**30:.2f} GiB with the checkpoint "
+            f"check's copy of the state; max_memory_allocated); bound "
+            f"{b_ms:.1f} ms ({b_by}; "
+            f"{n_flops:.4g} operations at the bf16 peak, {n_bytes / 1e9:.1f} "
+            f"GB); step / bound {steady / b_ms:.2f}x; {smi}")
+
+        # wq, wk and wv get gradients through the backward kernel
+        before = flash_attention_bwd.launches
+        tokens_1, targets_1 = batch(0)
+        _, grads = lt.value_and_grad(params, cfg, tokens_1[:1],
+                                     targets_1[:1])
+        require(flash_attention_bwd.launches - before == cfg.n_layers,
+                "value_and_grad did not launch the backward once a layer")
+        for name in ("wq", "wk", "wv"):
+            g = grads["layers"][name].float()
+            per_layer = g.abs().flatten(1).amax(dim=1)
+            require(bool(torch.isfinite(g).all()) and bool((per_layer > 0).all()),
+                    f"{name}: a layer got no gradient through the kernel")
+        log("train: wq, wk, wv gradients finite and non-zero in all "
+            f"{cfg.n_layers} layers through the backward kernel")
+        del grads, g
+
+        # checkpoint and resume: restore into a freshly drawn tree
+        del params, state
+        torch.cuda.empty_cache()
+        fresh = tf.init(cfg, seed=SEED + 1, device=device)
+        target = (fresh, opt.init(fresh))
+        restored = {}
+        for kind in ("blocking", "async"):
+            t0 = time.perf_counter()
+            tree, at = ckpt.restore_checkpoint(saved[kind], target)
+            torch.cuda.synchronize()
+            require(at == TRAIN_SAVE_AT and tree[1].step == TRAIN_SAVE_AT,
+                    f"{kind} checkpoint restored step {at}")
+            require(equal_trees(tree, saved["state"]),
+                    f"{kind} checkpoint: a restored leaf differs")
+            restored[kind] = time.perf_counter() - t0
+            if kind == "blocking":
+                del tree
+        del target, fresh, saved["state"]
+        torch.cuda.empty_cache()
+        log(f"checkpoint at step {TRAIN_SAVE_AT}: saved in "
+            f"{saved['s'][0]:.2f} s (blocking) / {saved['s'][1]:.2f} s to "
+            f"return (async); restored in {restored['blocking']:.2f} / "
+            f"{restored['async']:.2f} s, every leaf equal, on "
+            f"{tree[0]['embed'].device}")
+        params, state = tree
+        params, state, resumed, _, _ = run(
+            params, state, TRAIN_SAVE_AT, TRAIN_STEPS - TRAIN_SAVE_AT)
+        want = losses[TRAIN_SAVE_AT:]
+        gap = max(abs(a - b) for a, b in zip(resumed, want))
+        log(f"resumed steps {TRAIN_SAVE_AT + 1}-{TRAIN_STEPS}: losses "
+            f"{[round(x, 4) for x in resumed]} against "
+            f"{[round(x, 4) for x in want]} uninterrupted, max |diff| "
+            f"{gap:.3e}{' (bitwise)' if resumed == want else ''}")
+        require(all(math.isclose(a, b, rel_tol=TOL_RESUME["rtol"])
+                    for a, b in zip(resumed, want)),
+                "resumed losses differ from the uninterrupted run's")
+
+    # one profiled step: device busy, idle share, time by kernel group
+    by_name = traced(torch, lambda: step(params, state, *batch(TRAIN_STEPS)))
+    require(bool(by_name), "profile train step: no device time reported")
+    groups = {"flash forward": 0.0, "flash backward": 0.0,
+              "matrix products": 0.0, "rest": 0.0}
+    for name, (us, _) in by_name.items():
+        low = name.lower()
+        if "flash_fwd" in low:
+            groups["flash forward"] += us / 1e3
+        elif re.search(r"bwd_(prep|dkdv|dq)_kernel", low):
+            groups["flash backward"] += us / 1e3
+        elif any(w in low for w in ("gemm", "gemv", "nvjet", "sm90_",
+                                    "cutlass", "xmma", "cublas")):
+            groups["matrix products"] += us / 1e3
+        else:
+            groups["rest"] += us / 1e3
+    busy = sum(groups.values())
+    log(f"profile train step: device busy {busy:.1f} ms against a host wall "
+        f"of {steady_wall:.1f} ms (unprofiled median), idle share "
+        f"{1.0 - busy / steady_wall:.4f}")
+    for name, ms in groups.items():
+        log(f"  {name:16s} {ms:9.3f} ms  share {ms / busy:.4f}")
+    del params, state
+    torch.cuda.empty_cache()
+
+    launcher_checks(torch)
+    row = bwd_timing_row(torch, device, operands,
+                         counts["flash_attention_bwd"], TRAIN_STEPS, bwd_err)
+    log(f"LM training phase: {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
+def launcher_checks(torch):
+    """``python -m repro_torch.launch.train`` on the card, in
+    subprocesses: 20 steps checkpointed every 10, then ``--resume`` for
+    10 more; the printed lines are the reference's."""
+    import os
+    import re
+    import tempfile
+
+    num = r"-?\d+\.\d{4}"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    with tempfile.TemporaryDirectory() as tmp:
+        base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                "tinyllama-1.1b", "--ckpt-dir", tmp]
+        runs = [(["--steps", "20", "--ckpt-every", "10"],
+                 [rf"step 5: loss {num}", rf"step 10: loss {num} "
+                  r"\(checkpointed\)", rf"step 15: loss {num}",
+                  rf"step 20: loss {num} \(checkpointed\)",
+                  r"20 steps in \d+\.\ds"]),
+                (["--resume", "--steps", "10"],
+                 [r"resumed from step 20", rf"step 25: loss {num}",
+                  rf"step 30: loss {num} \(checkpointed\)",
+                  r"10 steps in \d+\.\ds"])]
+        for args, want in runs:
+            t0 = time.perf_counter()
+            out = subprocess.run(base + args, capture_output=True, text=True,
+                                 timeout=300, env=env, cwd=ROOT)
+            require(out.returncode == 0,
+                    f"launcher {args}: exit {out.returncode}: "
+                    f"{out.stderr[-2000:]}")
+            lines = out.stdout.splitlines()
+            require(len(lines) == len(want)
+                    and all(re.fullmatch(w, ln) for w, ln in zip(want, lines)),
+                    f"launcher {args} printed {lines}")
+            losses = [float(x) for x in re.findall(r"loss (\S+)", out.stdout)]
+            require(all(math.isfinite(x) for x in losses),
+                    f"launcher {args}: losses {losses}")
+            log(f"launcher {' '.join(args)} ({time.perf_counter() - t0:.1f} s"
+                f" with the process's start): {' | '.join(lines)}")
+
+
+def bwd_timing_row(torch, device, operands, launches: int, n_steps: int,
+                   err: float):
+    """The backward kernel at the training shape (one layer's call of one
+    microbatch), its plain version, and the backward of
+    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+    (timed here only, never called by the port) as the library
+    yardstick."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    timer = Timer(torch, device)
+    q, k, v, o, do = operands
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    before = flash_attention_bwd.launches
+    ms = timer.ms(lambda: flash_ops.launch_bwd(q, k, v, o, do, dq, dk, dv,
+                                               True))
+    flash_attention_bwd.launches = before
+    plain = timer.ms(lambda: flash_ops.flash_attention_bwd_plain(
+        q, k, v, o, do, True), repeats=5)
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib = timer.ms(lambda: torch.autograd.grad(out, leaves, dot,
+                                               retain_graph=True))
+    b, s, hq, d = q.shape
+    n_bytes = sum(x.numel() * x.element_size()
+                  for x in (q, k, v, o, do, dq, dk, dv))
+    # the gradient's five products (Q.K^T, dV, dP, dQ, dK) over the causal
+    # half: the key j <= query i pairs
+    n_flops = 10.0 * b * hq * d * (s * (s + 1) / 2)
+    b_ms, b_by = bound_ms(n_bytes, n_flops, "bf16")
+    log(f"time flash_attention_bwd q={tuple(q.shape)} kv={tuple(k.shape)} "
+        f"bf16 causal: kernel {ms:.4f} ms ({n_flops / ms / 1e9:.2f} TFLOP/s "
+        f"of the five products), plain {plain:.4f} ms, SDPA backward "
+        f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {n_bytes / 1e6:.1f} MB, "
+        f"{n_flops:.4g} operations at the bf16 tensor-core peak), kernel / "
+        f"bound {ms / b_ms:.1f}x; {launches / n_steps:.0f} launches a step; "
+        f"{smi_line()}")
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/lm/attention.py:40 (XLA autodiff of "
+                    "blockwise_attention; no pl.pallas_call)",
+        "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib, "launches_per_step": launches / n_steps,
+    }
+
+
 # ------------------------------------------------------------- phase 5
 def phase_timing(torch, device, ops, counts, n_steps):
     import torch.nn.functional as F
@@ -4797,6 +5326,7 @@ def main() -> int:
     phase_profile_decode(torch, device, cfg, params)
     del params
     torch.cuda.empty_cache()
+    bwd_row = phase_lm_train(torch, device, smi)
     rows = phase_timing(torch, device, ops, counts, n_steps)
     rows.append(persisted_gather_row(torch, device, pipe_plans,
                                      pipe_builder_bags, pipe_rebuilds))
@@ -4804,6 +5334,7 @@ def main() -> int:
                                      wide_err))
     rows.append(flash_timing_row(torch, device, flash_operands,
                                  lm_counts["flash_attention"], flash_err))
+    rows.append(bwd_row)
     rows.append(queue_window_timing_row(torch, device, queue_info))
     rows.append(cluster_window_timing_row(torch, device, cluster_info))
     phase_policy_profile(torch, device, policy_pools)

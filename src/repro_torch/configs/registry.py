@@ -27,12 +27,13 @@ class ArchDef:
 
 _MODULES = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1p1b",
+    "greendygnn-sage": "repro_torch.configs.greendygnn_sage",
 }
 
 # the reference's other archs, still to port
 _NOT_PORTED = (
     "moonshot-v1-16b-a3b", "deepseek-v2-236b", "qwen3-1.7b", "minicpm3-4b",
-    "pna", "mace", "gatedgcn", "nequip", "fm", "greendygnn-sage",
+    "pna", "mace", "gatedgcn", "nequip", "fm",
 )
 
 ARCHS = tuple(_MODULES)

@@ -45,6 +45,10 @@ ENTRIES = {
     # stream
     "flash_attention_fwd": ("flash_attention",
                             (_P,) * 4 + (_I,) * 7 + (_L,) * 12 + (_I, _P)),
+    # q, k, v, o, do, dq, dk, dv, lse, delta, dtype code, D, B, Sq, Sk,
+    # Hq, Hkv, 24 strides, causal, stream
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            (_P,) * 10 + (_I,) * 7 + (_L,) * 24 + (_I, _P)),
     # scal, ints, own, state, unif, acc, acc_own, state_out, n, P,
     # n_epochs, steps_per_epoch, stream
     "queue_window_f32": ("queue_window", (_P,) * 8 + (_I,) * 4 + (_P,)),

@@ -1,4 +1,5 @@
-"""FlashAttention-2 forward: the kernel wrappers and their plain version.
+"""FlashAttention-2 forward and backward: the kernel wrappers, their plain
+versions and the autograd Function that joins them.
 
 Port of ``repro/kernels/flash_attention/{kernel,ops}.py``. The wrappers
 launch the hand-written CUDA kernel ``csrc/flash_attention.cu`` (which
@@ -41,6 +42,20 @@ bf16, causal): operations, 1.37e11 for the causal half of the two
 products against 75 MB of q, k, v and o: 0.139 ms at the bf16
 tensor-core peak. Design: the note at the top of
 ``csrc/flash_attention.cu``.
+
+The gradient: :class:`FlashAttention` is a ``torch.autograd.Function``
+whose forward is :func:`flash_attention`'s and whose backward is
+:func:`flash_attention_bwd`: the hand-written CUDA kernels of
+``csrc/flash_attention_bwd.cu`` for CUDA tensors (counted in
+``flash_attention_bwd.launches``), :func:`flash_attention_bwd_plain` only
+for CPU tensors. The reference has no Pallas backward; it differentiates
+its XLA ``blockwise_attention`` scan, and the kernels replace what XLA's
+autodiff makes of it. Both compute the exact gradient of the forward with
+the bf16 rounding of ``p`` taken as the identity (as autodiff of
+``astype`` takes it), from ``L`` and ``delta = rowsum(dO * O)``
+recomputed in float32. :func:`flash_attention` returns through the
+Function whenever grad is enabled and an input requires it; otherwise
+(prefill, decode) it runs the forward alone.
 """
 from __future__ import annotations
 
@@ -50,6 +65,7 @@ from repro_torch.kernels import _build
 
 TILE_Q, TILE_K = 128, 64       # the bf16 (tensor-core) kernel's tiles
 F32_TILE = 64                   # the float32 (SIMT) kernel's tiles
+BWD_TILE = 64                   # the backward kernels' q and key tiles
 HEAD_DIMS = (32, 64, 128)       # the CUDA kernel's template instances
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the C entry's dtype codes
 NEG_INF = -1e30
@@ -156,8 +172,16 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
     CPU tensors take the plain version; CUDA tensors launch the kernel
     that the dtype selects (bf16: the ``wgmma`` kernel at ``TILE_Q`` x
     ``TILE_K``; float32: the SIMT kernel) or raise. The choice is by
-    dtype, never a fallback."""
+    dtype, never a fallback. Where an input requires grad, the result
+    carries :class:`FlashAttention`'s backward."""
     _check(q, k, v, block_q, block_k)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, block_q, block_k)
+    return _forward(q, k, v, causal, block_q, block_k)
+
+
+def _forward(q, k, v, causal: bool, block_q: int, block_k: int):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, block_q, block_k)
     if q.device.type != "cuda":
@@ -166,6 +190,84 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     launch(q, k, v, o, causal)
     return o
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash forward with the backward kernels as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k):
+        o = _forward(q, k, v, causal, block_q, block_k)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                         ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, causal: bool = True,
+                              block_q: int = 512):
+    """Plain PyTorch gradient (dq, dk, dv) of the forward at ``(q, k, v)``
+    with output ``o`` and output gradient ``do``, all ``(B, S, H, D)``
+    with GQA: dense float32 scores over ``block_q`` query rows at a time,
+    ``P = exp(S - L)``, ``dS = P * (dO . V^T - rowsum(dO * O))``. Returns
+    the gradients in the inputs' dtypes."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / (d ** 0.5)
+    kf, vf = k.float(), v.float()
+    dq = torch.empty((b, sq, hkv, g, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(vf.shape, dtype=torch.float32, device=q.device)
+    for q0 in range(0, sq, block_q):
+        q1 = min(q0 + block_q, sq)
+        qg = q[:, q0:q1].reshape(b, q1 - q0, hkv, g, d).float()
+        dog = do[:, q0:q1].reshape(b, q1 - q0, hkv, g, d).float()
+        og = o[:, q0:q1].reshape(b, q1 - q0, hkv, g, d).float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+        if causal:
+            qpos = torch.arange(q0, q1, device=q.device)
+            kpos = torch.arange(sk, device=q.device)
+            s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
+        p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+        delta = (dog * og).sum(dim=-1).permute(0, 2, 3, 1)  # (b, h, g, q)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
+        ds = p * (dp - delta[..., None])
+        dq[:, q0:q1] = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+        dk += torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+        dv += torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_bwd(q, k, v, o, do, causal: bool = True):
+    """The gradient (dq, dk, dv) of :func:`flash_attention` at ``(q, k,
+    v)``, given its output ``o`` and the output's gradient ``do``.
+
+    CPU tensors take :func:`flash_attention_bwd_plain`; CUDA tensors
+    launch the backward kernels (:func:`launch_bwd`) or raise."""
+    _check(q, k, v, 1, 1)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must be q's {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if k.shape[1] == 0:  # nothing to attend to: the forward gave zeros
+        return dq.zero_(), dk, dv
+    launch_bwd(q, k, v, o, do, dq, dk, dv, causal)
+    return dq, dk, dv
 
 
 def flash_attention_kernel(q, k, v, causal: bool = True, block_q: int = 128,
@@ -194,5 +296,45 @@ def launch(q, k, v, o, causal: bool) -> None:
     _build.check("flash_attention_fwd", err)
 
 
+def launch_bwd(q, k, v, o, do, dq, dk, dv, causal: bool) -> None:
+    """Launch the backward kernels (one C entry: the L and delta pre-pass,
+    dK/dV, dQ) on (B, S, H, D) operands, counting one launch. Checks what
+    the kernels take: a compiled head dim, unit stride along D, one dtype
+    and one CUDA device for all eight tensors, at most 65535 q tiles."""
+    tensors = {"q": q, "k": k, "v": v, "o": o, "do": do, "dq": dq,
+               "dk": dk, "dv": dv}
+    d = q.shape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: the CUDA kernel is compiled "
+                         f"for D in {HEAD_DIMS}, not D={d}")
+    for name, t in tensors.items():
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} is {t.dtype} on "
+                             f"{t.device}, not q's {q.dtype} on {q.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention_bwd: {name} must have unit "
+                             "stride along D")
+    if q.dtype not in DTYPES or q.device.type != "cuda":
+        raise ValueError("flash_attention_bwd: the kernel takes float32 or "
+                         "bfloat16 CUDA tensors")
+    if -(-q.shape[1] // BWD_TILE) > 65535 or -(-k.shape[1] // BWD_TILE) > 65535:
+        raise ValueError("flash_attention_bwd: S too long for the kernel grid")
+    b, sq, hq, _ = q.shape
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    fn = _build.entry("flash_attention_bwd")
+    strides = [st for t in tensors.values() for st in t.stride()[:3]]
+    err = fn(
+        *(t.data_ptr() for t in tensors.values()), lse.data_ptr(),
+        delta.data_ptr(), DTYPES[q.dtype], d, b, sq, k.shape[1], hq,
+        k.shape[2], *strides, int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.count_launch(flash_attention_bwd)
+    _build.check("flash_attention_bwd", err)
+
+
 flash_attention.launches = 0
 flash_attention.launches_by_thread = {}
+flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_thread = {}

@@ -6,7 +6,10 @@ Port of ``repro/models/lm/attention.py``. ``dense_attention`` and
 XLA. ``blockwise_attention``, which the reference writes as an XLA scan
 over KV blocks ("the XLA analogue of kernels/flash_attention"), goes
 through the port's flash-attention wrapper: the hand-written CUDA kernel
-for CUDA tensors, its plain version for CPU tensors.
+for CUDA tensors, its plain version for CPU tensors. Its gradient, which
+the reference takes by autodiff of the scan, is the wrapper's
+``FlashAttention`` Function: the backward kernels for CUDA tensors, the
+plain backward for CPU tensors.
 
 One stated divergence: the reference's blockwise path keeps the
 accumulator in the activation dtype (bf16 for TinyLlama) and rounds its
@@ -58,7 +61,8 @@ def dense_attention(q, k, v, causal: bool = True, q_offset: int = 0):
 
 def blockwise_attention(q, k, v, causal: bool = True, block_k: int = 1024):
     """Online-softmax attention over KV blocks: the flash-attention
-    kernel. Memory: O(Sq * D) running state instead of O(Sq * Sk)."""
+    kernel, differentiable through its backward kernels. Memory: O(Sq * D)
+    running state instead of O(Sq * Sk)."""
     sq, sk = q.shape[1], k.shape[1]
     assert sk % block_k == 0, (sk, block_k)
     # the plain version's q tile (the reference scans all of q at once;

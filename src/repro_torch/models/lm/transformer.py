@@ -1,11 +1,17 @@
-"""Decoder-only transformer: the GQA + dense SwiGLU archs, for serving.
+"""Decoder-only transformer: the GQA + dense SwiGLU archs, for training and
+serving.
 
 Port of ``repro/models/lm/transformer.py``: ``LMConfig`` (same fields and
-defaults), ``init``, ``forward``, ``logits_of``, ``init_cache``,
-``prefill`` and ``decode_step``. Sequences of ``S >= blockwise_threshold``
-run attention through the flash-attention kernel
-(``attention.blockwise_attention``); shorter ones through the plain dense
-path; decode steps attend over the KV cache.
+defaults), ``init``, ``forward`` (with its ``mode``), ``logits_of``,
+``lm_loss``, ``init_cache``, ``prefill`` and ``decode_step``. Sequences of
+``S >= blockwise_threshold`` run attention through the flash-attention
+kernel (``attention.blockwise_attention``), whose gradient is the
+backward kernel; shorter ones through the plain dense path; decode steps
+attend over the KV cache. With ``cfg.remat`` and ``mode="train"`` each
+layer is rematerialised (``torch.utils.checkpoint``, non-reentrant: only
+the layer's input is kept, its activations are recomputed in the
+backward, as ``jax.checkpoint`` with ``nothing_saveable``), and
+``lm_loss`` recomputes each chunk's float32 logits in the backward.
 
 What differs from the reference:
 
@@ -15,16 +21,17 @@ What differs from the reference:
 - ``shard_activation`` is the identity on one card and is dropped;
 - the KV cache keeps the reference's ``{"k", "v"}: (L, B, Smax, Hkv, D)``
   dict, but ``decode_step`` writes it in place;
+- the stacked layer parameters are split once with ``unbind``, so their
+  gradient is one stack of the layers' gradients;
 - ``attn_type="mla"``, ``moe=True`` and the MoE archs' ``first_k_dense``
-  layers raise ``NotImplementedError`` (ROADMAP.md queue 1 item 8);
-- ``lm_loss``, remat and ``forward``'s ``mode`` belong to the training
-  slice and are not here yet.
+  layers raise ``NotImplementedError`` (ROADMAP.md queue 1 item 8).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.models import param as P
@@ -173,25 +180,64 @@ def _layer_apply(p, cfg: LMConfig, h, positions, cache_kv, cache_len):
 
 # ------------------------------------------------------------------- forward
 def forward(params, cfg: LMConfig, tokens, positions=None, cache=None,
-            cache_len: int = 0):
+            cache_len: int = 0, mode: str = "train"):
     """tokens: (B, S). cache: the ``init_cache`` dict or None; with a cache
     the step's K/V are written into it in place at ``cache_len``.
-    Returns hidden (B, S, D)."""
+    ``mode``: ``"train"`` rematerialises each layer when ``cfg.remat``;
+    ``"prefill"`` and ``"decode"`` never do. Returns hidden (B, S, D)."""
     _check_supported(cfg)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     h = params["embed"][tokens].to(cfg.torch_dtype())
-    layers = params["layers"]
+    layers = {name: t.unbind(0) for name, t in params["layers"].items()}
+    remat = cfg.remat and mode == "train"
     for i in range(cfg.n_layers):
         lp = {name: t[i] for name, t in layers.items()}
         lc = None if cache is None else (cache["k"][i], cache["v"][i])
-        h = _layer_apply(lp, cfg, h, positions, lc, cache_len)
+        if remat:
+            h = checkpoint(_layer_apply, lp, cfg, h, positions, lc,
+                           cache_len, use_reentrant=False)
+        else:
+            h = _layer_apply(lp, cfg, h, positions, lc, cache_len)
     return rms_norm(h, params["final_norm"])
 
 
 def logits_of(params, cfg: LMConfig, hidden):
     return hidden @ params["lm_head"]
+
+
+def lm_loss(params, cfg: LMConfig, tokens, targets):
+    """Causal LM cross-entropy, the mean over the (B, S) targets;
+    optionally chunked over the sequence (``cfg.loss_chunk``) to bound the
+    (B, chunk, V) float32 logits working set. With ``cfg.remat`` each
+    chunk's logits are recomputed in the backward, so they never persist
+    across chunks."""
+    hidden = forward(params, cfg, tokens, mode="train")
+    b, s, d = hidden.shape
+    chunk = cfg.loss_chunk or s
+    n_chunks = s // chunk
+
+    def chunk_loss(h_c, t_c):
+        logits = logits_of(params, cfg, h_c).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, t_c[..., None])[..., 0]
+        return torch.sum(logz - gold)
+
+    def run(h_c, t_c):
+        if cfg.remat:
+            return checkpoint(chunk_loss, h_c, t_c, use_reentrant=False)
+        return chunk_loss(h_c, t_c)
+
+    if n_chunks <= 1:
+        total = run(hidden, targets)
+    else:
+        hs = hidden.reshape(b, n_chunks, chunk, d)
+        ts = targets.reshape(b, n_chunks, chunk)
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c in range(n_chunks):
+            total = total + run(hs[:, c], ts[:, c])
+    return total / (b * s)
 
 
 # ------------------------------------------------------------------- serving
@@ -208,7 +254,7 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
 @torch.no_grad()
 def prefill(params, cfg: LMConfig, tokens):
     """Run the prompt; returns last-position logits (B, V)."""
-    hidden = forward(params, cfg, tokens)
+    hidden = forward(params, cfg, tokens, mode="prefill")
     return logits_of(params, cfg, hidden[:, -1:, :])[:, 0]
 
 
@@ -221,5 +267,5 @@ def decode_step(params, cfg: LMConfig, token, cache, cache_len: int):
     positions = torch.full(token.shape, cache_len, dtype=torch.int32,
                            device=token.device)
     hidden = forward(params, cfg, token, positions=positions, cache=cache,
-                     cache_len=cache_len)
+                     cache_len=cache_len, mode="decode")
     return logits_of(params, cfg, hidden)[:, 0], cache

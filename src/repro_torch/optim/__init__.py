@@ -4,5 +4,8 @@ from repro_torch.optim.optimizers import (  # noqa: F401
     adamw,
     apply_updates,
     clip_by_global_norm,
+    cosine_schedule,
     global_norm,
+    sgd,
+    warmup_cosine_schedule,
 )

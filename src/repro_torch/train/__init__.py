@@ -1,4 +1,5 @@
-"""Training substrate: the trainers and gradient compression.
+"""Training substrate: checkpointing (``train.checkpoint``), the trainers
+and gradient compression.
 
 ``gnn_trainer.run`` is the single-trainer (P=1) entry point over one
 ``worker.TrainerWorker``; ``cluster.run_cluster`` drives P workers

@@ -1,5 +1,7 @@
-"""The port's boundary: no JAX, no ``repro``, explicit devices, no
-silent fallback to the CPU, and kernels built only on demand."""
+"""The port's boundary: no JAX, no ``repro``, no package the card's
+machine lacks (``msgpack``, ``ml_dtypes``, ``optax``, ``flax``,
+``orbax``), explicit devices, no silent fallback to the CPU, and kernels
+built only on demand."""
 import ast
 import pathlib
 import subprocess
@@ -15,21 +17,27 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "export_qnet_torch.py"]
 
 
+# absent from the card's machine: the port keeps its own copies
+ABSENT = ("msgpack", "ml_dtypes", "optax", "flax", "orbax")
+
+
 def _is_forbidden(name: str | None) -> bool:
-    return bool(name) and (
-        name == "jax" or name.startswith("jax.")
-        or name == "repro" or name.startswith("repro.")
+    return bool(name) and any(
+        name == top or name.startswith(top + ".")
+        for top in ("jax", "repro") + ABSENT
     )
 
 
 def test_every_module_imports_without_jax_or_repro():
     """Import every repro_torch module (and chip_smoke) in a fresh process
-    where ``import jax`` fails and a meta-path hook refuses ``repro``."""
+    where ``import jax`` and the packages the card's machine lacks fail,
+    and a meta-path hook refuses ``repro``."""
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, pkgutil, sys
         sys.path.insert(0, {str(ROOT / "src")!r})
         sys.path.insert(0, {str(ROOT)!r})
-        sys.modules["jax"] = None
+        for name in ("jax",) + {ABSENT!r}:
+            sys.modules[name] = None
 
         class Refuse(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
@@ -45,7 +53,8 @@ def test_every_module_imports_without_jax_or_repro():
             importlib.import_module(name)
         import chip_smoke
         bad = [k for k, mod in sys.modules.items() if mod is not None
-               and (k == "repro" or k.startswith(("repro.", "jax")))]
+               and (k == "repro" or k.startswith(("repro.", "jax")
+                                                + {ABSENT!r}))]
         assert not bad, bad
         print(len(names))
     """)
@@ -58,8 +67,8 @@ def test_every_module_imports_without_jax_or_repro():
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_statement_names_jax_or_repro(path):
-    """Also the lazy imports inside functions, which importing the module
-    does not execute."""
+    """Nor a package the card's machine lacks; also the lazy imports inside
+    functions, which importing the module does not execute."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
