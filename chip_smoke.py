@@ -253,15 +253,19 @@ Phases, each of which ends the run with a non-zero exit on failure:
    device busy time against the unprofiled host wall, and the host ops
    that take the most CPU time.
    The LM training phase (``phase_lm_train``) follows. The flash
-   backward kernel (``csrc/flash_attention_bwd.cu``, three kernels behind
-   one C entry) against its plain version on the same inputs: float32 at
-   D = 32, 64, 128, causal and not, a ragged S, Sk > Sq and strided GQA
-   heads (``TOL_BWD_F32``); bf16 at the training shape (B=1, S=4096,
-   Hq=32, Hkv=4, D=64, causal; rtol ``TOL_BWD_BF16_RTOL``, atol a
-   fraction of the tensor's largest |plain|), two launches bit-identical,
-   every gradient finite and non-zero; through autograd it must launch
-   once, on the autograd engine's thread, and give the direct call's
-   gradients. Then the train_4k cell's step
+   backward (``csrc/flash_attention_bwd.cu``: float32 SIMT kernels, bf16
+   ``wgmma`` kernels, one C entry) against its plain version on the same
+   inputs, both given the kernel forward's ``lse``: float32
+   (``TOL_BWD_F32``) and bf16 (rtol ``TOL_BWD_BF16_RTOL``, atol a
+   fraction of the tensor's largest |plain|) at D = 32, 64, 128, causal
+   and not, MHA, a ragged S, Sk > Sq and strided GQA heads; bf16 at the
+   training shape (B=1, S=4096, Hq=32, Hkv=4, D=64, causal), two
+   launches bit-identical, every gradient finite and non-zero. The
+   forward with ``lse`` gives ``o`` bit-equal to the forward without it,
+   and ``lse`` within ``TOL_LSE`` of the plain forward's. Through
+   autograd the backward must launch once, on the autograd engine's
+   thread, and give the direct call's gradients. Then the train_4k
+   cell's step
    (``launch.train.make_train_step``: warmup-cosine AdamW 3e-4 / 2,000 /
    100,000, wd 0.1, clip 1.0, ``grad_accum`` 2; ``lm_loss`` with remat
    and ``loss_chunk`` 1,024) at TinyLlama-1.1B's full width, seeded
@@ -277,7 +281,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    with every leaf ``torch.equal`` and step 3, and 3 steps from the
    restored state give the uninterrupted run's losses (``TOL_RESUME``).
    One profiled step gives the device busy time by kernel group and the
-   idle share. Then the user's entry point in subprocesses: ``python -m
+   idle share, and shows every backward on the ``wgmma`` kernels (44
+   launches each of dK/dV and dQ). Then the user's entry point in subprocesses: ``python -m
    repro_torch.launch.train --arch tinyllama-1.1b --steps 20
    --ckpt-every 10`` and ``--resume --steps 10``, their printed lines
    checked.
@@ -300,11 +305,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
    against its plain version, with its launches in the queue training;
    the ``cluster_window`` row likewise at 32 envs (every archetype and
    live-peer count), P = 3 and W = 128, with its launches in the cluster
-   training. The ``flash_attention_bwd`` row times the backward kernel at
-   the training shape against its plain version, the backward of
+   training. The ``flash_attention_bwd`` row times the backward kernels
+   at the training shape against their plain version, the backward of
    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
-   (the yardstick) and the bound of the gradient's five products over the
-   causal half, with its launches in the training run.
+   (the yardstick, timed in turns with the kernels) and the bound of the
+   gradient's five products over the causal half, with its launches in
+   the training run.
    TF32 is off throughout: float32 results are compared in full float32.
    Every bound is read from ``repro_torch.launch.roofline``'s peaks for
    the card's name (a card missing from its table fails the run).
@@ -395,6 +401,9 @@ TRAIN_S, TRAIN_BATCH, TRAIN_STEPS, TRAIN_SAVE_AT = 4096, 2, 6, 3
 # tensor's largest |plain| for the float32 sums' reassociation near zero
 TOL_BWD_F32 = dict(atol=2e-5, rtol=1e-4)
 TOL_BWD_BF16_RTOL, TOL_BWD_BF16_ATOL_FRAC = 1e-2, 1e-3
+# the forward's lse against the plain forward's: the same scores summed in
+# another order (l over up to 4,096 keys) and, for bf16, exp as ex2.approx
+TOL_LSE = dict(atol=1e-4, rtol=1e-5)
 # a resumed run against the uninterrupted one: losses (the embedding's
 # backward may accumulate in another order)
 TOL_RESUME = dict(rtol=1e-3, atol=0.0)
@@ -4638,21 +4647,36 @@ def phase_profile_prefill(torch, cfg, params, tokens):
 
 # ------------------------------------------------ the LM training phase
 def check_bwd_build(text: str) -> None:
-    """The flash backward's ptxas report: its three kernels for float32
-    and bf16 at D = 32, 64 and 128 (18 instances), logged with their
-    registers and spills."""
+    """The flash backward's ptxas report: the delta pass for float32 and
+    bf16, the float32 SIMT dK/dV and dQ kernels, the bf16 wgmma ones and
+    the sum of the dK/dV parts, at D = 32, 64 and 128 (21 instances),
+    logged with their registers and spills; no wgmma that ptxas had to
+    serialize, and no spill in a bf16 instance."""
     import re
 
+    serialized = [ln.strip() for ln in text.splitlines()
+                  if "wgmma.mma_async instructions are serialized" in ln]
+    for ln in serialized:
+        log(f"  ptxas[flash_attention_bwd] {ln}")
+    require(not serialized, "ptxas serialized the flash backward's wgmma")
     found = {}
     for name, info in ptxas_functions(text).items():
-        hit = re.search(r"(bwd_(?:prep|dkdv|dq)_kernel)I(f|13__nv_bfloat16)"
-                        r"Li(\d+)E", name)
+        hit = re.search(r"(bwd_(?:prep|dkdv|dq|reduce)(?:_wgmma)?_kernel)"
+                        r"I(f|13__nv_bfloat16)?Li(\d+)E", name)
         if hit:
             kern, t, d = hit.groups()
-            found[(kern, "f32" if t == "f" else "bf16", int(d))] = info
-    want = sorted((k, t, d) for k in ("bwd_prep_kernel", "bwd_dkdv_kernel",
-                                      "bwd_dq_kernel")
-                  for t in ("f32", "bf16") for d in (32, 64, 128))
+            bf = (t == "13__nv_bfloat16" or "wgmma" in kern
+                  or "reduce" in kern)
+            found[(kern, "bf16" if bf else "f32", int(d))] = info
+    want = sorted([("bwd_prep_kernel", t, d) for t in ("f32", "bf16")
+                   for d in (32, 64, 128)]
+                  + [(k, "f32", d) for k in ("bwd_dkdv_kernel",
+                                             "bwd_dq_kernel")
+                     for d in (32, 64, 128)]
+                  + [(k, "bf16", d) for k in ("bwd_dkdv_wgmma_kernel",
+                                              "bwd_dq_wgmma_kernel",
+                                              "bwd_reduce_kernel")
+                     for d in (32, 64, 128)])
     require(sorted(found) == want,
             f"ptxas report lists flash backward instances {sorted(found)}, "
             f"not {want} (is the build log missing?)")
@@ -4660,19 +4684,27 @@ def check_bwd_build(text: str) -> None:
         log(f"  ptxas[flash_attention_bwd] {kern}<{t}, {d}>: "
             f"{info.get('registers')} registers, {info.get('spill_stores')} "
             f"bytes spill stores, {info.get('spill_loads')} bytes spill loads")
+        if t == "bf16":
+            require(info.get("spill_stores") == 0
+                    and info.get("spill_loads") == 0,
+                    f"{kern}<bf16, {d}> spills")
 
 
 def bwd_vs_plain(torch, device):
-    """The backward kernel against its plain version on the same inputs:
-    float32 at every compiled D, causal and not, a ragged S, Sk > Sq and
-    GQA over strided head views; bf16 at the training shape (relaunched
-    bit-identical); then through autograd, where it must run on PyTorch's
-    autograd thread and give the direct call's gradients. Returns the
-    largest |kernel - plain| and the training-shape operands."""
+    """The backward kernels against their plain version on the same
+    inputs, both given the kernel forward's ``lse``: float32 and bf16 at
+    every compiled D, causal and not, a ragged S, Sk > Sq and GQA over
+    strided head views; bf16 at the training shape (relaunched
+    bit-identical). The forward with ``lse`` gives ``o`` bit-equal to the
+    forward without it, and ``lse`` agrees with the plain forward's. Then
+    through autograd, where the backward must run on PyTorch's autograd
+    thread and give the direct call's gradients. Returns the largest
+    |kernel - plain| and the training-shape operands."""
     import threading
 
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_lse, flash_attention_plain,
     )
     from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
 
@@ -4699,26 +4731,53 @@ def bwd_vs_plain(torch, device):
             f"{errs[1]:.3e} dv {errs[2]:.3e}")
         return max(errs)
 
-    err = 0.0
-    cases = [(f"f32 d={d} causal={c} s=256 GQA 8/2", (2, 256, 8, d),
-              (2, 256, 2, d), c, None) for d in HEAD_DIMS for c in (True, False)]
-    cases += [("f32 d=64 causal=True s=200 (ragged)", (1, 200, 4, 64),
-               (1, 200, 1, 64), True, None),
-              ("f32 d=64 causal=False sq=128 sk=320", (1, 128, 4, 64),
-               (1, 320, 2, 64), False, None),
-              ("f32 d=32 causal=True strided heads", (2, 128, 16, 32),
-               (2, 128, 4, 32), True, "strided")]
-    for label, qs, ks, causal, how in cases:
+    def forward(label, q, k, v, causal, block_q, block_k):
+        """The kernel forward with lse, checked against the forward
+        without it (bit-equal o) and the plain forward's lse."""
+        o, lse = flash_attention_lse(q, k, v, causal, block_q, block_k)
+        require(torch.equal(o, flash_attention(q, k, v, causal, block_q,
+                                               block_k)),
+                f"flash fwd {label}: o with lse differs from o without")
+        _, want = flash_attention_plain(q, k, v, causal, block_q, block_k,
+                                        return_lse=True)
+        e = float((lse - want).abs().max())
+        require(torch.allclose(lse, want, **TOL_LSE),
+                f"flash fwd {label}: lse vs plain {e:.3e}")
+        return o, lse, e
+
+    err, lse_err = 0.0, 0.0
+    cases = []
+    for dt in ("f32", "bf16"):
+        cases += [(dt, f"d={d} causal={c} s=256 GQA 8/2", (2, 256, 8, d),
+                   (2, 256, 2, d), c, None)
+                  for d in HEAD_DIMS for c in (True, False)]
+        cases += [(dt, "d=64 causal=True s=256 MHA", (1, 256, 4, 64),
+                   (1, 256, 4, 64), True, None),
+                  (dt, "d=64 causal=True s=200 (ragged)", (1, 200, 4, 64),
+                   (1, 200, 1, 64), True, None),
+                  (dt, "d=64 causal=False sq=128 sk=320", (1, 128, 4, 64),
+                   (1, 320, 2, 64), False, None),
+                  (dt, "d=64 causal=True sq=136 sk=200 (Sk > Sq, ragged)",
+                   (1, 136, 4, 64), (1, 200, 2, 64), True, None),
+                  (dt, "d=32 causal=True strided heads", (2, 128, 16, 32),
+                   (2, 128, 4, 32), True, "strided"),
+                  (dt, "d=128 causal=False strided heads s=192",
+                   (1, 192, 16, 128), (1, 192, 4, 128), False, "strided")]
+    for dt, label, qs, ks, causal, how in cases:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        label = f"{dt} {label}"
         if how == "strided":   # views into wider head axes
-            qb, kb = randn(*qs), randn(*ks)
+            qb, kb = randn(*qs, dtype=dtype), randn(*ks, dtype=dtype)
             q, k, v = qb[:, :, 4:12], kb[:, :, :2], kb[:, :, 2:]
         else:
-            q, k, v = randn(*qs), randn(*ks), randn(*ks)
-        do = randn(*q.shape)
-        o = flash_attention(q, k, v, causal, q.shape[1], k.shape[1])
-        got = flash_attention_bwd(q, k, v, o, do, causal)
-        want = flash_attention_bwd_plain(q, k, v, o, do, causal)
-        err = max(err, compare(label, got, want, False))
+            q, k, v = (randn(*qs, dtype=dtype), randn(*ks, dtype=dtype),
+                       randn(*ks, dtype=dtype))
+        do = randn(*q.shape, dtype=dtype)
+        o, lse, e = forward(label, q, k, v, causal, q.shape[1], k.shape[1])
+        lse_err = max(lse_err, e)
+        got = flash_attention_bwd(q, k, v, o, do, causal, lse)
+        want = flash_attention_bwd_plain(q, k, v, o, do, causal, lse=lse)
+        err = max(err, compare(label, got, want, dt == "bf16"))
 
     # the training shape: one microbatch of TinyLlama at S = 4,096, bf16
     bf = torch.bfloat16
@@ -4727,17 +4786,20 @@ def bwd_vs_plain(torch, device):
                randn(b, s, hkv, d, dtype=bf))
     do = randn(b, s, hq, d, dtype=bf)
     block_k = min(s, 1024)    # the model's attn_block_k
-    o = flash_attention(q, k, v, True, 128, block_k)
-    got = flash_attention_bwd(q, k, v, o, do, True)
-    again = flash_attention_bwd(q, k, v, o, do, True)
+    o, lse, e = forward("bf16 training shape", q, k, v, True, 128, block_k)
+    lse_err = max(lse_err, e)
+    got = flash_attention_bwd(q, k, v, o, do, True, lse)
+    again = flash_attention_bwd(q, k, v, o, do, True, lse)
     torch.cuda.synchronize()
     require(all(torch.equal(x, y) for x, y in zip(got, again)),
             "flash bwd: two launches on the same inputs differ")
-    want = flash_attention_bwd_plain(q, k, v, o, do, True)
+    want = flash_attention_bwd_plain(q, k, v, o, do, True, lse=lse)
     err = max(err, compare(f"bf16 training shape q={tuple(q.shape)} "
                            f"kv={tuple(k.shape)} causal, bit-identical "
                            "relaunch", got, want, True))
     del want
+    log(f"flash fwd with lse: o bit-equal to the forward without it in "
+        f"every case; max|lse - plain| {lse_err:.3e}")
 
     # through autograd: the Function's backward launches the kernel on the
     # autograd engine's device thread
@@ -4759,7 +4821,7 @@ def bwd_vs_plain(torch, device):
             "flash bwd through autograd differs from the direct call")
     log(f"flash bwd through autograd: one launch on thread {sorted(new)}, "
         "gradients equal to the direct call's")
-    return err, (q, k, v, o, do)
+    return err, (q, k, v, o, do, lse)
 
 
 def train_bound(cfg, tokens: int) -> tuple[float, float]:
@@ -4999,12 +5061,16 @@ def phase_lm_train(torch, device, smi):
     require(bool(by_name), "profile train step: no device time reported")
     groups = {"flash forward": 0.0, "flash backward": 0.0,
               "matrix products": 0.0, "rest": 0.0}
-    for name, (us, _) in by_name.items():
+    n_bwd_wgmma = {"dkdv": 0, "dq": 0}
+    for name, (us, cnt) in by_name.items():
         low = name.lower()
         if "flash_fwd" in low:
             groups["flash forward"] += us / 1e3
-        elif re.search(r"bwd_(prep|dkdv|dq)_kernel", low):
+        elif re.search(r"bwd_(prep|dkdv|dq)(_wgmma)?_kernel", low):
             groups["flash backward"] += us / 1e3
+            hit = re.search(r"bwd_(dkdv|dq)_wgmma_kernel", low)
+            if hit:
+                n_bwd_wgmma[hit.group(1)] += cnt
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "sm90_",
                                     "cutlass", "xmma", "cublas")):
             groups["matrix products"] += us / 1e3
@@ -5016,6 +5082,10 @@ def phase_lm_train(torch, device, smi):
         f"{1.0 - busy / steady_wall:.4f}")
     for name, ms in groups.items():
         log(f"  {name:16s} {ms:9.3f} ms  share {ms / busy:.4f}")
+    # every backward of the bf16 step ran the tensor-core kernels
+    require(n_bwd_wgmma == {"dkdv": per_bwd, "dq": per_bwd},
+            f"profile train step: wgmma backward launches {n_bwd_wgmma}, "
+            f"not {per_bwd} each")
     del params, state
     torch.cuda.empty_cache()
 
@@ -5069,44 +5139,73 @@ def launcher_checks(torch):
 
 def bwd_timing_row(torch, device, operands, launches: int, n_steps: int,
                    err: float):
-    """The backward kernel at the training shape (one layer's call of one
-    microbatch), its plain version, and the backward of
+    """The backward kernels at the training shape (one layer's call of one
+    microbatch), their plain version, and the backward of
     ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
     (timed here only, never called by the port) as the library
-    yardstick."""
+    yardstick, the kernel and SDPA timed in turns (kernel, SDPA, SDPA,
+    kernel), each the median of its two medians; and the kernels with
+    dK/dV in one part a KV head, against ``dkdv_split``'s choice."""
+    import re
+
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.flash_attention import ops as flash_ops
 
     timer = Timer(torch, device)
-    q, k, v, o, do = operands
+    q, k, v, o, do, lse = operands
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    before = flash_attention_bwd.launches
-    ms = timer.ms(lambda: flash_ops.launch_bwd(q, k, v, o, do, dq, dk, dv,
-                                               True))
-    flash_attention_bwd.launches = before
-    plain = timer.ms(lambda: flash_ops.flash_attention_bwd_plain(
-        q, k, v, o, do, True), repeats=5)
     leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                          enable_gqa=True)
     dot = do.transpose(1, 2)
-    lib = timer.ms(lambda: torch.autograd.grad(out, leaves, dot,
-                                               retain_graph=True))
+    before = flash_attention_bwd.launches
+    turns = {"kernel": [], "sdpa": []}
+    for who in ("kernel", "sdpa", "sdpa", "kernel"):
+        if who == "kernel":
+            turns[who].append(timer.ms(lambda: flash_ops.launch_bwd(
+                q, k, v, o, do, lse, dq, dk, dv, True)))
+        else:
+            turns[who].append(timer.ms(lambda: torch.autograd.grad(
+                out, leaves, dot, retain_graph=True)))
+    # the same kernels with dK/dV in one part a KV head (dkdv_split's
+    # other side), and the device time of each, by the profiler
+    split, chosen = flash_ops.dkdv_split(q, k), flash_ops.dkdv_split
+    for parts in (split, 1):
+        flash_ops.dkdv_split = lambda q, k, n=parts: n
+        try:
+            call = (lambda: flash_ops.launch_bwd(q, k, v, o, do, lse, dq, dk,
+                                                 dv, True))
+            if parts == 1:
+                one_part = timer.ms(call)
+            by_name = traced(torch, lambda: [call() for _ in range(10)])
+        finally:
+            flash_ops.dkdv_split = chosen
+        times = sorted((re.search(r"bwd_\w+<[^>]*>", name).group(0), us / 1e4)
+                       for name, (us, _) in by_name.items() if "bwd_" in name)
+        log(f"  flash_attention_bwd kernels, dK/dV in {parts} part(s), ms a "
+            f"call: " + ", ".join(f"{n} {t:.4f}" for n, t in times))
+    flash_attention_bwd.launches = before
+    ms, lib = (statistics.median(turns[w]) for w in ("kernel", "sdpa"))
+    plain = timer.ms(lambda: flash_ops.flash_attention_bwd_plain(
+        q, k, v, o, do, True, lse=lse), repeats=5)
     b, s, hq, d = q.shape
     n_bytes = sum(x.numel() * x.element_size()
-                  for x in (q, k, v, o, do, dq, dk, dv))
+                  for x in (q, k, v, o, do, lse, dq, dk, dv))
     # the gradient's five products (Q.K^T, dV, dP, dQ, dK) over the causal
     # half: the key j <= query i pairs
     n_flops = 10.0 * b * hq * d * (s * (s + 1) / 2)
     b_ms, b_by = bound_ms(n_bytes, n_flops, "bf16")
     log(f"time flash_attention_bwd q={tuple(q.shape)} kv={tuple(k.shape)} "
-        f"bf16 causal: kernel {ms:.4f} ms ({n_flops / ms / 1e9:.2f} TFLOP/s "
-        f"of the five products), plain {plain:.4f} ms, SDPA backward "
-        f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {n_bytes / 1e6:.1f} MB, "
-        f"{n_flops:.4g} operations at the bf16 tensor-core peak), kernel / "
-        f"bound {ms / b_ms:.1f}x; {launches / n_steps:.0f} launches a step; "
+        f"bf16 causal: kernel {ms:.4f} ms (turns {turns['kernel']}; "
+        f"{n_flops / ms / 1e9:.2f} TFLOP/s of the five products; dK/dV in "
+        f"{split} parts a KV head, {one_part:.4f} ms in one), plain "
+        f"{plain:.4f} ms, SDPA backward {lib:.4f} ms (turns "
+        f"{turns['sdpa']}), bound {b_ms:.4f} ms ({b_by}; "
+        f"{n_bytes / 1e6:.1f} MB, {n_flops:.4g} operations at the bf16 "
+        f"tensor-core peak), kernel / bound {ms / b_ms:.1f}x, kernel / SDPA "
+        f"{ms / lib:.2f}x; {launches / n_steps:.0f} launches a step; "
         f"{smi_line()}")
     return {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -5116,6 +5215,7 @@ def bwd_timing_row(torch, device, operands, launches: int, n_steps: int,
         "launches": launches, "max_abs_err": err,
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib, "launches_per_step": launches / n_steps,
+        "dkdv_parts": split, "one_part_ms": one_part,
     }
 
 

@@ -41,14 +41,15 @@ ENTRIES = {
     "csr_spmm_f32": ("csr_spmm", (_P,) * 5 + (_I,) * 5 + (_P,)),
     # idx, w, offsets, table, out, n_bags, d, n_lookups, max_len, stream
     "embedding_bag_f32": ("embedding_bag", (_P,) * 5 + (_I,) * 4 + (_P,)),
-    # q, k, v, o, dtype code, D, B, Sq, Sk, Hq, Hkv, 12 strides, causal,
-    # stream
+    # q, k, v, o, lse (or null), dtype code, D, B, Sq, Sk, Hq, Hkv, 12
+    # strides, causal, stream
     "flash_attention_fwd": ("flash_attention",
-                            (_P,) * 4 + (_I,) * 7 + (_L,) * 12 + (_I, _P)),
-    # q, k, v, o, do, dq, dk, dv, lse, delta, dtype code, D, B, Sq, Sk,
-    # Hq, Hkv, 24 strides, causal, stream
+                            (_P,) * 5 + (_I,) * 7 + (_L,) * 12 + (_I, _P)),
+    # q, k, v, o, do, dq, dk, dv, lse (the forward's), delta and part
+    # (scratch), dtype code, D, B, Sq, Sk, Hq, Hkv, split, 24 strides,
+    # causal, stream
     "flash_attention_bwd": ("flash_attention_bwd",
-                            (_P,) * 10 + (_I,) * 7 + (_L,) * 24 + (_I, _P)),
+                            (_P,) * 11 + (_I,) * 8 + (_L,) * 24 + (_I, _P)),
     # scal, ints, own, state, unif, acc, acc_own, state_out, n, P,
     # n_epochs, steps_per_epoch, stream
     "queue_window_f32": ("queue_window", (_P,) * 8 + (_I,) * 4 + (_P,)),

@@ -70,19 +70,25 @@
 // float32 (flash_fwd_kernel): 64-row q tiles, 256 threads as 16 row groups
 // x 16 column groups; tiles staged in shared memory as float32 with rows
 // padded for conflict-free reads; both products as FMA on the CUDA cores.
+//
+// Both kernels take an optional lse (B, Hq, Sq) float32: when it is not
+// null, each row's log-sum-exp m + log(l) (natural units, NEG_INF for a
+// row that sees no key) is stored from the m and l the kernel already
+// holds, for the backward (flash_attention_bwd.cu), which then needs no
+// pass of its own to recompute it. The wgmma and cp.async helpers live in
+// flash_wgmma.cuh, shared with the backward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_wgmma.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-
-struct Strides {  // element strides of a (B, S, H, D) tensor, D contiguous
-  long long b, s, h;
-};
+using flash::NEG_INF;
+using flash::Strides;
 
 // ------------------------------------------------------ float32: SIMT
 namespace simt {
@@ -117,7 +123,7 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 int sq, int sk, int hq, int group,
+                 float* __restrict__ lse, int sq, int sk, int hq, int group,
                  Strides qs, Strides ks, Strides vs, Strides os,
                  float scale, int causal) {
   constexpr int DP = D + 1;   // padded row of q and k
@@ -230,6 +236,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < RPT; ++i) {
     const int row = q0 + rg + 16 * i;
     if (row >= sq) continue;
+    if (lse != nullptr && cg == 0)
+      lse[((long long)b * hq + h) * sq + row] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : NEG_INF;
     const float denom = fmaxf(l[i], 1e-30f);
     float* dst = ob + (long long)row * os.s;
 #pragma unroll
@@ -239,9 +248,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int sq, int sk, int hq, int hkv, Strides qs, Strides ks,
-           Strides vs, Strides os, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int sq, int sk, int hq, int hkv, Strides qs,
+           Strides ks, Strides vs, Strides os, int causal,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -251,8 +261,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   const float scale = (float)(1.0 / sqrt((double)D));
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, hq,
-      hq / hkv, qs, ks, vs, os, scale, causal);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, sq, sk,
+      hq, hq / hkv, qs, ks, vs, os, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -261,209 +271,29 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 // ------------------------------------------------- bf16: tensor cores
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using namespace flash;
 
 constexpr int TQ = 128;       // q rows per CTA: two warpgroups of 64
 constexpr int THREADS = 256;
 constexpr int STAGES = 2;     // K/V ring
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
-struct Cfg {
+struct Cfg : Swz<D> {
   static constexpr int BK = 64;                 // keys per KV tile
-  static constexpr int AW = D < 64 ? D : 64;    // columns per swizzle atom
-  static constexpr int NA = D / AW;             // atoms per row of D
-  static constexpr int ROWB = 2 * AW;           // bytes per atom row
-  static constexpr int SWZ = ROWB == 128 ? 1 : 2;  // descriptor: 128B, 64B
-  static constexpr int GROUP = 8 * ROWB;        // 8 rows: the SBO
-  static constexpr int Q_ATOM = TQ * ROWB;      // bytes of a q tile's atom
-  static constexpr int KV_ATOM = BK * ROWB;     // bytes of a K/V tile's atom
+  static constexpr int Q_ATOM = TQ * Swz<D>::ROWB;   // bytes of a q atom
+  static constexpr int KV_ATOM = BK * Swz<D>::ROWB;  // bytes of a K/V atom
   static constexpr int Q_BYTES = TQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;   // one K or one V tile
   // + 1 KB to align the tiles to the 1024-byte swizzle repeat
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES;
-  static_assert(D % 32 == 0 && D <= 128, "D in {32, 64, 128}");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of the 16-byte chunk c of row r in a tile whose atoms are
-// atom_bytes apart: the swizzle XORs the chunk index with address bits 7-9
-// (128B) or 7-8 (64B), as the descriptor's swizzle mode reads it.
-template <int D>
-__device__ __forceinline__ uint32_t swz_off(int r, int c, int atom_bytes) {
-  using C = Cfg<D>;
-  constexpr int CPA = C::AW / 8;  // chunks per atom row
-  const int x = C::ROWB == 128 ? (r & 7) : ((r >> 1) & 3);
-  return (c / CPA) * atom_bytes + r * C::ROWB + (((c % CPA) ^ x) << 4);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-
-// rows [row0, row0 + ROWS) of a (S, D) view with row stride `stride`,
-// zero-filled at and past `lim`, into a swizzled tile at `dst`
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
-                                          long long stride, int row0,
-                                          int lim, int atom_bytes) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  static_assert((ROWS * CPR) % THREADS == 0, "whole copies per thread");
-#pragma unroll
-  for (int i = 0; i < ROWS * CPR / THREADS; ++i) {
-    const int e = threadIdx.x + i * THREADS, r = e / CPR, c = e % CPR;
-    const bool in = row0 + r < lim;
-    const bf16* g = in ? src + (long long)(row0 + r) * stride + c * 8 : src;
-    cp_async16(dst + swz_off<D>(r, c, atom_bytes), g, in);
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// generic-proxy writes (cp.async) made visible to wgmma's async proxy
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma shared-memory descriptor: start, leading and stride byte offsets
-// (16-byte units) and the swizzle mode (1 = 128B, 2 = 64B)
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint32_t mode) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4)
-         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
-         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32)
-         | ((uint64_t)mode << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accesses of a wgmma operand held in
-// registers (accumulator or A fragment) across the asynchronous window
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&d)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(d[i][j]) :: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x on the special-function unit (rel. error ~2^-22; subnormal results
-// flush to zero, which no bf16 p or float32 l can tell apart)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// d (+)= A . B, m64n64k16, A and B from shared memory (K-major).
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                         uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d += A . B, m64n32k16, A from registers, B from shared memory read
-// through the transpose bit (MN-major).
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[16],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d += A . B, m64n64k16, A from registers, B from shared memory read
-// through the transpose bit (MN-major).
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1)
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
-                       int sq, int sk, int hq, int group,
+                       float* __restrict__ lse, int sq, int sk, int hq,
+                       int group,
                        Strides qs, Strides ks, Strides vs, Strides os,
                        float scale, int causal) {
   using C = Cfg<D>;
@@ -491,10 +321,10 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   if (row_lo >= sq) wg_tiles = 0;  // no rows of this warpgroup in range
 
-  load_tile<D, TQ>(sQ, qb, qs.s, q0, sq, C::Q_ATOM);
+  load_tile<D, TQ, THREADS>(sQ, qb, qs.s, q0, sq, C::Q_ATOM);
   if (n_tiles > 0) {
-    load_tile<D, BK>(sKV, kb, ks.s, 0, sk, C::KV_ATOM);
-    load_tile<D, BK>(sKV + C::KV_BYTES, vb, vs.s, 0, sk, C::KV_ATOM);
+    load_tile<D, BK, THREADS>(sKV, kb, ks.s, 0, sk, C::KV_ATOM);
+    load_tile<D, BK, THREADS>(sKV + C::KV_BYTES, vb, vs.s, 0, sk, C::KV_ATOM);
   }
   cp_async_commit();
 
@@ -515,8 +345,8 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();      // everyone's copies landed; tile it-1 is consumed
     if (it + 1 < n_tiles) {  // the next tile loads while this one computes
       const uint32_t nxt = sKV + ((it + 1) % STAGES) * 2 * C::KV_BYTES;
-      load_tile<D, BK>(nxt, kb, ks.s, (it + 1) * BK, sk, C::KV_ATOM);
-      load_tile<D, BK>(nxt + C::KV_BYTES, vb, vs.s, (it + 1) * BK, sk,
+      load_tile<D, BK, THREADS>(nxt, kb, ks.s, (it + 1) * BK, sk, C::KV_ATOM);
+      load_tile<D, BK, THREADS>(nxt + C::KV_BYTES, vb, vs.s, (it + 1) * BK, sk,
                        C::KV_ATOM);
       cp_async_commit();
     }
@@ -622,8 +452,12 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + 8 * i;
-    const float denom = fmaxf(quad_sum(l[i]), 1e-30f);
+    const float l_row = quad_sum(l[i]);
+    const float denom = fmaxf(l_row, 1e-30f);
     if (row >= sq) continue;
+    if (lse != nullptr && c2 == 0)
+      lse[((long long)b * hq + h) * sq + row] =
+          l_row > 0.f ? m[i] + logf(l_row) : NEG_INF;
     bf16* dst = ob + (long long)row * os.s;
 #pragma unroll
     for (int a = 0; a < NA; ++a)
@@ -637,9 +471,10 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int sq, int sk, int hq, int hkv, Strides qs, Strides ks,
-           Strides vs, Strides os, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int sq, int sk, int hq, int hkv, Strides qs,
+           Strides ks, Strides vs, Strides os, int causal,
+           cudaStream_t stream) {
   using C = Cfg<D>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -649,15 +484,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   const float scale = (float)(1.0 / sqrt((double)D));
   flash_fwd_wgmma_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, hq,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, sq, sk, hq,
       hq / hkv, qs, ks, vs, os, scale, causal);
   return static_cast<int>(cudaGetLastError());
-}
-
-// 16-byte copies: every base address and (b, s, h) stride 16-byte aligned
-bool aligned(const void* p, Strides st) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 8 == 0
-         && st.s % 8 == 0 && st.h % 8 == 0;
 }
 
 }  // namespace tc
@@ -666,12 +495,15 @@ bool aligned(const void* p, Strides st) {
 
 // q: (batch, sq, hq, d); k, v: (batch, sk, hkv, d); o: like q. Strides are
 // in elements, (batch, seq, head) for each tensor; d has unit stride.
+// lse: null, or float32 (batch, hq, sq) contiguous, where each row's
+// log-sum-exp of its scaled, masked scores (natural units) is written for
+// the backward; a null lse leaves the kernels' work and o as they are.
 // dtype: 0 = float32 (SIMT kernel), 1 = bfloat16 (wgmma kernel; 16-byte
 // aligned pointers and strides); d in {32, 64, 128}.
 // Returns cudaGetLastError() after the launch (or the attribute's error).
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int d,
-    int batch, int sq, int sk, int hq, int hkv,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int dtype, int d, int batch, int sq, int sk, int hq, int hkv,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -686,31 +518,31 @@ extern "C" int flash_attention_fwd(
   if (dtype == 0) {
     switch (d) {
       case 32:
-        return simt::launch<32>(q, k, v, o, batch, sq, sk, hq, hkv, qs, ks,
-                                vs, os, causal, st);
+        return simt::launch<32>(q, k, v, o, lse, batch, sq, sk, hq, hkv, qs,
+                                ks, vs, os, causal, st);
       case 64:
-        return simt::launch<64>(q, k, v, o, batch, sq, sk, hq, hkv, qs, ks,
-                                vs, os, causal, st);
+        return simt::launch<64>(q, k, v, o, lse, batch, sq, sk, hq, hkv, qs,
+                                ks, vs, os, causal, st);
       case 128:
-        return simt::launch<128>(q, k, v, o, batch, sq, sk, hq, hkv, qs, ks,
-                                 vs, os, causal, st);
+        return simt::launch<128>(q, k, v, o, lse, batch, sq, sk, hq, hkv,
+                                 qs, ks, vs, os, causal, st);
     }
     return kInvalid;
   }
   if (dtype == 1) {
-    if (!tc::aligned(q, qs) || !tc::aligned(k, ks) || !tc::aligned(v, vs)
-        || !tc::aligned(o, os))
+    if (!flash::aligned(q, qs) || !flash::aligned(k, ks)
+        || !flash::aligned(v, vs) || !flash::aligned(o, os))
       return kInvalid;
     switch (d) {
       case 32:
-        return tc::launch<32>(q, k, v, o, batch, sq, sk, hq, hkv, qs, ks, vs,
-                              os, causal, st);
+        return tc::launch<32>(q, k, v, o, lse, batch, sq, sk, hq, hkv, qs,
+                              ks, vs, os, causal, st);
       case 64:
-        return tc::launch<64>(q, k, v, o, batch, sq, sk, hq, hkv, qs, ks, vs,
-                              os, causal, st);
+        return tc::launch<64>(q, k, v, o, lse, batch, sq, sk, hq, hkv, qs,
+                              ks, vs, os, causal, st);
       case 128:
-        return tc::launch<128>(q, k, v, o, batch, sq, sk, hq, hkv, qs, ks,
-                               vs, os, causal, st);
+        return tc::launch<128>(q, k, v, o, lse, batch, sq, sk, hq, hkv, qs,
+                               ks, vs, os, causal, st);
     }
   }
   return kInvalid;

@@ -44,18 +44,24 @@ tensor-core peak. Design: the note at the top of
 ``csrc/flash_attention.cu``.
 
 The gradient: :class:`FlashAttention` is a ``torch.autograd.Function``
-whose forward is :func:`flash_attention`'s and whose backward is
-:func:`flash_attention_bwd`: the hand-written CUDA kernels of
-``csrc/flash_attention_bwd.cu`` for CUDA tensors (counted in
+whose forward is :func:`flash_attention`'s, run with its row log-sum-exp
+``L`` (``(B, Hq, Sq)`` float32, written by the same kernel launch, see
+:func:`flash_attention_lse`), and whose backward is
+:func:`flash_attention_bwd` given that ``L``: the hand-written CUDA
+kernels of ``csrc/flash_attention_bwd.cu`` for CUDA tensors (counted in
 ``flash_attention_bwd.launches``), :func:`flash_attention_bwd_plain` only
 for CPU tensors. The reference has no Pallas backward; it differentiates
 its XLA ``blockwise_attention`` scan, and the kernels replace what XLA's
-autodiff makes of it. Both compute the exact gradient of the forward with
-the bf16 rounding of ``p`` taken as the identity (as autodiff of
-``astype`` takes it), from ``L`` and ``delta = rowsum(dO * O)``
-recomputed in float32. :func:`flash_attention` returns through the
-Function whenever grad is enabled and an input requires it; otherwise
-(prefill, decode) it runs the forward alone.
+autodiff makes of it. Both compute the gradient of the forward with the
+bf16 rounding of ``p`` taken as the identity (as autodiff of ``astype``
+takes it), from ``L`` and ``delta = rowsum(dO * O)`` in float32, and
+round ``P`` and ``dS`` to the inputs' dtype before the products that take
+them (bf16 on the tensor cores; a no-op at float32). The bf16 backward
+runs on ``wgmma`` (one warpgroup a CTA, 64-row tiles: dK/dV by key tile,
+dQ by q tile, no atomics); float32 on the CUDA cores, chosen by dtype.
+:func:`flash_attention` returns through the Function whenever grad is
+enabled and an input requires it; otherwise (prefill, decode) it runs the
+forward alone, without ``L``.
 """
 from __future__ import annotations
 
@@ -66,22 +72,28 @@ from repro_torch.kernels import _build
 TILE_Q, TILE_K = 128, 64       # the bf16 (tensor-core) kernel's tiles
 F32_TILE = 64                   # the float32 (SIMT) kernel's tiles
 BWD_TILE = 64                   # the backward kernels' q and key tiles
+DKDV_CTAS_PER_SM = 2            # see dkdv_split
 HEAD_DIMS = (32, 64, 128)       # the CUDA kernel's template instances
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the C entry's dtype codes
 NEG_INF = -1e30
 
 
 def flash_attention_plain(q, k, v, causal: bool = True, block_q: int = 128,
-                          block_k: int = 128) -> torch.Tensor:
+                          block_k: int = 128, return_lse: bool = False):
     """Plain PyTorch version on ``(B, S, H, D)`` with GQA: the same online
     softmax over ``block_q`` x ``block_k`` tiles with the same float32 state
-    and the same rounding of ``p``."""
+    and the same rounding of ``p``. With ``return_lse``, returns ``(out,
+    lse)``: each row's log-sum-exp ``m + log(l)`` of its scaled, masked
+    scores from the final running max and sum, float32 ``(B, Hq, Sq)``
+    (``NEG_INF`` for a row that sees no key), as the kernels write it."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     scale = 1.0 / (d ** 0.5)
     qg = q.reshape(b, sq, hkv, hq // hkv, d).float()
     kf, vf = k.float(), v.float()
     out = torch.empty((b, hkv, hq // hkv, sq, d), dtype=torch.float32,
+                      device=q.device)
+    lse = torch.empty((b, hkv, hq // hkv, sq), dtype=torch.float32,
                       device=q.device)
     for q0 in range(0, sq, block_q):
         q1 = min(q0 + block_q, sq)
@@ -109,7 +121,9 @@ def flash_attention_plain(q, k, v, causal: bool = True, block_q: int = 128,
                 "bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), vf[:, k0:k1])
             m = m_new
         out[..., q0:q1, :] = acc / l.clamp_min(1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+        lse[..., q0:q1] = torch.where(l > 0, m + torch.log(l), NEG_INF)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+    return (out, lse.reshape(b, hq, sq)) if return_lse else out
 
 
 def _check(q, k, v, block_q: int, block_k: int) -> None:
@@ -133,6 +147,14 @@ def _check(q, k, v, block_q: int, block_k: int) -> None:
         raise ValueError(f"flash_attention: Sq={sq}, Sk={k.shape[1]} must be "
                          f"multiples of block_q={block_q}, "
                          f"block_k={block_k}")
+
+
+def bsh_strides(t) -> tuple:
+    """``t``'s (b, s, h) strides as the kernels take them: 0 along a dim
+    of size 1, which a kernel never steps along and whose stride PyTorch
+    leaves arbitrary, also in a tensor it calls contiguous."""
+    return tuple(st if n > 1 else 0
+                 for st, n in zip(t.stride()[:3], t.shape[:3]))
 
 
 def check_kernel_operands(q, k, v) -> None:
@@ -159,7 +181,7 @@ def check_kernel_operands(q, k, v) -> None:
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention: bf16 {name} must start on a "
                              "16-byte boundary")
-        if any(st % per_16 for st in t.stride()[:3]):
+        if any(st % per_16 for st in bsh_strides(t)):
             raise ValueError(f"flash_attention: bf16 {name}'s (b, s, h) "
                              f"strides {t.stride()[:3]} must be multiples "
                              f"of {per_16} elements (16 bytes)")
@@ -181,47 +203,75 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
     return _forward(q, k, v, causal, block_q, block_k)
 
 
-def _forward(q, k, v, causal: bool, block_q: int, block_k: int):
+def flash_attention_lse(q, k, v, causal: bool = True, block_q: int = 128,
+                        block_k: int = 128):
+    """``(o, lse)``: :func:`flash_attention`'s output (no autograd) and
+    each row's log-sum-exp, float32 ``(B, Hq, Sq)``, from one launch of
+    the same kernel (CPU tensors: :func:`flash_attention_plain`). ``o``
+    is bit-equal to :func:`flash_attention`'s."""
+    _check(q, k, v, block_q, block_k)
+    return _forward(q, k, v, causal, block_q, block_k, with_lse=True)
+
+
+def _forward(q, k, v, causal: bool, block_q: int, block_k: int,
+             with_lse: bool = False):
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, block_q, block_k)
+        return flash_attention_plain(q, k, v, causal, block_q, block_k,
+                                     return_lse=with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     check_kernel_operands(q, k, v)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    launch(q, k, v, o, causal)
-    return o
+    if not with_lse:
+        launch(q, k, v, o, causal)
+        return o
+    b, sq, hq, _ = q.shape
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    launch(q, k, v, o, causal, lse)
+    return o, lse
 
 
 class FlashAttention(torch.autograd.Function):
-    """The flash forward with the backward kernels as its gradient."""
+    """The flash forward, keeping its row log-sum-exp, with the backward
+    kernels as its gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, block_q, block_k):
-        o = _forward(q, k, v, causal, block_q, block_k)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _forward(q, k, v, causal, block_q, block_k, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
-                                         ctx.causal)
+                                         ctx.causal, lse)
         return dq, dk, dv, None, None, None
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, causal: bool = True,
-                              block_q: int = 512):
+                              block_q: int = 512, lse=None):
     """Plain PyTorch gradient (dq, dk, dv) of the forward at ``(q, k, v)``
     with output ``o`` and output gradient ``do``, all ``(B, S, H, D)``
     with GQA: dense float32 scores over ``block_q`` query rows at a time,
-    ``P = exp(S - L)``, ``dS = P * (dO . V^T - rowsum(dO * O))``. Returns
-    the gradients in the inputs' dtypes."""
+    ``P = exp(S - L)``, ``dS = P * (dO . V^T - rowsum(dO * O))``, with
+    ``P`` and ``dS`` rounded to the inputs' dtype before the products
+    that take them, as the kernels' bf16 operands are (a no-op at
+    float32). ``lse`` is the forward's ``L``, float32 ``(B, Hq, Sq)``;
+    ``None`` computes it here with ``torch.logsumexp``. Returns the
+    gradients in the inputs' dtypes."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     scale = 1.0 / (d ** 0.5)
     kf, vf = k.float(), v.float()
+    if lse is not None:
+        lse = lse.reshape(b, hkv, g, sq).float()
+
+    def rnd(x):  # the dtype of the kernel's tensor-core operands
+        return x.to(q.dtype).float()
+
     dq = torch.empty((b, sq, hkv, g, d), dtype=torch.float32, device=q.device)
     dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(vf.shape, dtype=torch.float32, device=q.device)
@@ -235,38 +285,45 @@ def flash_attention_bwd_plain(q, k, v, o, do, causal: bool = True,
             qpos = torch.arange(q0, q1, device=q.device)
             kpos = torch.arange(sk, device=q.device)
             s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
-        p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+        row_lse = (torch.logsumexp(s, dim=-1) if lse is None
+                   else lse[..., q0:q1])
+        p = torch.exp(s - row_lse[..., None])
         delta = (dog * og).sum(dim=-1).permute(0, 2, 3, 1)  # (b, h, g, q)
         dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
-        ds = p * (dp - delta[..., None])
+        ds = rnd(p * (dp - delta[..., None]))
         dq[:, q0:q1] = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
         dk += torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
-        dv += torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+        dv += torch.einsum("bhgqk,bqhgd->bkhd", rnd(p), dog)
     return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 
 
-def flash_attention_bwd(q, k, v, o, do, causal: bool = True):
+def flash_attention_bwd(q, k, v, o, do, causal: bool = True, lse=None):
     """The gradient (dq, dk, dv) of :func:`flash_attention` at ``(q, k,
-    v)``, given its output ``o`` and the output's gradient ``do``.
+    v)``, given its output ``o``, the output's gradient ``do`` and the
+    forward's row log-sum-exp ``lse`` (:func:`flash_attention_lse`).
 
-    CPU tensors take :func:`flash_attention_bwd_plain`; CUDA tensors
-    launch the backward kernels (:func:`launch_bwd`) or raise."""
+    CPU tensors take :func:`flash_attention_bwd_plain` (where ``lse`` may
+    be ``None``); CUDA tensors launch the backward kernels
+    (:func:`launch_bwd`), which take ``lse`` as an input, or raise."""
     _check(q, k, v, 1, 1)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
                          f"{tuple(do.shape)} must be q's {tuple(q.shape)}")
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, do, causal)
+        return flash_attention_bwd_plain(q, k, v, o, do, causal, lse=lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
+    if lse is None:
+        raise ValueError("flash_attention_bwd: the kernels take the "
+                         "forward's lse (flash_attention_lse)")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if k.shape[1] == 0:  # nothing to attend to: the forward gave zeros
         return dq.zero_(), dk, dv
-    launch_bwd(q, k, v, o, do, dq, dk, dv, causal)
+    launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal)
     return dq, dk, dv
 
 
@@ -281,32 +338,40 @@ def flash_attention_kernel(q, k, v, causal: bool = True, block_q: int = 128,
     return out[:, :, 0]
 
 
-def launch(q, k, v, o, causal: bool) -> None:
+def launch(q, k, v, o, causal: bool, lse=None) -> None:
     """Launch the kernel on checked (B, S, H, D) operands (counts one
-    launch)."""
+    launch); with ``lse``, a float32 (B, Hq, Sq) tensor, the same launch
+    also writes each row's log-sum-exp there."""
     fn = _build.entry("flash_attention_fwd")
     b, sq, hq, d = q.shape
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         DTYPES[q.dtype], d, b, sq, k.shape[1], hq, k.shape[2],
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        *bsh_strides(q), *bsh_strides(k), *bsh_strides(v), *bsh_strides(o),
         int(causal), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.count_launch(flash_attention)
     _build.check("flash_attention_fwd", err)
 
 
-def launch_bwd(q, k, v, o, do, dq, dk, dv, causal: bool) -> None:
-    """Launch the backward kernels (one C entry: the L and delta pre-pass,
-    dK/dV, dQ) on (B, S, H, D) operands, counting one launch. Checks what
-    the kernels take: a compiled head dim, unit stride along D, one dtype
-    and one CUDA device for all eight tensors, at most 65535 q tiles."""
+def check_bwd_operands(q, k, v, o, do, lse, dq, dk, dv) -> None:
+    """What the backward kernels take: a compiled head dim; one dtype
+    (float32 or bfloat16) and one device for the eight (B, S, H, D)
+    tensors, each with unit stride along D; ``lse`` float32, contiguous,
+    (B, Hq, Sq), on their device; at most 65535 q or key tiles; and for
+    bf16 (16-byte ``cp.async`` copies) 16-byte aligned ``data_ptr`` and
+    (b, s, h) strides. Plain checks on the operands' metadata, made
+    before the device is asked for, so they hold on any device."""
     tensors = {"q": q, "k": k, "v": v, "o": o, "do": do, "dq": dq,
                "dk": dk, "dv": dv}
     d = q.shape[-1]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: the CUDA kernel is compiled "
                          f"for D in {HEAD_DIMS}, not D={d}")
+    if q.dtype not in DTYPES:
+        raise ValueError("flash_attention_bwd: the kernel takes float32 or "
+                         "bfloat16 CUDA tensors")
     for name, t in tensors.items():
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"flash_attention_bwd: {name} is {t.dtype} on "
@@ -314,20 +379,71 @@ def launch_bwd(q, k, v, o, do, dq, dk, dv, causal: bool) -> None:
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention_bwd: {name} must have unit "
                              "stride along D")
-    if q.dtype not in DTYPES or q.device.type != "cuda":
+    b, sq, hq, _ = q.shape
+    if (lse.shape != (b, hq, sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous "
+                         f"float32 {(b, hq, sq)} on {q.device}, not "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    if -(-sq // BWD_TILE) > 65535 or -(-k.shape[1] // BWD_TILE) > 65535:
+        raise ValueError("flash_attention_bwd: S too long for the kernel grid")
+    if q.dtype != torch.bfloat16:
+        return
+    per_16 = 16 // q.element_size()
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: bf16 {name} must start "
+                             "on a 16-byte boundary")
+        if any(st % per_16 for st in bsh_strides(t)):
+            raise ValueError(f"flash_attention_bwd: bf16 {name}'s (b, s, h) "
+                             f"strides {t.stride()[:3]} must be multiples "
+                             f"of {per_16} elements (16 bytes)")
+
+
+def dkdv_split(q, k) -> int:
+    """The parts the bf16 dK/dV kernel cuts each KV head's ``g = Hq /
+    Hkv`` query heads into (a power of two dividing ``g``; 1 for
+    float32). One CTA per (batch, KV head, key tile) leaves the causal
+    key tile 0, which meets every q tile of all ``g`` heads, as the
+    launch's critical path; parts run in CTAs of their own, and
+    ``bwd_reduce_kernel`` sums their float32 dK and dV in part order.
+    Parts double while the grid holds fewer than ``DKDV_CTAS_PER_SM``
+    CTAs an SM."""
+    if q.dtype != torch.bfloat16:
+        return 1
+    g = q.shape[2] // k.shape[2]
+    n_ctas = q.shape[0] * k.shape[2] * -(-k.shape[1] // BWD_TILE)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    split = 1
+    while (g % (2 * split) == 0
+           and n_ctas * split < DKDV_CTAS_PER_SM * sms):
+        split *= 2
+    return split
+
+
+def launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal: bool) -> None:
+    """Launch the backward kernels (one C entry: the delta pre-pass,
+    dK/dV, the parts' sum where :func:`dkdv_split` cuts the heads, dQ)
+    on (B, S, H, D) operands and the forward's ``lse``, counting one
+    launch, after :func:`check_bwd_operands` and a check that they lie
+    on a CUDA device."""
+    check_bwd_operands(q, k, v, o, do, lse, dq, dk, dv)
+    if q.device.type != "cuda":
         raise ValueError("flash_attention_bwd: the kernel takes float32 or "
                          "bfloat16 CUDA tensors")
-    if -(-q.shape[1] // BWD_TILE) > 65535 or -(-k.shape[1] // BWD_TILE) > 65535:
-        raise ValueError("flash_attention_bwd: S too long for the kernel grid")
-    b, sq, hq, _ = q.shape
-    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    split = dkdv_split(q, k)
+    part = (torch.empty((split, 2, b, sk, hkv, d), dtype=torch.float32,
+                        device=q.device) if split > 1 else None)
+    tensors = (q, k, v, o, do, dq, dk, dv)
     fn = _build.entry("flash_attention_bwd")
-    strides = [st for t in tensors.values() for st in t.stride()[:3]]
+    strides = [st for t in tensors for st in bsh_strides(t)]
     err = fn(
-        *(t.data_ptr() for t in tensors.values()), lse.data_ptr(),
-        delta.data_ptr(), DTYPES[q.dtype], d, b, sq, k.shape[1], hq,
-        k.shape[2], *strides, int(causal),
+        *(t.data_ptr() for t in tensors), lse.data_ptr(), delta.data_ptr(),
+        None if part is None else part.data_ptr(), DTYPES[q.dtype], d, b,
+        sq, sk, hq, hkv, split, *strides, int(causal),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.count_launch(flash_attention_bwd)

@@ -10,10 +10,20 @@ launching on the training path. Here the ``FlashAttention`` Function's
 CPU branch is checked to call the plain backward; its CUDA branch is left
 to ``chip_smoke.py``.
 
-Tolerances (float32 throughout):
+Tolerances (float32 unless stated):
 - schedules and SGD: rtol 1e-6 (one float32 rounding of a few operations);
 - the attention gradient against ``jax.vjp`` of the reference's
   ``blockwise_attention``: atol 1e-5, rtol 1e-4 (another summation order);
+- the plain forward's log-sum-exp against ``torch.logsumexp`` of the
+  masked scores: atol 1e-5, rtol 1e-6 (an online max and sum against a
+  two-pass one, l summed over at most 64 keys);
+- bf16: the plain backward against ``jax.vjp`` of the reference in bf16,
+  each gradient within 4e-2 of the exact gradient's largest |value|, and
+  against the float32 exact gradient of the same bf16 inputs within 1e-2
+  of it. The reference rounds to bf16 at more places (its scores, its
+  accumulator, every intermediate of its autodiff) and lands up to 2.4e-2
+  from the exact gradient at these shapes; the port rounds P and dS once
+  each (2^-9 relative) and its outputs, and lands within 4.5e-3;
 - ``lm_loss``: the value rtol 1e-5, gradients atol 1e-5 / rtol 1e-4
   (three layers of float32 in another order);
 - three accumulated AdamW steps: parameters atol 1e-4, and 99.9% of the
@@ -200,9 +210,10 @@ def test_bwd_plain_matches_torch_autograd(g, causal):
 
 
 def test_flash_attention_carries_the_function_only_under_grad(monkeypatch):
-    """The Function's CPU branch calls the plain backward (its CUDA
-    branch, the kernel, is checked by chip_smoke.py); without grad the
-    wrapper returns the plain forward's tensor, with no graph."""
+    """The Function's CPU branch calls the plain backward with the
+    forward's log-sum-exp (its CUDA branch, the kernel, is checked by
+    chip_smoke.py); without grad the wrapper returns the plain forward's
+    tensor, with no graph."""
     q, k, v, do = map(torch.tensor, _attn_inputs(40, 4, 32))
     calls = []
     plain = flash_ops.flash_attention_bwd_plain
@@ -220,9 +231,15 @@ def test_flash_attention_carries_the_function_only_under_grad(monkeypatch):
     (dq,) = torch.autograd.grad(o, qr, do)
     assert calls == [q.shape]
     assert flash_attention_bwd.launches == 0   # the CPU launches nothing
+    _, lse = flash_ops.flash_attention_lse(q, k, v, True, 16, 16)
     np.testing.assert_allclose(
-        _np(dq), _np(plain(q, k, v, o.detach(), do, True)[0]), rtol=0,
-        atol=0)
+        _np(dq), _np(plain(q, k, v, o.detach(), do, True, lse=lse)[0]),
+        rtol=0, atol=0)
+
+
+def _lse():
+    """The forward's lse for (1, 8, 2, D) operands: (B, Hq, Sq)."""
+    return torch.zeros(1, 2, 8)
 
 
 def test_bwd_refuses_other_devices_and_checks_kernel_operands():
@@ -233,10 +250,134 @@ def test_bwd_refuses_other_devices_and_checks_kernel_operands():
     # head dim the kernel is not compiled for are refused
     cpu = [torch.zeros(1, 8, 2, 32) for _ in range(8)]
     with pytest.raises(ValueError, match="CUDA tensors"):
-        flash_ops.launch_bwd(*cpu, True)
+        flash_ops.launch_bwd(*cpu[:5], _lse(), *cpu[5:], True)
     odd = [torch.zeros(1, 8, 2, 24) for _ in range(8)]
     with pytest.raises(ValueError, match="compiled"):
-        flash_ops.launch_bwd(*odd, True)
+        flash_ops.launch_bwd(*odd[:5], _lse(), *odd[5:], True)
+
+
+def _bf16_operands():
+    return [torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16) for _ in range(8)]
+
+
+def _misaligned(ops):
+    """q starting 2 bytes past a 16-byte boundary."""
+    flat = torch.zeros(1 + 8 * 2 * 32, dtype=torch.bfloat16)
+    return [flat[1:].view(1, 8, 2, 32)] + ops[1:]
+
+
+def _odd_stride(ops):
+    """k as a head view of rows 36 elements apart (72 bytes)."""
+    return ops[:1] + [torch.zeros(1, 8, 2, 36, dtype=torch.bfloat16)
+                      [..., :32]] + ops[2:]
+
+
+@pytest.mark.parametrize("case, lse, match", [
+    ("misaligned", _lse(), "16-byte boundary"),
+    ("odd stride", _lse(), "multiples of 8"),
+    ("lse shape", torch.zeros(1, 8, 2), "lse must be"),
+    ("lse dtype", torch.zeros(1, 2, 8, dtype=torch.bfloat16), "lse must be"),
+    ("lse strided", torch.zeros(1, 8, 2).transpose(1, 2), "lse must be"),
+])
+def test_launch_bwd_refuses_misaligned_operands_and_a_wrong_lse(case, lse,
+                                                                match):
+    """``launch_bwd``'s operand checks hold on the CPU, before a device
+    or a build is asked for: bf16 operands must start on 16-byte
+    boundaries with (b, s, h) strides in multiples of 8 elements (the
+    kernels' 16-byte ``cp.async`` copies), and ``lse`` must be the
+    forward's contiguous float32 (B, Hq, Sq)."""
+    ops = _bf16_operands()
+    ops = {"misaligned": _misaligned, "odd stride": _odd_stride}.get(
+        case, lambda x: x)(ops)
+    with pytest.raises(ValueError, match=match):
+        flash_ops.launch_bwd(*ops[:5], lse, *ops[5:], True)
+    # the well-formed operands pass every check and stop only at the device
+    good = _bf16_operands()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_ops.launch_bwd(*good[:5], _lse(), *good[5:], True)
+
+
+def test_launch_bwd_takes_any_stride_along_a_dim_of_size_one():
+    """A batch of one may carry any batch stride, also in a tensor
+    PyTorch calls contiguous (as the model's ``do.contiguous()`` does
+    after a transpose): the kernels never step along it, so the checks
+    pass it, and the launch hands the kernels a stride of 0 there."""
+    ops = _bf16_operands()
+    ops[4] = ops[4].as_strided(ops[4].shape, (1, 64, 32, 1))
+    assert ops[4].is_contiguous()
+    assert flash_ops.bsh_strides(ops[4]) == (0, 64, 32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_ops.launch_bwd(*ops[:5], _lse(), *ops[5:], True)
+
+
+@pytest.mark.parametrize("g", [1, 4], ids=["mha", "gqa4"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_plain_forward_lse_is_the_logsumexp_of_the_masked_scores(g, causal):
+    """The log-sum-exp the plain forward returns (the kernels' ``lse``
+    output, the backward's ``L``) from its online max and sum, against
+    ``torch.logsumexp`` of the scaled, masked scores; its ``o`` is the
+    forward's without ``lse``."""
+    q, k, v, _ = map(torch.tensor, _attn_inputs(60 + g, g))
+    o, lse = flash_ops.flash_attention_lse(q, k, v, causal, 16, 16)
+    assert lse.shape == (q.shape[0], q.shape[2], q.shape[1])
+    assert torch.equal(o, flash_ops.flash_attention(q, k, v, causal, 16, 16))
+    kf = k.repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kf) / q.shape[-1] ** 0.5
+    if causal:
+        pos = torch.arange(q.shape[1])
+        s = s.masked_fill(pos[None, :] > pos[:, None], flash_ops.NEG_INF)
+    np.testing.assert_allclose(_np(lse), _np(torch.logsumexp(s, dim=-1)),
+                               atol=1e-5, rtol=1e-6)
+
+
+def _bf16_case(seed, g):
+    """bf16 inputs (rounded from seeded float32 draws) as numpy float32."""
+    return [np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+            for x in _attn_inputs(seed, g)]
+
+
+def _bf16_plain_grads(q, k, v, do, causal):
+    tq, tk, tv, tdo = (torch.tensor(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    o, lse = flash_ops.flash_attention_lse(tq, tk, tv, causal, 16, 16)
+    got = flash_ops.flash_attention_bwd_plain(tq, tk, tv, o, tdo, causal,
+                                              lse=lse)
+    assert all(x.dtype == torch.bfloat16 for x in got)
+    return got
+
+
+def _exact_grads(q, k, v, do, causal):
+    """The float32 gradient of the float32 forward at the same values."""
+    leaves = [torch.tensor(x).requires_grad_() for x in (q, k, v)]
+    o = flash_ops.flash_attention_plain(*leaves, causal, 16, 16)
+    return torch.autograd.grad(o, leaves, torch.tensor(do))
+
+
+@pytest.mark.parametrize("g", [1, 4], ids=["mha", "gqa4"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_bf16_bwd_plain_matches_jax_grad_of_the_reference_in_bf16(g, causal):
+    q, k, v, do = _bf16_case(70 + g, g)
+    _, vjp = jax.vjp(lambda a, b, c: rattn.blockwise_attention(
+        a, b, c, causal=causal, block_k=16),
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do, jnp.bfloat16))
+    got = _bf16_plain_grads(q, k, v, do, causal)
+    for name, a, b, c in zip("qkv", got, want,
+                             _exact_grads(q, k, v, do, causal)):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0,
+                                   atol=4e-2 * float(c.abs().max()),
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("g", [1, 4], ids=["mha", "gqa4"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_bf16_bwd_plain_is_near_the_float32_gradient(g, causal):
+    q, k, v, do = _bf16_case(80 + g, g)
+    got = _bf16_plain_grads(q, k, v, do, causal)
+    for name, a, b in zip("qkv", got, _exact_grads(q, k, v, do, causal)):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0,
+                                   atol=1e-2 * float(b.abs().max()),
+                                   err_msg=f"d{name}")
 
 
 # --------------------------------------------------------------------- loss
