@@ -15,9 +15,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    "wgmma.mma_async instructions are serialized". Likewise fail if an
    instance of the CSR SpMM (``csr_spmm_kernel<G, V>``, 12 of them) or of
    the EmbeddingBag kernel (``embedding_bag_kernel<G, V, U>``, 24 of them)
-   spills, or the envs' window kernels at the path's owner bound
-   (``queue_window_kernel<4>``, ``cluster_window_kernel<4>``; those of 8
-   and 16 are logged).
+   spills, or the envs' window kernels' instance for the path's owner
+   count (``queue_window_kernel<3>``, ``cluster_window_kernel<3>``; those
+   of 1, 2, 4, 8 and 16 are logged with the shared memory a block takes).
 2. The policy phase, first after the build (the profiler has dropped
    kernels from later traces in a process that ran the training's
    millions of launches first): the paper's calibrate -> train -> deploy
@@ -48,9 +48,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    ``mem_budget_frac`` 0.3 with the headroom entry (``TOL_POLICY``; a
    finished episode's 0 / 0 entries are NaN on both sides); the
    ``queue_window`` kernel against its plain version on the same
-   operands for every code at every W, at P = 3, 1, 8 and 16 and under
-   the memory spill (``TOL_POLICY``, a relaunch bit-identical, live steps
-   = eff_window); ``get_or_train_policy(env="queue")`` on the analytic
+   operands for every code at every W, at P = 3, 1, 2, 4, 8 and 16 and
+   under the memory spill (``TOL_POLICY``, a relaunch bit-identical, live
+   steps = eff_window); ``get_or_train_policy(env="queue")`` on the analytic
    pool (32 envs, ``POLICY_ITERS`` iterations, the default scenario
    pool), which must launch the kernel exactly twice an iteration (+1 for
    the first reset); held-out whole episodes under ``paper_schedule`` and
@@ -63,7 +63,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
    plain and at ``mem_budget_frac`` 0.3 with the headroom entry,
    ``TOL_POLICY``); the ``cluster_window`` kernel against its plain
    version for every archetype, live-peer count, sync mode, peer policy
-   and W at P = 3, 1, 8 and 16 and P = 3 under the spill
+   and W at P = 3, 1, 2, 4, 8 and 16 and P = 3 under the spill
    (``TOL_POLICY``, a relaunch bit-identical, live steps = eff_window);
    the reduction: at zero peers and clean factors the kernel's outputs
    ``torch.equal`` to ``queue_window``'s, and a 28-env card episode of
@@ -573,6 +573,9 @@ def ptxas_functions(text: str) -> dict:
         hit = re.search(r"Used (\d+) registers", line)
         if hit:
             cur["registers"] = int(hit.group(1))
+        hit = re.search(r"(\d+) bytes smem", line)
+        if hit:
+            cur["smem"] = int(hit.group(1))
     return funcs
 
 
@@ -629,27 +632,36 @@ def check_csr_build(text: str) -> None:
 
 def check_window_build(text: str, stem: str) -> None:
     """An env window kernel's ptxas report (``queue_window`` or
-    ``cluster_window``, both fluid_window.cuh's code): one instance per
-    owner bound (4, 8, 16); the path's (P = 3: the instance of 4) must not
-    spill; the wider ones are logged (their register arrays outgrow 255
-    registers)."""
+    ``cluster_window``, both fluid_window.cuh's code, a block per env):
+    one instance per exact owner count 1 to 4 and per owner bound 8 and
+    16, each logged with its registers, spills, static shared memory and
+    the dynamic shared memory a block takes at its owner count; the
+    path's (P = 3) must not spill."""
     import re
 
+    from repro_torch.kernels.cluster_window import ops as cw
+    from repro_torch.kernels.queue_window import ops as qw
+
+    smem = {"queue_window": qw.smem_bytes,
+            "cluster_window": cw.smem_bytes}[stem]
     found = {}
     for name, info in ptxas_functions(text).items():
         hit = re.search(rf"{stem}_kernelILi(\d+)E", name)
         if hit:
             found[int(hit.group(1))] = info
-    require(sorted(found) == [4, 8, 16],
+    require(sorted(found) == [1, 2, 3, 4, 8, 16],
             f"ptxas report lists {stem}_kernel instances "
-            f"{sorted(found)}, not 4, 8 and 16 (is the build log missing?)")
+            f"{sorted(found)}, not 1, 2, 3, 4, 8 and 16 (is the build log "
+            "missing?)")
     for p, info in sorted(found.items()):
         log(f"  ptxas[{stem}] {stem}_kernel<{p}>: "
             f"{info.get('registers')} registers, {info.get('spill_stores')} "
-            f"bytes spill stores, {info.get('spill_loads')} bytes spill loads")
-    require(found[4].get("spill_stores") == 0
-            and found[4].get("spill_loads") == 0,
-            f"{stem}_kernel<4> spills")
+            f"bytes spill stores, {info.get('spill_loads')} bytes spill "
+            f"loads, {info.get('smem', 0)} bytes static shared memory; "
+            f"{smem(p)} bytes dynamic shared memory a block at P = {p}")
+    require(found[3].get("spill_stores") == 0
+            and found[3].get("spill_loads") == 0,
+            f"{stem}_kernel<3> spills")
 
 
 def check_bag_build(text: str) -> None:
@@ -1611,10 +1623,9 @@ def queue_window_operands(torch, device, theta, n_owners, codes, windows,
 def queue_kernel_vs_plain(torch, device, theta):
     """The ``queue_window`` kernel against its plain version on the card,
     on the same operands: every scenario code at every W, at P = 3 (the
-    path's), 1, 8 and 16 (the kernel's other register-array instances),
-    and P = 3 under ``mem_budget_frac`` 0.3; every output within
-    ``TOL_POLICY``; a relaunch bit-identical. Returns the largest
-    |diff|."""
+    path's), 1, 2, 4, 8 and 16 (the kernel's other instances), and P = 3
+    under ``mem_budget_frac`` 0.3; every output within ``TOL_POLICY``; a
+    relaunch bit-identical. Returns the largest |diff|."""
     import dataclasses
 
     from repro_torch.core import cost_model as cm, queue_sim as qs
@@ -1622,7 +1633,8 @@ def queue_kernel_vs_plain(torch, device, theta):
 
     codes = sorted(qs.SCENARIO_CODES.values())
     worst = 0.0
-    for p, mem in ((3, 0.0), (3, 0.3), (1, 0.0), (8, 0.0), (16, 0.0)):
+    for p, mem in ((3, 0.0), (3, 0.3), (1, 0.0), (2, 0.0), (4, 0.0),
+                   (8, 0.0), (16, 0.0)):
         args = queue_window_operands(torch, device, theta, p, codes,
                                      cm.WINDOW_CHOICES, mem=mem)
         acc_k, fab_k = qw.queue_window(*args)
@@ -1770,6 +1782,20 @@ def queue_window_timing_row(torch, device, info):
         f"{plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {n_bytes / 1e3:.1f} "
         f"KB, {n_flops:.4g} operations), kernel / bound "
         f"{ms / b_ms:.0f}x; {smi_line()}")
+    # the reference's batch: 64 envs, a block each
+    args64 = queue_window_operands(torch, device, info["theta"], 3,
+                                   (codes * 6)[:2 * POLICY_ENVS], (128,),
+                                   seed=SEED + 1)
+    args64 = args64[:7] + (args64[6].clone(), args64[8])
+    packed = qw.pack(*args64[:5], args64[6], args64[7], args64[8])
+    out64 = (torch.empty((2 * n, len(qw.ACC)), device=device),
+             torch.empty((2 * n, len(qw.ACC_OWNERS), p), device=device),
+             torch.empty_like(packed[3]))
+    ms64 = timer.ms(lambda: qw.launch(*packed, args64[5], *out64,
+                                      cfg.n_epochs, cfg.steps_per_epoch))
+    qw.queue_window.launches = before
+    log(f"time queue_window n={2 * n} P={p} W=128: kernel {ms64:.4f} ms "
+        f"({ms64 / ms:.2f}x the {n}-env launch); {smi_line()}")
     return {
         "name": "queue_window", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/queue_window.cu",
@@ -1860,10 +1886,10 @@ def cluster_window_operands(torch, device, theta, n_owners, windows,
 def cluster_kernel_vs_plain(torch, device, theta):
     """The ``cluster_window`` kernel against its plain version on the card,
     on the same operands: every archetype, every live-peer count, every
-    W and every queue code, at P = 3 (the path's), 1, 8 and 16, and P = 3
-    under ``mem_budget_frac`` 0.3; each of those in three batches (the
-    sync modes, with the static, reactive and mixed peers); every output
-    within ``TOL_POLICY``, a relaunch bit-identical, live steps =
+    W and every queue code, at P = 3 (the path's), 1, 2, 4, 8 and 16, and
+    P = 3 under ``mem_budget_frac`` 0.3; each of those in three batches
+    (the sync modes, with the static, reactive and mixed peers); every
+    output within ``TOL_POLICY``, a relaunch bit-identical, live steps =
     eff_window. Returns the largest |diff|."""
     from repro_torch.core import cost_model as cm
     from repro_torch.kernels.cluster_window import ops as cw
@@ -1871,7 +1897,8 @@ def cluster_kernel_vs_plain(torch, device, theta):
     worst = 0.0
     batches = (("allreduce", "static"), ("reduce_scatter", "greendygnn"),
                ("none", "mixed"))
-    for p, mem in ((3, 0.0), (3, 0.3), (1, 0.0), (8, 0.0), (16, 0.0)):
+    for p, mem in ((3, 0.0), (3, 0.3), (1, 0.0), (2, 0.0), (4, 0.0),
+                   (8, 0.0), (16, 0.0)):
         n_env = live = 0
         for b, (sync, policy) in enumerate(batches):
             args = cluster_window_operands(
@@ -2167,6 +2194,21 @@ def cluster_window_timing_row(torch, device, info):
         f"{plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {n_bytes / 1e3:.1f} "
         f"KB, {n_flops:.4g} operations), kernel / bound "
         f"{ms / b_ms:.0f}x; {smi_line()}")
+    # the reference's batch: 64 envs, a block each
+    args64 = cluster_window_operands(torch, device, info["theta"], 3,
+                                     (128,) * 4, seed=SEED + 1)
+    cfg64, ego64, sc64, vol64, fab64, peers64, ps64, unif64, win64 = \
+        args64[:9]
+    packed = qw.pack(cfg64, ego64, sc64, vol64, fab64, win64, win64.clone(),
+                     args64[10])
+    pk64 = cw.pack_peers(ego64, peers64, ps64)
+    out64 = cw.outputs(packed[3])
+    ms64 = timer.ms(lambda: cw.launch(*packed, unif64, *pk64, *out64,
+                                      cfg.n_epochs, cfg.steps_per_epoch))
+    cw.cluster_window.launches = before
+    log(f"time cluster_window n={out64[0].shape[0]} P={p} W=128: kernel "
+        f"{ms64:.4f} ms ({ms64 / ms:.2f}x the {n}-env launch); "
+        f"{smi_line()}")
     return {
         "name": "cluster_window", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cluster_window.cu",
@@ -4606,7 +4648,10 @@ def phase_profile_decode(torch, device, cfg, params, batch: int = 4,
 def phase_profile_prefill(torch, cfg, params, tokens):
     """Where one full-width prefill's time goes: the flash kernel against
     the matrix products and the rest, on the device, beside the host
-    wall of an unprofiled prefill."""
+    wall of an unprofiled prefill. The profiler here has dropped kernels
+    from a trace, so a trace holding fewer flash kernels than the wrapper
+    counted launches is taken again, up to 3 times."""
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.lm import transformer as tf
 
     tf.prefill(params, cfg, tokens)
@@ -4615,21 +4660,28 @@ def phase_profile_prefill(torch, cfg, params, tokens):
     tf.prefill(params, cfg, tokens)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = traced(torch, lambda: tf.prefill(params, cfg, tokens))
-    require(bool(by_name), "profile prefill: no device time reported")
-    groups = {"flash kernel": 0.0, "matrix products": 0.0, "rest": 0.0}
-    n_wgmma = n_flash = 0
-    for name, (us, cnt) in by_name.items():
-        low = name.lower()
-        if "flash_fwd" in low:
-            groups["flash kernel"] += us / 1e3
-            n_flash += cnt
-            n_wgmma += cnt if "flash_fwd_wgmma" in low else 0
-        elif any(w in low for w in ("gemm", "gemv", "nvjet", "sm90_",
-                                    "cutlass", "xmma", "cublas")):
-            groups["matrix products"] += us / 1e3
-        else:
-            groups["rest"] += us / 1e3
+    for _ in range(3):
+        before = flash_attention.launches
+        by_name = traced(torch, lambda: tf.prefill(params, cfg, tokens))
+        launched = flash_attention.launches - before
+        require(bool(by_name), "profile prefill: no device time reported")
+        groups = {"flash kernel": 0.0, "matrix products": 0.0, "rest": 0.0}
+        n_wgmma = n_flash = 0
+        for name, (us, cnt) in by_name.items():
+            low = name.lower()
+            if "flash_fwd" in low:
+                groups["flash kernel"] += us / 1e3
+                n_flash += cnt
+                n_wgmma += cnt if "flash_fwd_wgmma" in low else 0
+            elif any(w in low for w in ("gemm", "gemv", "nvjet", "sm90_",
+                                        "cutlass", "xmma", "cublas")):
+                groups["matrix products"] += us / 1e3
+            else:
+                groups["rest"] += us / 1e3
+        if n_flash >= launched:
+            break
+        log(f"profiler: {n_flash} of {launched} flash launches in the "
+            "prefill trace; taking it again")
     busy = sum(groups.values())
     log(f"profile prefill B={PREFILL_B} S={PREFILL_S}: host wall "
         f"{wall_ms:.3f} ms (unprofiled), device busy {busy:.3f} ms, idle "

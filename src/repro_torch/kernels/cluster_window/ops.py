@@ -16,14 +16,27 @@ overlay's scenario) plus the window's :class:`Peers` and the carried
 the new peer state. CPU tensors take the plain version
 (``ref.cluster_window_plain``); CUDA tensors are packed (the queue
 window's four tensors and two of the peers') and launch the kernel, or
-raise. The kernel takes at most ``MAX_OWNERS`` owners, checked for CUDA
-tensors only. Launches count in ``cluster_window.launches``.
+raise. The kernel takes at most ``MAX_OWNERS`` owners and
+:func:`smem_bytes` of shared memory a block, checked for CUDA tensors
+only. Launches count in ``cluster_window.launches``.
+
+Design: the queue window's block per env (the operands staged once, the
+chains, the backlog-free terms step-parallel, the backlog recurrence
+alone on one warp), plus the peers: their w_target a step in the
+prologue, their window walked by one thread (a select chain), their
+volumes, arrivals and backlog-free wall a thread a step; the scan adds
+the peer wall (one more division item a lane), the barrier and the
+collective. It replaces a one-thread-an-env loop and gives its outputs
+bit for bit.
 
 Bound: bytes. The least the function moves is its packed inputs, the
 window's 3 x 128 x P uniforms an env and its outputs, each once: about
-160 KB at 32 envs and P = 3, 0.05 us at 3.35 TB/s. Its operations, a few
-hundred a step an env, take less. The kernel runs 128 dependent steps a
-thread and sits far from that bound.
+165 KB at 32 envs and P = 3, 0.05 us at 3.35 TB/s. Its operations, a few
+hundred a step an env, take less. The recurrence sets the floor that
+matters: the queue window's chain with the peer wall's maximum, the
+barrier and the peer drain in it, 30 dependent operations and a shuffle
+a step at P = 3, ~9.4 us for 128 steps at 1.98 GHz; the envs' chains run
+side by side, a block each.
 """
 from __future__ import annotations
 
@@ -70,14 +83,19 @@ def _check(sc, vol, fabric, peers: Peers, peer_state: PeerState, uniforms,
                              f"{tuple(t.shape)}, not ({n},)")
 
 
+def smem_bytes(p: int) -> int:
+    """The kernel's dynamic shared memory a block (an env) at ``p`` owners:
+    fluid_window.cuh's ``smem_bytes<true>``, the queue window's and the
+    env's peer rows."""
+    return qw.smem_bytes(p) + 4 * (len(PEER_SCALARS) + len(PEER_OWNERS) * p)
+
+
 def check_kernel_operands(uniforms: torch.Tensor) -> None:
     """What the CUDA kernel takes beyond :func:`_check`: 1 to
-    ``MAX_OWNERS`` owners. A check of the operands' metadata, called for
-    CUDA tensors only."""
-    p = uniforms.shape[-1]
-    if not 1 <= p <= MAX_OWNERS:
-        raise ValueError(f"cluster_window: the CUDA kernel takes 1 to "
-                         f"{MAX_OWNERS} owners, not {p}")
+    ``MAX_OWNERS`` owners and :func:`smem_bytes` within
+    ``qw.MAX_SMEM``. A check of the operands' metadata, called for CUDA
+    tensors only."""
+    qw.check_kernel_operands(uniforms, smem_bytes, "cluster_window")
 
 
 def pack_peers(params, peers: Peers, peer_state: PeerState):

@@ -10,14 +10,23 @@
 // the action (behind the carried link backlogs) and of the reference
 // action (no backlog), drains the link queues FIFO (rebuild work first),
 // and adds the step to the window's accumulators. Steps at or past the
-// env's eff_window change nothing, so the thread stops there.
+// env's eff_window change nothing, so the block runs only the live ones.
 //
-// Design. One thread per env (up to 128 a block) runs the window code of
-// fluid_window.cuh, window_scan<MAXP, false>: the env's fabric state and
-// accumulators in registers across the steps, MAXP (4, 8 or 16; the
-// entry picks the smallest that holds n_owners) sizing the per-owner
-// register arrays. The cluster env's kernel (cluster_window.cu) runs the
-// same code with its terms switched on.
+// Design. A block per env (the grid is the env count), running
+// fluid_window.cuh's window_scan<MAXP, false>: the env's uniforms and
+// packed rows staged in shared memory once; the chains walked a thread an
+// owner; everything that does not depend on the carried backlogs (u, d,
+// phi and its reciprocal, the walls' backlog-free terms, the CPU term,
+// ar, the reference action's whole cost) priced step-parallel, a thread
+// a live step; then the backlog recurrence alone, scanned by one warp
+// with each step's queue-reading divisions one a lane; then the rebuild
+// wait and per_row step-parallel, summed in step order. MAXP (1 to 4
+// exact, or the bounds 8 and 16) fixes the owner loops. The cluster
+// env's kernel (cluster_window.cu) runs the same code with its terms
+// switched on. It replaces a one-thread-an-env loop, whose 32-env launch
+// was one warp on one SM recomputing every term of a step in series
+// (divergent across scenario codes, reading each step's uniforms with a
+// 1.5 KB stride), and gives its outputs bit for bit.
 //
 // Arithmetic. Built with -fmad=false (kernels/_build.py), so no product
 // and sum contract to an FMA, and without fast math: sinf and IEEE
@@ -25,10 +34,15 @@
 // reference's operation order (fluid_window.cuh).
 //
 // Bound: bytes. The function reads its packed inputs and 3 x 128 x P
-// uniforms an env and writes its outputs once: about 150 KB at 32 envs
+// uniforms an env and writes its outputs once: about 160 KB at 32 envs
 // and P = 3, 0.05 us at 3.35 TB/s; its operations (a few hundred a step
-// an env) are fewer still. The kernel is a chain of 128 dependent steps
-// per thread, so its time is the chain's latency, far from that bound.
+// an env) are fewer still. The recurrence sets the floor that matters:
+// the scan's dependent chain, 23 operations and a shuffle a step at P = 3
+// (fluid_window.cuh), ~120 cycles, ~7.6 us for 128 steps at 1.98 GHz. The
+// block per env runs the envs' chains side by side on as many SMs, so a
+// launch costs about one env's scan (~2.4x that floor: one warp issuing
+// ~118 instructions a step) plus the stage, chains, prologue and
+// epilogue (~7.5 us together on an H100).
 //
 // Layout: the enums of fluid_window.cuh (Scal, Ints, Own, State, Acc,
 // AccOwn); the Python side, kernels/queue_window/ref.py, names the same
@@ -52,31 +66,46 @@ queue_window_kernel(const float* __restrict__ scal,
                     float* __restrict__ acc_out,
                     float* __restrict__ acc_own_out,
                     float* __restrict__ state_out,
-                    int n, int P, int n_epochs, int steps_per_epoch) {
-  const int env = blockIdx.x * blockDim.x + threadIdx.x;
-  if (env >= n) return;
+                    int n_owners, int n_epochs, int steps_per_epoch) {
+  // up to 4 owners an instance holds exactly its bound: P is a constant
+  const int P = MAXP <= 4 ? MAXP : n_owners;
   const fluid::PeerIo no_peers{nullptr, nullptr, nullptr, nullptr};
-  fluid::window_scan<MAXP, false>(env, scal, ints, own, state, unif,
-                                  acc_out, acc_own_out, state_out, no_peers,
-                                  P, n_epochs, steps_per_epoch);
+  fluid::window_scan<MAXP, false>(scal, ints, own, state, unif, acc_out,
+                                  acc_own_out, state_out, no_peers, P,
+                                  n_epochs, steps_per_epoch);
 }
 
+// One launch's operands, in the C entry's order.
+struct Args {
+  const float* scal;
+  const int* ints;
+  const float *own, *state, *unif;
+  float *acc, *acc_own, *state_out;
+  int n, P, n_epochs, steps_per_epoch;
+  cudaStream_t stream;
+};
+
 template <int MAXP>
-void launch(const float* scal, const int* ints, const float* own,
-            const float* state, const float* unif, float* acc,
-            float* acc_own, float* state_out, int n, int P, int n_epochs,
-            int steps_per_epoch, cudaStream_t stream) {
-  const int blocks = (n + THREADS - 1) / THREADS;
-  queue_window_kernel<MAXP><<<blocks, THREADS, 0, stream>>>(
-      scal, ints, own, state, unif, acc, acc_own, state_out, n, P, n_epochs,
-      steps_per_epoch);
+cudaError_t launch(const Args& a) {
+  const size_t smem = fluid::smem_bytes<false>(a.P);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        queue_window_kernel<MAXP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  queue_window_kernel<MAXP><<<a.n, THREADS, smem, a.stream>>>(
+      a.scal, a.ints, a.own, a.state, a.unif, a.acc, a.acc_own, a.state_out,
+      a.P, a.n_epochs, a.steps_per_epoch);
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// One launch for n envs of P owners (1 <= P <= 16). The operands are
-// contiguous float32 (ints: int32) in the layouts above. Returns
-// cudaGetLastError() after the launch.
+// One launch for n envs of P owners (1 <= P <= 16): n blocks. The
+// operands are contiguous float32 (ints: int32) in the layouts above.
+// Returns the error of raising the block's shared-memory limit, if any,
+// else cudaGetLastError() after the launch.
 extern "C" int queue_window_f32(const void* scal, const void* ints,
                                 const void* own, const void* state,
                                 const void* unif, void* acc, void* acc_own,
@@ -86,25 +115,25 @@ extern "C" int queue_window_f32(const void* scal, const void* ints,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
-    const auto* sc = static_cast<const float*>(scal);
-    const auto* in = static_cast<const int*>(ints);
-    const auto* ow = static_cast<const float*>(own);
-    const auto* st = static_cast<const float*>(state);
-    const auto* un = static_cast<const float*>(unif);
-    auto* ac = static_cast<float*>(acc);
-    auto* ao = static_cast<float*>(acc_own);
-    auto* so = static_cast<float*>(state_out);
-    auto s = static_cast<cudaStream_t>(stream);
-    if (P <= 4) {
-      launch<4>(sc, in, ow, st, un, ac, ao, so, n, P, n_epochs,
-                steps_per_epoch, s);
-    } else if (P <= 8) {
-      launch<8>(sc, in, ow, st, un, ac, ao, so, n, P, n_epochs,
-                steps_per_epoch, s);
-    } else {
-      launch<16>(sc, in, ow, st, un, ac, ao, so, n, P, n_epochs,
-                 steps_per_epoch, s);
-    }
+    const Args a{static_cast<const float*>(scal),
+                 static_cast<const int*>(ints),
+                 static_cast<const float*>(own),
+                 static_cast<const float*>(state),
+                 static_cast<const float*>(unif),
+                 static_cast<float*>(acc),
+                 static_cast<float*>(acc_own),
+                 static_cast<float*>(state_out),
+                 n, P, n_epochs, steps_per_epoch,
+                 static_cast<cudaStream_t>(stream)};
+    // an instance for each owner count up to 4 (the bound is P), then
+    // bounds of 8 and 16
+    const cudaError_t err = P == 1 ? launch<1>(a)
+        : P == 2 ? launch<2>(a)
+        : P == 3 ? launch<3>(a)
+        : P == 4 ? launch<4>(a)
+        : P <= 8 ? launch<8>(a)
+        : launch<16>(a);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,14 +12,29 @@ config, the per-env parameters and scenario, the decision's
 uniforms) and returns the accumulators and the new fabric state. CPU
 tensors take the plain version (``ref.queue_window_plain``); CUDA tensors
 are packed (:func:`pack`: a few stacks, read nothing back) and launch the
-kernel, or raise. The kernel takes at most ``MAX_OWNERS`` owners, checked
-for CUDA tensors only. Launches count in ``queue_window.launches``.
+kernel, or raise. The kernel takes at most ``MAX_OWNERS`` owners and
+:func:`smem_bytes` of shared memory a block, checked for CUDA tensors
+only. Launches count in ``queue_window.launches``.
+
+Design: a block per env. Most of a step does not depend on the carried
+backlogs, so the block stages the env's operands in shared memory once,
+walks the chains a thread an owner, prices every backlog-free term (u, d,
+phi and its reciprocal, the walls' free terms, the CPU term, the
+reference action's cost) a thread a live step, scans the backlog
+recurrence alone on one warp (each step's queue-reading divisions one a
+lane, by nvcc's fast division path where it is exact, with a second pass
+by ``/`` if an operand leaves its range), and sums per_row and the
+rebuild wait in step order after it. It replaces a one-thread-an-env
+loop (a 32-env batch was one warp on one SM) and gives its outputs bit
+for bit. Instances: 1 to 4 owners exact, bounds of 8 and 16.
 
 Bound: bytes. The least the function moves is its packed inputs, the
 window's 3 x 128 x P uniforms an env and its outputs, each once: about
-150 KB at 32 envs and P = 3, 0.05 us at 3.35 TB/s. Its operations, a few
-hundred a step an env, take less. The kernel runs 128 dependent steps a
-thread and sits far from that bound.
+160 KB at 32 envs and P = 3, 0.05 us at 3.35 TB/s. Its operations, a few
+hundred a step an env, take less. The recurrence sets the floor that
+matters: 128 steps of a dependent chain of 23 operations and a shuffle
+(P = 3), ~7.6 us at 1.98 GHz; the block per env runs the envs' chains
+side by side, so a launch costs about one env's scan and its prologue.
 """
 from __future__ import annotations
 
@@ -31,7 +46,17 @@ from repro_torch.kernels.queue_window.ref import (  # noqa: F401
     Volumes, queue_window_plain,
 )
 
-MAX_OWNERS = 16      # the kernel's largest register-array instance
+MAX_OWNERS = 16      # the kernel's largest owner bound
+# the largest dynamic shared memory a block may take on the H100
+MAX_SMEM = 227 * 1024
+# the block's shared-memory slots (fluid_window.cuh's StepOwner and
+# StepTerm): a step and owner's terms, then a step's
+STEP_OWNER_TERMS = ("um", "uf", "uv", "util", "delta", "phi", "rcp",
+                    "wall_free", "rtt_d", "arrive", "peer_free", "wall",
+                    "rb_left")
+STEP_TERMS = ("ar", "e_cpu", "e_ref", "t_step_r", "w_target", "w_vol",
+              "vol_set", "boundary", "own_a", "own_phi", "wall_own",
+              "peer_am", "stall", "rb_leak", "rb_wait")
 
 
 def _check(sc, vol: Volumes, fabric: FabricState, uniforms, window,
@@ -66,14 +91,28 @@ def _check(sc, vol: Volumes, fabric: FabricState, uniforms, window,
                              f"{tuple(t.shape)}, not ({n},)")
 
 
-def check_kernel_operands(uniforms: torch.Tensor) -> None:
+def smem_bytes(p: int) -> int:
+    """The kernel's dynamic shared memory a block (an env) at ``p`` owners:
+    fluid_window.cuh's ``smem_bytes<false>``, the step and step-owner slots
+    and the env's packed rows."""
+    return 4 * (MAX_WINDOW * (len(STEP_OWNER_TERMS) * p + len(STEP_TERMS))
+                + len(SCALARS) + (len(OWNERS) + len(STATE)) * p + len(INTS))
+
+
+def check_kernel_operands(uniforms: torch.Tensor, smem=smem_bytes,
+                          name: str = "queue_window") -> None:
     """What the CUDA kernel takes beyond :func:`_check`: 1 to
-    ``MAX_OWNERS`` owners. A check of the operands' metadata, called for
+    ``MAX_OWNERS`` owners, and a block's shared memory (``smem(p)``)
+    within ``MAX_SMEM``. A check of the operands' metadata, called for
     CUDA tensors only."""
     p = uniforms.shape[-1]
     if not 1 <= p <= MAX_OWNERS:
-        raise ValueError(f"queue_window: the CUDA kernel takes 1 to "
-                         f"{MAX_OWNERS} owners, not {p}")
+        raise ValueError(f"{name}: the CUDA kernel takes 1 to {MAX_OWNERS} "
+                         f"owners, not {p}")
+    if smem(p) > MAX_SMEM:
+        raise ValueError(f"{name}: the CUDA kernel needs {smem(p)} bytes of "
+                         f"shared memory a block at {p} owners, more than "
+                         f"{MAX_SMEM}")
 
 
 def pack(cfg, params, sc, vol: Volumes, fabric: FabricState, window,

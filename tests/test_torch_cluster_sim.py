@@ -491,6 +491,28 @@ def test_plain_window_reduces_to_the_queue_window_bitwise(n_owners, mem):
     assert not ps_c.peer_backlog.any()
 
 
+@pytest.mark.parametrize("n_owners", [1, 3, 8])
+def test_backlog_free_outputs_ignore_the_carried_backlogs(n_owners):
+    """The premise of the kernel's split: on the same operands but other
+    carried backlogs (the ego's and the peers'), the plain version's
+    backlog-free outputs (the chains, the peers' window, the live steps,
+    the active sums) are equal, while the time, energy and backlogs
+    differ."""
+    args = list(_plain_operands(n_owners, seed=n_owners))
+    want = cw.as_dict(*cw.cluster_window_plain(*args))
+    fab, ps = args[4], args[6]
+    args[4] = dataclasses.replace(
+        fab, backlog=fab.backlog + 0.5, rb_backlog=2 * fab.rb_backlog + 0.01,
+        shared_backlog=fab.shared_backlog + 0.25)
+    args[6] = dataclasses.replace(ps, peer_backlog=ps.peer_backlog + 0.125)
+    got = cw.as_dict(*cw.cluster_window_plain(*args))
+    for k in ("util_state", "delta_level", "peer_left", "peer_window", "n",
+              "active"):
+        assert torch.equal(got[k], want[k]), k
+    for k in ("t", "e", "backlog"):
+        assert not torch.equal(got[k], want[k]), k
+
+
 # ------------------------------------------------------------ physics
 def _episode_energy(cfg, seed=0, action=A16, decisions=16):
     out = pcs.rollout_policy(cfg, pcs.ClusterDraws(
@@ -659,7 +681,7 @@ def test_layout_matches_the_kernel_source():
     assert "window_scan<MAXP, false>" in (
         _build.CSRC / "queue_window.cu").read_text()
     assert [int(x) for x in re.findall(r"launch<(\d+)>\(", cu)] \
-        == [4, 8, 16]
+        == [1, 2, 3, 4, 8, 16]
     assert cw.MAX_OWNERS == 16
     assert _build.ENTRIES["cluster_window_f32"][0] == "cluster_window"
     assert len(_build.ENTRIES["cluster_window_f32"][1]) == 17
@@ -811,6 +833,20 @@ def test_wrapper_operand_checks():
     cw.check_kernel_operands(torch.empty((4, 128, 3, 16), device="meta"))
     with pytest.raises(ValueError, match="owners"):
         cw.check_kernel_operands(torch.empty((4, 128, 3, 17), device="meta"))
+
+
+def test_kernel_operand_check_holds_shared_memory(monkeypatch):
+    """The cluster block's shared memory (the queue window's and the
+    peers' rows) against the card's limit, on metadata: 16 owners fit,
+    and a limit below what the block takes is refused."""
+    wide = torch.empty((4, 128, 3, 16), device="meta")
+    assert cw.smem_bytes(16) == qw.smem_bytes(16) + 4 * (
+        len(cw.PEER_SCALARS) + len(cw.PEER_OWNERS) * 16)
+    cw.check_kernel_operands(wide)
+    monkeypatch.setattr(qw, "MAX_SMEM", cw.smem_bytes(16) - 4)
+    with pytest.raises(ValueError, match="cluster_window.*shared memory"):
+        cw.check_kernel_operands(wide)
+    qw.check_kernel_operands(wide)       # the queue block is smaller
 
 
 # -------------------------------------------------- training and policy

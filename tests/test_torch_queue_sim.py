@@ -430,7 +430,8 @@ def _wrapper_inputs(n=6, p=P, seed=0, pcfg=None):
     draws = pqs.Draws(torch.Generator().manual_seed(seed))
     pool = ppol.make_params_pool([pcm.CostModelParams()] * n, device="cpu")
     state = pqs.reset(pcfg, draws, pool)
-    window, weights = pctl.decode_action_t(torch.arange(n) * 3 % 32, p)
+    window, weights = pctl.decode_action_t(
+        torch.arange(n) * 3 % pctl.n_actions(p), p)
     g = torch.Generator().manual_seed(seed + 1)
     _, vol, fabric = pqs.window_operands(
         pcfg, pool, window, weights,
@@ -473,13 +474,59 @@ def test_layout_matches_the_kernel_source():
         == pqs.PROP_RTT_S_PER_MS
     assert float(consts["REF_W"].rstrip("f")) == pqs.REFERENCE_WINDOW
     assert [int(x) for x in re.findall(
-        r"launch<(\d+)>\(", cu)] == [4, 8, 16]
+        r"launch<(\d+)>\(", cu)] == [1, 2, 3, 4, 8, 16]
     assert max(int(x) for x in re.findall(r"launch<(\d+)>\(", cu)) \
         == qw.MAX_OWNERS
     assert _build.ENTRIES["queue_window_f32"][0] == "queue_window"
     assert (_build.CSRC / "queue_window.cu").is_file()
     assert "-fmad=false" in _build._flags("queue_window")
     assert _build._lib_path("queue_window").parent.parent == _build.BUILD_DIR
+
+
+def test_shared_memory_layout_matches_the_kernel_source():
+    """The block's shared-memory slots in the order of the header's
+    StepOwner and StepTerm enums, the block a step wide, and both entries
+    raising a block's shared-memory limit for what passes 48 KB."""
+    src = (_build.CSRC / "fluid_window.cuh").read_text()
+
+    def enum(name):
+        body = re.search(r"enum %s\s*\{([^}]*)\}" % name, src).group(1)
+        return [x.strip() for x in body.split(",") if x.strip()]
+
+    for name, cols, prefix in (("StepOwner", qw.STEP_OWNER_TERMS, "SO_"),
+                               ("StepTerm", qw.STEP_TERMS, "SP_")):
+        names = enum(name)
+        assert names[-1].startswith("N_")
+        assert [x[len(prefix):].lower() for x in names[:-1]] == list(cols)
+    assert "constexpr int THREADS = MAX_WINDOW;" in src
+    assert qw.smem_bytes(3) < 48 * 1024 < qw.smem_bytes(16) <= qw.MAX_SMEM
+    for stem in ("queue_window", "cluster_window"):
+        cu = (_build.CSRC / f"{stem}.cu").read_text()
+        assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in cu
+        assert f"smem_bytes<{str(stem == 'cluster_window').lower()}>(a.P)" \
+            in cu
+
+
+@pytest.mark.parametrize("p", [1, 3, 8])
+def test_backlog_free_outputs_ignore_the_carried_backlogs(p):
+    """The premise of the kernel's split: on the same operands but other
+    carried backlogs, the plain version's backlog-free outputs (the
+    reference action's energy, the live steps, the active sums, the
+    chains) are equal, while the time, energy and backlogs differ."""
+    args = list(_wrapper_inputs(p=p, seed=p))
+    acc, fabric = qw.queue_window_plain(*args)
+    fab = args[4]
+    args[4] = dataclasses.replace(
+        fab, backlog=fab.backlog + 0.5, rb_backlog=2 * fab.rb_backlog + 0.01,
+        shared_backlog=fab.shared_backlog + 0.25)
+    acc2, fabric2 = qw.queue_window_plain(*args)
+    for k in ("e_ref", "n", "active"):
+        assert torch.equal(acc[k], acc2[k]), k
+    for k in ("util_state", "delta_level"):
+        assert torch.equal(getattr(fabric, k), getattr(fabric2, k)), k
+    for k in ("t", "e"):
+        assert not torch.equal(acc[k], acc2[k]), k
+    assert not torch.equal(fabric.backlog, fabric2.backlog)
 
 
 def test_pack_puts_every_field_in_its_column():
@@ -591,6 +638,22 @@ def test_wrapper_operand_checks():
     qw.check_kernel_operands(torch.empty((4, 128, 3, 1), device="meta"))
     with pytest.raises(ValueError, match="owners"):
         qw.check_kernel_operands(torch.empty((4, 128, 3, 17), device="meta"))
+
+
+def test_kernel_operand_check_holds_shared_memory(monkeypatch):
+    """A block's shared memory, at P owners, against the card's limit:
+    the 16-owner block passes 48 KB and fits 227 KB; below what a block
+    takes, the check refuses it on metadata alone."""
+    wide = torch.empty((4, 128, 3, 16), device="meta")
+    assert qw.smem_bytes(16) == 4 * (
+        128 * (len(qw.STEP_OWNER_TERMS) * 16 + len(qw.STEP_TERMS))
+        + len(qw.SCALARS) + (len(qw.OWNERS) + len(qw.STATE)) * 16
+        + len(qw.INTS))
+    qw.check_kernel_operands(wide)
+    monkeypatch.setattr(qw, "MAX_SMEM", qw.smem_bytes(16) - 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        qw.check_kernel_operands(wide)
+    qw.check_kernel_operands(torch.empty((4, 128, 3, 8), device="meta"))
 
 
 # -------------------------------------------------- training and policy
