@@ -10,9 +10,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
 1. Print the card (``nvidia-smi`` name and power limit) and build the CUDA
    kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (sm_90a),
    one ``nvcc`` per source, all at once. Read ptxas's report of the bf16
-   flash kernel (``flash_fwd_wgmma_kernel<D>``, D in 32, 64, 128): log
-   its registers and spills, and fail if it spills or if ptxas says
-   "wgmma.mma_async instructions are serialized". Likewise fail if an
+   flash kernel (``flash_fwd_wgmma_kernel<D, D_v>``, (D, D_v) in (32,
+   32), (64, 64), (128, 128) and MLA's (96, 64)) and of the backward's
+   26 instances: log their registers and spills, and fail if a bf16
+   instance spills or if ptxas says "wgmma.mma_async instructions are
+   serialized". Likewise fail if an
    instance of the CSR SpMM (``csr_spmm_kernel<G, V>``, 12 of them) or of
    the EmbeddingBag kernel (``embedding_bag_kernel<G, V, U>``, 24 of them)
    spills, or the envs' window kernels' instance for the path's owner
@@ -108,8 +110,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    read from ``torch.profiler``). Flash attention: the reference's test matrix and ragged
    lengths in float32 (atol 2e-5, rtol 1e-4, against the plain version and
    the dense oracle), GQA over strided heads; then the bf16 tensor-core
-   kernel over a matrix: D in {32, 64, 128}, causal and not, ragged S
-   (100, 200, 4000), Sk > Sq, GQA over strided head views, each against
+   kernel over a matrix: (D, D_v) in {(32, 32), (64, 64), (128, 128),
+   (96, 64)}, causal and not, ragged S (100, 200, 4000), Sk > Sq, GQA
+   over strided head views, each against
    the plain version (atol 1e-3, rtol 1e-2: both round p the same way and
    cast the output once, so they differ by about one bf16 ulp) and the
    float32 oracle (atol 4e-2, rtol 2e-2: p and the output rounded to
@@ -119,7 +122,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
    in bf16 against the plain version and the float32 oracle at the same
    tolerances as the matrix; two bf16 launches bit-identical. The plain
    version runs the bf16 kernel's own ``TILE_Q`` x ``TILE_K`` tiles, so
-   both round p at the same running max.
+   both round p at the same running max. MLA's (96, 64) instance in
+   float32 too (causal and not, ragged S, Sk > Sq, strided GQA heads,
+   against the plain version and ``dense_attention``), and bf16 at
+   qwen3's (Hq=16, Hkv=8, D=128) and minicpm3's (H=40, D=96, D_v=64)
+   prefill shapes (B=2, S=4096), relaunched bit-identical.
 4. Run the trainer's main path, ``repro_torch.train.gnn_trainer.run``: the
    GreenDyGNN trainer with measured compute and the device payload tier,
    batch 2000, 3 epochs (2 of warmup) of 8 steps, its controller running
@@ -251,7 +258,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
    unless every flash launch in it is ``flash_fwd_wgmma_kernel``, 22 of
    them), and a window of decode steps into device kernels per step,
    device busy time against the unprofiled host wall, and the host ops
-   that take the most CPU time.
+   that take the most CPU time. Then the same serving phase and prefill
+   profile at ``qwen3-1.7b`` (28 layers, GQA 16/8 at D=128, qk-norm;
+   2.03B parameters) and ``minicpm3-4b`` (62 MLA layers: q/k head dim
+   96, v head dim 64; 4.26B parameters), at full width: 28 and 62 flash
+   launches a prefill, all ``flash_fwd_wgmma_kernel``; minicpm3's serve
+   run decodes by the absorbed-matrix path against the latent cache, and
+   its last prompt step is held against the expanded prefill.
    The LM training phase (``phase_lm_train``) follows. The flash
    backward (``csrc/flash_attention_bwd.cu``: float32 SIMT kernels, bf16
    ``wgmma`` kernels, one C entry) against its plain version on the same
@@ -285,7 +298,19 @@ Phases, each of which ends the run with a non-zero exit on failure:
    launches each of dK/dV and dQ). Then the user's entry point in subprocesses: ``python -m
    repro_torch.launch.train --arch tinyllama-1.1b --steps 20
    --ckpt-every 10`` and ``--resume --steps 10``, their printed lines
-   checked.
+   checked. The backward's checks cover MLA's (96, 64) instance (float32
+   and bf16, causal and not, ragged S, Sk > Sq, strided GQA heads) and
+   bf16 at qwen3's and minicpm3's training shapes (two launches
+   bit-identical). Then ``phase_lm_train_arch`` runs the train_4k step
+   at ``qwen3-1.7b`` and ``minicpm3-4b``: full width, S = 4,096, the
+   global batch cut to ``grad_accum`` (2 and 4, one sequence a
+   microbatch), ``NEW_TRAIN_STEPS`` steps, the depth cut only where the
+   step's estimated peak would not fit ``TRAIN_MEM_FRAC`` of the card
+   (logged beside the measured peak): flash forward launches ``2 L
+   accum`` a step, backward ``L accum``, none of them on the main
+   thread; losses finite, the first within 1.5 of ln V; every layer's
+   attention parameters get gradients; step time (events), tokens/s,
+   peak memory, bound; a profiled step.
 7. Time each kernel, its plain version and the equivalent library call
    with CUDA events (median of 25 launches, L2 flushed before each and
    each queued behind a spin kernel so the host's enqueue time is not
@@ -310,7 +335,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
    (the yardstick, timed in turns with the kernels) and the bound of the
    gradient's five products over the causal half, with its launches in
-   the training run.
+   the training run. The rows ``flash_attention_qwen3`` and
+   ``flash_attention_minicpm3`` time the forward at those archs' prefill
+   shapes (launches: a prefill's), ``flash_attention_bwd_qwen3`` and
+   ``flash_attention_bwd_minicpm3`` the backward at their training shapes
+   (launches: the training run's), SDPA's beside each.
    TF32 is off throughout: float32 results are compared in full float32.
    Every bound is read from ``repro_torch.launch.roofline``'s peaks for
    the card's name (a card missing from its table fails the run).
@@ -337,10 +366,26 @@ TOL_BAGS = dict(atol=1e-5, rtol=0.0)
 TOL_F32 = dict(atol=2e-5, rtol=1e-4)     # the reference's flash tolerances
 TOL_BF16 = dict(atol=4e-2, rtol=2e-2)     # bf16 kernel vs float32 oracle
 TOL_BF16_PLAIN = dict(atol=1e-3, rtol=1e-2)  # bf16 kernel vs bf16 plain
-# logits of the random-weight bf16 model (scale ~1) after 22 layers, one
-# path against another: bf16 rounding at different places
+# logits of the random-weight bf16 model (scale ~1-6) after 22-62 layers,
+# one path against another (flash against dense attention; decode steps
+# against a prefill, MLA's absorbed decode against its expanded prefill):
+# bf16 rounding at different places, one bf16 ulp at 4-8 is 0.031
 TOL_LOGITS = 0.25
-PREFILL_B, PREFILL_S = 2, 4096          # TinyLlama's prefill shape here
+PREFILL_B, PREFILL_S = 2, 4096          # the LM archs' prefill shape here
+# the later LM slices' archs, at full width: (Hq, Hkv, D of q and k, D_v)
+# of their attention, qwen3's GQA at D = 128 and minicpm3's MLA, whose
+# prefill and training expand the latent to 40 heads of q/k dim
+# d_nope + d_rope = 96 and v dim d_v = 64
+PREFILL_HEADS = {"qwen3-1.7b": (16, 8, 128, 128),
+                 "minicpm3-4b": (40, 40, 96, 64)}
+NEW_LM_ARCHS = tuple(PREFILL_HEADS)
+# their train_4k steps: the global batch cut to grad_accum (one sequence a
+# microbatch), NEW_TRAIN_STEPS steps; depth cut only where the card's
+# memory forces it: to the most layers whose estimated peak
+# (train_peak_estimate) fits in TRAIN_MEM_FRAC of the card. minicpm3's
+# 4.26B parameters would need ~135 GB
+NEW_TRAIN_STEPS = 3
+TRAIN_MEM_FRAC = 0.85
 # the policy phase: card against CPU within float32 reassociation and
 # last-bit pow/sin differences; training on 32 envs, a few thousand
 # iterations an env; a same-seed pair of short runs; two profiled runs
@@ -580,10 +625,13 @@ def ptxas_functions(text: str) -> dict:
 
 
 def check_wgmma_build(text: str) -> None:
-    """The bf16 flash kernel's ptxas report: one instance per head dim, no
-    spills, and no wgmma that ptxas had to serialize (which it reports
-    when it cannot keep the asynchronous products in flight)."""
+    """The bf16 flash kernel's ptxas report: one instance per compiled
+    (D, D_v) pair, (96, 64) MLA's among them, no spills, and no wgmma that
+    ptxas had to serialize (which it reports when it cannot keep the
+    asynchronous products in flight)."""
     import re
+
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
 
     serialized = [ln.strip() for ln in text.splitlines()
                   if "wgmma.mma_async instructions are serialized" in ln]
@@ -593,17 +641,18 @@ def check_wgmma_build(text: str) -> None:
     found = {}
     for name, info in ptxas_functions(text).items():
         if "flash_fwd_wgmma_kernel" in name:
-            d = int(re.search(r"ILi(\d+)E", name).group(1))
-            found[d] = info
-    require(sorted(found) == [32, 64, 128],
-            f"ptxas report lists wgmma flash instances for D={sorted(found)}"
-            ", not 32, 64 and 128 (is the build log missing?)")
-    for d, info in sorted(found.items()):
-        log(f"  ptxas[flash_attention] flash_fwd_wgmma_kernel<{d}>: "
+            pair = re.search(r"ILi(\d+)ELi(\d+)E", name).groups()
+            found[tuple(map(int, pair))] = info
+    require(sorted(found) == sorted(HEAD_DIMS),
+            f"ptxas report lists wgmma flash instances for (D, D_v) in "
+            f"{sorted(found)}, not {sorted(HEAD_DIMS)} (is the build log "
+            "missing?)")
+    for (d, dv), info in sorted(found.items()):
+        log(f"  ptxas[flash_attention] flash_fwd_wgmma_kernel<{d}, {dv}>: "
             f"{info.get('registers')} registers, {info.get('spill_stores')} "
             f"bytes spill stores, {info.get('spill_loads')} bytes spill loads")
         require(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
-                f"flash_fwd_wgmma_kernel<{d}> spills")
+                f"flash_fwd_wgmma_kernel<{d}, {dv}> spills")
 
 
 def check_csr_build(text: str) -> None:
@@ -929,7 +978,8 @@ def phase_bags_vs_plain(torch, device, ops):
 def phase_flash_vs_plain(torch, device):
     """The flash-attention kernel against its plain version and the dense
     oracle; returns the largest kernel-vs-plain difference and the
-    prefill-shape operands for the timing phase."""
+    prefill-shape operands of each LM arch ({arch: (q, k, v)}) for the
+    timing phase."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_kernel, flash_attention_plain,
     )
@@ -985,6 +1035,38 @@ def phase_flash_vs_plain(torch, device):
     log(f"flash GQA (2,128,8,32)/(2,128,2,32), strided heads: "
         f"max|kernel-plain|={e:.3e} max|kernel-dense|={diff(got, dense):.3e}")
 
+    # MLA's instance, q/k head dim 96 and v head dim 64, float32: causal
+    # and not, ragged S, Sk > Sq, GQA over strided heads, against the plain
+    # version and dense_attention
+    qb, kb = randn(1, 192, 8, 96), randn(1, 192, 4, 96)
+    vb = randn(1, 192, 4, 64)
+    for label, q, k, v, causal in [
+            ("s=256 MHA causal", randn(2, 256, 4, 96), randn(2, 256, 4, 96),
+             randn(2, 256, 4, 64), True),
+            ("s=256 GQA 4/2 full", randn(2, 256, 4, 96),
+             randn(2, 256, 2, 96), randn(2, 256, 2, 64), False),
+            ("s=100 (ragged) causal", randn(1, 100, 4, 96),
+             randn(1, 100, 4, 96), randn(1, 100, 4, 64), True),
+            ("sq=136 sk=200 causal", randn(1, 136, 4, 96),
+             randn(1, 200, 2, 96), randn(1, 200, 2, 64), True),
+            ("strided heads causal", qb[:, :, 2:6], kb[:, :, :2],
+             vb[:, :, 2:], True)]:
+        got = flash_attention(q, k, v, causal, q.shape[1], k.shape[1])
+        want = flash_attention_plain(q, k, v, causal, q.shape[1],
+                                     k.shape[1])
+        dense = dense_attention(q, k, v, causal=causal)
+        e = diff(got, want)
+        err = max(err, e)
+        require(tuple(got.shape) == tuple(q.shape[:3]) + (64,),
+                f"flash f32 96/64 {label}: shape {tuple(got.shape)}")
+        require(torch.allclose(got, want, **TOL_F32),
+                f"flash f32 96/64 {label}: kernel vs plain {e:.3e}")
+        require(torch.allclose(got, dense, **TOL_F32),
+                f"flash f32 96/64 {label}: kernel vs dense "
+                f"{diff(got, dense):.3e}")
+        log(f"flash f32 d=96 dv=64 {label}: max|kernel-plain|={e:.3e} "
+            f"max|kernel-dense|={diff(got, dense):.3e}")
+
     def row_rel(a, b_):  # largest per-row relative L2 error
         a, b_ = a.float(), b_.float()
         return float(((a - b_).norm(dim=-1)
@@ -998,20 +1080,21 @@ def phase_flash_vs_plain(torch, device):
     # inputs (dense attention computed in float32).
     bf = torch.bfloat16
     cases = []
-    for d in HEAD_DIMS:
+    for d, dv in HEAD_DIMS:
         for causal in (True, False):
             for s in (100, 200, 4000):
                 q, k, v = (randn(1, s, 4, d, dtype=bf),
                            randn(1, s, 2, d, dtype=bf),
-                           randn(1, s, 2, d, dtype=bf))
-                cases.append((f"d={d} causal={causal} s={s}", q, k, v, causal))
-    for d in (64, 128):
+                           randn(1, s, 2, dv, dtype=bf))
+                cases.append((f"d={d} dv={dv} causal={causal} s={s}", q, k, v,
+                              causal))
+    for d, dv in ((64, 64), (128, 128), (96, 64)):
         for causal in (True, False):
             q, k, v = (randn(2, 200, 4, d, dtype=bf),
                        randn(2, 456, 1, d, dtype=bf),
-                       randn(2, 456, 1, d, dtype=bf))
-            cases.append((f"d={d} causal={causal} sq=200 sk=456", q, k, v,
-                          causal))
+                       randn(2, 456, 1, dv, dtype=bf))
+            cases.append((f"d={d} dv={dv} causal={causal} sq=200 sk=456", q,
+                          k, v, causal))
     qb, kvb = randn(2, 300, 16, 64, dtype=bf), randn(2, 300, 4, 64,
                                                      dtype=bf)
     cases.append(("GQA strided heads q (2,300,8|16,64) kv (2,300,2|4,64)",
@@ -1085,7 +1168,39 @@ def phase_flash_vs_plain(torch, device):
         f"max|kernel-plain|={e:.3e} (row rel L2 {rel:.3e}), max|kernel-f32 "
         f"oracle|={e_or:.3e} (row rel L2 {rel_or:.3e}), typical |o| "
         f"{float(want.float().abs().median()):.3e}, bit-identical relaunch")
-    return err, (q, k, v)
+    operands = {"tinyllama-1.1b": (q, k, v)}
+
+    # qwen3's and minicpm3's prefill shapes (B=2, S=4096), bf16: the
+    # instances their models run, against the plain version at the
+    # kernel's tiles and dense_attention in float32; two launches
+    # bit-identical
+    for arch, (hq, hkv, d, dv) in PREFILL_HEADS.items():
+        q, k, v = (randn(b, s, hq, d, dtype=bf), randn(b, s, hkv, d, dtype=bf),
+                   randn(b, s, hkv, dv, dtype=bf))
+        got = flash_attention(q, k, v, True, 128, 1024)
+        again = flash_attention(q, k, v, True, 128, 1024)
+        torch.cuda.synchronize()
+        require(torch.equal(got, again), f"flash {arch} prefill: two "
+                "launches differ")
+        want = flash_attention_plain(q, k, v, True, TILE_Q, TILE_K)
+        e, rel = diff(got, want), row_rel(got, want)
+        err = max(err, e)
+        require(torch.allclose(got.float(), want.float(), **TOL_BF16_PLAIN),
+                f"flash {arch} prefill bf16: kernel vs plain {e:.3e}")
+        oracle = torch.cat([dense_attention(q[i:i + 1].float(),
+                                            k[i:i + 1].float(),
+                                            v[i:i + 1].float(), causal=True)
+                            for i in range(b)])
+        e_or = diff(got, oracle)
+        require(torch.allclose(got.float(), oracle, **TOL_BF16),
+                f"flash {arch} prefill bf16: kernel vs f32 oracle {e_or:.3e}")
+        del oracle, want, again
+        log(f"flash {arch} prefill bf16 q={tuple(q.shape)} "
+            f"k={tuple(k.shape)} v={tuple(v.shape)}: max|kernel-plain|="
+            f"{e:.3e} (row rel L2 {rel:.3e}), max|kernel-f32 oracle|="
+            f"{e_or:.3e}, bit-identical relaunch")
+        operands[arch] = (q, k, v)
+    return err, operands
 
 
 def device_time_by_name(prof) -> dict:
@@ -2503,8 +2618,10 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
     After ``n_warm`` steps (the parity check, first allocations), the host
     clock times ``n_each`` steps with the worker's parts wrapped in host
     timers; then ``torch.profiler`` records ``n_each`` more for the device
-    time by kernel (and the next ``n_each`` if the trace dropped a kernel
-    the wrappers counted). The profiler's own host overhead is large, so
+    time by kernel (and the next ``n_each``, up to twice, if the trace
+    dropped a kernel the wrappers counted: on a slow host both of two
+    windows have held 3 of 4 gathers). The profiler's own host overhead
+    is large, so
     the host wall comes from the unprofiled steps."""
     import collections
 
@@ -2512,9 +2629,9 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
     from repro_torch.train import gnn_trainer as gt
     from repro_torch.train.worker import TrainerWorker
 
-    # a third window of steps, for a trace the profiler dropped kernels of
+    # two more windows of steps, for traces the profiler dropped kernels of
     cfg = gt.RunConfig(**dict(MAIN_PATH, method="static_w", n_epochs=1,
-                              steps_per_epoch=n_warm + 3 * n_each),
+                              steps_per_epoch=n_warm + 4 * n_each),
                        mem_budget=MemoryBudget(device_payloads=True),
                        device=str(device))
     w = TrainerWorker(cfg, gt.build_trace(cfg))
@@ -2564,7 +2681,7 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
         for s in range(first, first + n_each):
             w.step(0, s)
 
-    for attempt in (1, 2):
+    for attempt in (1, 2, 3):
         bags0, csr0 = embedding_bag.launches, csr_spmm.launches
         compiles0 = w.engine.n_compiles
         by_name = traced(torch, lambda: window(n_warm + attempt * n_each))
@@ -4503,9 +4620,12 @@ def phase_trace(torch, device, smi, qnet):
     return out
 
 
-def phase_serving(torch, device):
-    """The LM serving path at full width, through the user's entry points,
-    with the launch counts zeroed just before and read just after."""
+def phase_serving(torch, device, arch_id: str = "tinyllama-1.1b"):
+    """The LM serving path of ``arch_id`` at full width, through the
+    user's entry points, with the launch counts zeroed just before and
+    read just after. For MLA (minicpm3) the serve run's decode steps take
+    the absorbed-matrix path against the latent cache, and its last
+    prompt step is held against the expanded prefill."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -4514,16 +4634,16 @@ def phase_serving(torch, device):
     from repro_torch.kernels.segment_mm import block_spmm, csr_spmm
     from repro_torch.launch import serve
     from repro_torch.models.lm import transformer as tf
+    from repro_torch.optim.optimizers import tree_leaves
 
-    cfg = get_arch("tinyllama-1.1b").make_config()
+    cfg = get_arch(arch_id).make_config()
     t0 = time.perf_counter()
     params = tf.init(cfg, seed=SEED, device=device)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in (params["embed"], params["lm_head"],
-                                       params["final_norm"],
-                                       *params["layers"].values()))
-    log(f"tinyllama-1.1b: {n_params / 1e9:.3f}B parameters ({cfg.dtype}) "
-        f"drawn on the card in {time.perf_counter() - t0:.2f} s")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"{arch_id}: {n_params / 1e9:.3f}B parameters ({cfg.dtype}, "
+        f"{cfg.n_layers} layers, {cfg.attn_type}) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
     gen = torch.Generator().manual_seed(SEED + 3)
     prompts = torch.randint(0, cfg.vocab, (4, 8), generator=gen)
     tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
@@ -4546,7 +4666,8 @@ def phase_serving(torch, device):
               "block_spmm": block_spmm.launches,
               "embedding_bag": embedding_bag.launches,
               "flash_attention": flash_attention.launches}
-    log(f"serving path: serve.run (batch 4, prompt 8, gen 16) {serve_s:.2f} s "
+    log(f"serving path {arch_id}: serve.run (batch 4, prompt 8, gen 16) "
+        f"{serve_s:.2f} s "
         f"(decode {res.decode_s * 1e3 / 15:.2f} ms/step, "
         f"{4 * 15 / res.decode_s:.0f} tok/s), prefill B={PREFILL_B} "
         f"S={PREFILL_S} {prefill_s * 1e3:.1f} ms (first call), launches "
@@ -4562,19 +4683,22 @@ def phase_serving(torch, device):
 
     # serve: the tokens, and the last prompt step's logits against prefill
     require(tuple(res.tokens.shape) == (4, 16), "serve tokens shape")
-    require(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()),
+    require(bool(((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()),
             "serve tokens out of range")
     require(bool(torch.isfinite(res.prompt_logits).all()),
             "serve logits not finite")
     pre = tf.prefill(params, cfg, prompts.to(device)).float()
     ok, exact, tol = same_choice(res.prompt_logits.float(), pre)
-    log(f"serve vs prefill (S=8, dense path): max|diff| {tol:.4f}, argmax "
-        f"equal in {exact}/4 rows; first sequence "
-        f"{res.tokens[0].tolist()}")
-    require(ok and tol <= TOL_LOGITS, "serve logits vs prefill")
+    path = ("absorbed MLA decode vs expanded prefill"
+            if cfg.attn_type == "mla" else "decode vs prefill")
+    log(f"serve vs prefill ({path}, S=8, dense path): max|diff| {tol:.4f} "
+        f"(logits max |{float(pre.abs().max()):.3f}|), argmax equal in "
+        f"{exact}/4 rows; first sequence {res.tokens[0].tolist()}")
+    require(ok and tol <= TOL_LOGITS, f"{arch_id}: serve logits vs prefill")
 
     # the S=4096 prefill through the flash kernel against the dense path
-    require(tuple(logits.shape) == (PREFILL_B, cfg.vocab), "prefill shape")
+    require(tuple(logits.shape) == (PREFILL_B, cfg.padded_vocab),
+            "prefill shape")
     require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
     dense_cfg = dataclasses.replace(cfg, blockwise_threshold=PREFILL_S + 1)
     dense = tf.prefill(params, dense_cfg, tokens).float()
@@ -4584,7 +4708,8 @@ def phase_serving(torch, device):
     log(f"prefill S={PREFILL_S}: flash vs dense path max|diff| {tol:.4f} "
         f"(logits max |{float(dense.abs().max()):.3f}|), argmax equal in "
         f"{exact}/{PREFILL_B} rows")
-    require(ok and tol <= TOL_LOGITS, "prefill flash vs dense path")
+    require(ok and tol <= TOL_LOGITS,
+            f"{arch_id}: prefill flash vs dense path")
     del dense
     torch.cuda.empty_cache()
     return counts, cfg, params, tokens
@@ -4700,11 +4825,14 @@ def phase_profile_prefill(torch, cfg, params, tokens):
 # ------------------------------------------------ the LM training phase
 def check_bwd_build(text: str) -> None:
     """The flash backward's ptxas report: the delta pass for float32 and
-    bf16, the float32 SIMT dK/dV and dQ kernels, the bf16 wgmma ones and
-    the sum of the dK/dV parts, at D = 32, 64 and 128 (21 instances),
+    bf16 at each D_v (32, 64, 128), and the float32 SIMT dK/dV and dQ
+    kernels, the bf16 wgmma ones and the sum of the dK/dV parts at each
+    compiled (D, D_v) pair, (96, 64) MLA's among them (26 instances),
     logged with their registers and spills; no wgmma that ptxas had to
     serialize, and no spill in a bf16 instance."""
     import re
+
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
 
     serialized = [ln.strip() for ln in text.splitlines()
                   if "wgmma.mma_async instructions are serialized" in ln]
@@ -4714,21 +4842,23 @@ def check_bwd_build(text: str) -> None:
     found = {}
     for name, info in ptxas_functions(text).items():
         hit = re.search(r"(bwd_(?:prep|dkdv|dq|reduce)(?:_wgmma)?_kernel)"
-                        r"I(f|13__nv_bfloat16)?Li(\d+)E", name)
+                        r"I(f|13__nv_bfloat16)?Li(\d+)E(?:Li(\d+)E)?", name)
         if hit:
-            kern, t, d = hit.groups()
+            kern, t, d, dv = hit.groups()
             bf = (t == "13__nv_bfloat16" or "wgmma" in kern
                   or "reduce" in kern)
-            found[(kern, "bf16" if bf else "f32", int(d))] = info
-    want = sorted([("bwd_prep_kernel", t, d) for t in ("f32", "bf16")
-                   for d in (32, 64, 128)]
-                  + [(k, "f32", d) for k in ("bwd_dkdv_kernel",
+            dims = f"{d}" if dv is None else f"{d}, {dv}"
+            found[(kern, "bf16" if bf else "f32", dims)] = info
+    pairs = [f"{d}, {dv}" for d, dv in HEAD_DIMS]
+    want = sorted([("bwd_prep_kernel", t, f"{dv}") for t in ("f32", "bf16")
+                   for dv in sorted({dv for _, dv in HEAD_DIMS})]
+                  + [(k, "f32", p) for k in ("bwd_dkdv_kernel",
                                              "bwd_dq_kernel")
-                     for d in (32, 64, 128)]
-                  + [(k, "bf16", d) for k in ("bwd_dkdv_wgmma_kernel",
+                     for p in pairs]
+                  + [(k, "bf16", p) for k in ("bwd_dkdv_wgmma_kernel",
                                               "bwd_dq_wgmma_kernel",
                                               "bwd_reduce_kernel")
-                     for d in (32, 64, 128)])
+                     for p in pairs])
     require(sorted(found) == want,
             f"ptxas report lists flash backward instances {sorted(found)}, "
             f"not {want} (is the build log missing?)")
@@ -4750,8 +4880,10 @@ def bwd_vs_plain(torch, device):
     bit-identical). The forward with ``lse`` gives ``o`` bit-equal to the
     forward without it, and ``lse`` agrees with the plain forward's. Then
     through autograd, where the backward must run on PyTorch's autograd
-    thread and give the direct call's gradients. Returns the largest
-    |kernel - plain| and the training-shape operands."""
+    thread and give the direct call's gradients. MLA's (96, 64) instance
+    runs the same matrix, and bf16 at minicpm3's training shape. Returns
+    the largest |kernel - plain| and the training-shape operands of each
+    LM arch ({arch: (q, k, v, o, do, lse)})."""
     import threading
 
     from repro_torch.kernels.flash_attention import (
@@ -4800,9 +4932,9 @@ def bwd_vs_plain(torch, device):
     err, lse_err = 0.0, 0.0
     cases = []
     for dt in ("f32", "bf16"):
-        cases += [(dt, f"d={d} causal={c} s=256 GQA 8/2", (2, 256, 8, d),
-                   (2, 256, 2, d), c, None)
-                  for d in HEAD_DIMS for c in (True, False)]
+        cases += [(dt, f"d={d} dv={dv} causal={c} s=256 GQA 8/2",
+                   (2, 256, 8, d), (2, 256, 2, d), c, dv)
+                  for d, dv in HEAD_DIMS for c in (True, False)]
         cases += [(dt, "d=64 causal=True s=256 MHA", (1, 256, 4, 64),
                    (1, 256, 4, 64), True, None),
                   (dt, "d=64 causal=True s=200 (ragged)", (1, 200, 4, 64),
@@ -4814,17 +4946,28 @@ def bwd_vs_plain(torch, device):
                   (dt, "d=32 causal=True strided heads", (2, 128, 16, 32),
                    (2, 128, 4, 32), True, "strided"),
                   (dt, "d=128 causal=False strided heads s=192",
-                   (1, 192, 16, 128), (1, 192, 4, 128), False, "strided")]
+                   (1, 192, 16, 128), (1, 192, 4, 128), False, "strided"),
+                  (dt, "d=96 dv=64 causal=True MHA s=256", (1, 256, 4, 96),
+                   (1, 256, 4, 96), True, 64),
+                  (dt, "d=96 dv=64 causal=True s=200 (ragged)",
+                   (1, 200, 4, 96), (1, 200, 1, 96), True, 64),
+                  (dt, "d=96 dv=64 causal=True sq=136 sk=200 (Sk > Sq, "
+                   "ragged)", (1, 136, 4, 96), (1, 200, 2, 96), True, 64),
+                  (dt, "d=96 dv=64 causal=False strided heads s=192",
+                   (1, 192, 16, 96), (1, 192, 4, 96), False, "strided")]
     for dt, label, qs, ks, causal, how in cases:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         label = f"{dt} {label}"
         if how == "strided":   # views into wider head axes
             qb, kb = randn(*qs, dtype=dtype), randn(*ks, dtype=dtype)
             q, k, v = qb[:, :, 4:12], kb[:, :, :2], kb[:, :, 2:]
+            if qs[-1] == 96:   # MLA: v's heads from a tensor of D_v = 64
+                v = randn(*ks[:3], 64, dtype=dtype)[:, :, 2:]
         else:
+            dv = how or ks[-1]
             q, k, v = (randn(*qs, dtype=dtype), randn(*ks, dtype=dtype),
-                       randn(*ks, dtype=dtype))
-        do = randn(*q.shape, dtype=dtype)
+                       randn(*ks[:3], dv, dtype=dtype))
+        do = randn(*q.shape[:3], v.shape[-1], dtype=dtype)
         o, lse, e = forward(label, q, k, v, causal, q.shape[1], k.shape[1])
         lse_err = max(lse_err, e)
         got = flash_attention_bwd(q, k, v, o, do, causal, lse)
@@ -4873,7 +5016,31 @@ def bwd_vs_plain(torch, device):
             "flash bwd through autograd differs from the direct call")
     log(f"flash bwd through autograd: one launch on thread {sorted(new)}, "
         "gradients equal to the direct call's")
-    return err, (q, k, v, o, do, lse)
+    operands = {"tinyllama-1.1b": (q, k, v, o, do, lse)}
+    del leaves, out, got, again
+
+    # qwen3's and minicpm3's training shapes (one microbatch at S =
+    # 4,096), bf16: two launches bit-identical, against the plain version
+    for arch, (hq, hkv, d, dv) in PREFILL_HEADS.items():
+        q, k, v = (randn(1, s, hq, d, dtype=bf), randn(1, s, hkv, d, dtype=bf),
+                   randn(1, s, hkv, dv, dtype=bf))
+        do = randn(1, s, hq, dv, dtype=bf)
+        o, lse, e = forward(f"bf16 {arch} training shape", q, k, v, True,
+                            128, block_k)
+        lse_err = max(lse_err, e)
+        got = flash_attention_bwd(q, k, v, o, do, True, lse)
+        again = flash_attention_bwd(q, k, v, o, do, True, lse)
+        torch.cuda.synchronize()
+        require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                f"flash bwd {arch}: two launches on the same inputs differ")
+        want = flash_attention_bwd_plain(q, k, v, o, do, True, lse=lse)
+        err = max(err, compare(f"bf16 {arch} training shape q="
+                               f"{tuple(q.shape)} k={tuple(k.shape)} v="
+                               f"{tuple(v.shape)} causal, bit-identical "
+                               "relaunch", got, want, True))
+        del got, again, want
+        operands[arch] = (q, k, v, o, do, lse)
+    return err, operands
 
 
 def train_bound(cfg, tokens: int) -> tuple[float, float]:
@@ -4883,16 +5050,23 @@ def train_bound(cfg, tokens: int) -> tuple[float, float]:
     chunks' logits), and attention's products over the causal half (the
     forward's two, recomputed, and the backward's five) a layer and a
     microbatch; bytes: AdamW reading and writing the bf16 parameters and
-    the float32 moments once."""
-    d, hd, kvd = cfg.d_model, cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
-    per_layer = d * hd + 2 * d * kvd + hd * d + 3 * d * cfg.d_ff
-    n_mat = cfg.n_layers * per_layer + d * cfg.padded_vocab
+    the float32 moments once. The matrices are the layer's own (GQA:
+    wq, wk, wv, wo; MLA: w_dq, w_uq, w_dkv, the latent's expansions w_uk
+    and w_uv, w_kr, wo), and attention's q/k head dim D and v head dim
+    D_v (MLA: d_nope + d_rope and d_v) price its products: 2 (D + D_v) a
+    (query, key) pair for each forward, 2 (3 D + 2 D_v) for the
+    backward."""
+    n_all, n_mat, _ = lm_param_counts(cfg)
+    if cfg.attn_type == "mla":
+        d_qk, d_v = cfg.d_nope + cfg.d_rope, cfg.d_v
+    else:
+        d_qk = d_v = cfg.d_head
     s = TRAIN_S
     pairs = s * (s + 1) / 2
-    attn = (2 + 2 + 5) * 2.0 * cfg.n_heads * cfg.d_head * pairs
+    attn = 2.0 * cfg.n_heads * pairs * (2 * (d_qk + d_v) + 3 * d_qk
+                                        + 2 * d_v)
     n_micro = tokens // s
     n_flops = 8.0 * n_mat * tokens + attn * cfg.n_layers * n_micro
-    n_all = n_mat + d * cfg.padded_vocab + (2 * cfg.n_layers + 1) * d
     n_bytes = 2.0 * n_all * (2 + 4 + 4)
     return n_flops, n_bytes
 
@@ -4903,8 +5077,9 @@ def phase_lm_train(torch, device, smi):
     warmup-cosine AdamW, wd 0.1, clip 1.0, ``grad_accum`` microbatches;
     ``lm_loss`` with remat and chunked cross-entropy), checkpoint and
     resume (``train.checkpoint``), and the launcher in subprocesses.
-    Returns the backward kernel's timing row."""
-    import re
+    Returns the backward kernel's timing row, the largest kernel-vs-plain
+    difference of the backward's checks and their training-shape operands
+    of each LM arch."""
     import tempfile
 
     from repro_torch import optim
@@ -5109,8 +5284,203 @@ def phase_lm_train(torch, device, smi):
                 "resumed losses differ from the uninterrupted run's")
 
     # one profiled step: device busy, idle share, time by kernel group
-    by_name = traced(torch, lambda: step(params, state, *batch(TRAIN_STEPS)))
-    require(bool(by_name), "profile train step: no device time reported")
+    profile_train_step(torch, "tinyllama-1.1b",
+                       lambda: step(params, state, *batch(TRAIN_STEPS)),
+                       steady_wall, per_bwd)
+    del params, state
+    torch.cuda.empty_cache()
+
+    launcher_checks(torch)
+    row = bwd_timing_row(torch, device, operands["tinyllama-1.1b"],
+                         counts["flash_attention_bwd"], TRAIN_STEPS, bwd_err)
+    log(f"LM training phase: {time.perf_counter() - t_phase:.1f} s")
+    return row, bwd_err, operands
+
+
+def lm_param_counts(cfg) -> tuple[int, int, int]:
+    """(every parameter, the matrices', the largest leaf's) of ``cfg``'s
+    model, from the port's own layer shapes (MLA's or GQA's)."""
+    from repro_torch.models.lm import transformer as tf
+
+    shapes = [sh for sh, _ in tf._layer_shapes(cfg).values()]
+    per_layer = sum(math.prod(sh) for sh in shapes if len(sh) > 1)
+    norms = sum(math.prod(sh) for sh in shapes if len(sh) == 1)
+    d, v = cfg.d_model, cfg.padded_vocab
+    n_mat = cfg.n_layers * per_layer + d * v       # lm_head; embed gathers
+    n_all = n_mat + d * v + cfg.n_layers * norms + d
+    largest = max([d * v] + [cfg.n_layers * math.prod(sh) for sh in shapes])
+    return n_all, n_mat, largest
+
+
+def train_peak_estimate(cfg) -> float:
+    """Bytes the train_4k step holds at its peak (AdamW's update): bf16
+    weights, the float32 moments old and new, the float32 gradient sum
+    and the updates, 28 bytes a parameter, plus three float32 temporaries
+    of the largest stacked leaf and ~3 GB of activations and logits."""
+    n_all, _, largest = lm_param_counts(cfg)
+    return 28.0 * n_all + 3 * 4.0 * largest + 3e9
+
+
+def phase_lm_train_arch(torch, device, smi, arch_id: str) -> dict:
+    """The train_4k cell's step at a later slice's arch, full width:
+    ``make_train_step`` (warmup-cosine AdamW, wd 0.1, clip 1.0,
+    ``grad_accum`` microbatches; ``lm_loss`` with remat and chunked
+    cross-entropy) at S = 4,096, the global batch cut to ``grad_accum``
+    (one sequence a microbatch), ``NEW_TRAIN_STEPS`` steps, the depth cut
+    where the card's memory forces it (to the most layers whose estimated
+    peak fits in ``TRAIN_MEM_FRAC`` of the card; logged with the estimate
+    that forced it and the measured peak). The counts are zeroed
+    just before the steps and read just after; then the attention
+    parameters' gradients in every layer and one profiled step. Returns
+    the launch counts."""
+    import dataclasses
+
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd,
+    )
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import train as lt
+    from repro_torch.models.lm import transformer as tf
+
+    t_phase = time.perf_counter()
+    full = get_arch(arch_id).make_config()
+    require(full.remat and TRAIN_S >= full.blockwise_threshold,
+            f"{arch_id}'s config does not train through remat and flash")
+    card = torch.cuda.get_device_properties(device)
+    budget = TRAIN_MEM_FRAC * card.total_memory
+    depth = full.n_layers
+    while depth > 1 and train_peak_estimate(
+            dataclasses.replace(full, n_layers=depth)) > budget:
+        depth -= 1
+    cut = None if depth == full.n_layers else depth
+    cfg = full if cut is None else dataclasses.replace(full, n_layers=cut)
+    accum = cfg.grad_accum
+    n_full, n_all = lm_param_counts(full)[0], lm_param_counts(cfg)[0]
+    log(f"train {arch_id}: {n_full / 1e9:.3f}B parameters at full depth "
+        f"({full.n_layers} layers), the step's peak estimated at "
+        f"{train_peak_estimate(full) / 1e9:.1f} GB against "
+        f"{TRAIN_MEM_FRAC} of the card's {card.total_memory / 1e9:.1f} GB; "
+        + ("no depth cut" if cut is None else
+           f"depth cut to {cut} layers ({n_all / 1e9:.3f}B parameters, "
+           f"estimated {train_peak_estimate(cfg) / 1e9:.1f} GB)")
+        + f"; full width, S={TRAIN_S}, global batch {accum} ({accum} "
+        f"microbatches of 1), remat, loss_chunk {cfg.loss_chunk}")
+    opt = optim.adamw(optim.warmup_cosine_schedule(3e-4, 2000, 100_000),
+                      weight_decay=0.1, max_grad_norm=1.0)
+    step = lt.make_train_step(cfg, opt, accum=accum)
+
+    def batch(i):  # step i's tokens and their next tokens as targets
+        gen = torch.Generator().manual_seed(SEED + 200 + i)
+        seq = torch.randint(0, cfg.vocab, (accum, TRAIN_S + 1),
+                            generator=gen).to(device)
+        return seq[:, :-1].contiguous(), seq[:, 1:].contiguous()
+
+    params = tf.init(cfg, seed=SEED, device=device)
+    state = opt.init(params)
+    plain_bwd = flash_ops.flash_attention_bwd_plain
+
+    def refuse(*args, **kw):
+        raise SmokeError("the plain flash backward ran on the card")
+
+    for w in (flash_attention, flash_attention_bwd):
+        w.launches = 0
+        w.launches_by_thread.clear()
+    flash_ops.flash_attention_bwd_plain = refuse
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, ev_ms, wall = [], [], []
+    try:
+        for i in range(NEW_TRAIN_STEPS):
+            tokens, targets = batch(i)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            params, state, loss = step(params, state, tokens, targets)
+            end.record()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            ev_ms.append(start.elapsed_time(end))
+            losses.append(float(loss))
+            log(f"train {arch_id} step {i + 1}: loss {losses[-1]:.4f}, "
+                f"{ev_ms[-1]:.1f} ms (events), host wall {wall[-1]:.1f} ms")
+    finally:
+        flash_ops.flash_attention_bwd_plain = plain_bwd
+    peak = torch.cuda.max_memory_allocated(device)
+    counts = {"flash_attention": flash_attention.launches,
+              "flash_attention_bwd": flash_attention_bwd.launches}
+    by_thread = dict(flash_attention_bwd.launches_by_thread)
+    per_fwd, per_bwd = 2 * cfg.n_layers * accum, cfg.n_layers * accum
+    log(f"train {arch_id} launches in {NEW_TRAIN_STEPS} steps: {counts} "
+        f"(backward by thread {by_thread})")
+    require(counts["flash_attention"] == per_fwd * NEW_TRAIN_STEPS,
+            f"{arch_id}: flash forward launches {counts['flash_attention']},"
+            f" not {per_fwd} a step")
+    require(counts["flash_attention_bwd"] == per_bwd * NEW_TRAIN_STEPS,
+            f"{arch_id}: flash backward launches "
+            f"{counts['flash_attention_bwd']}, not {per_bwd} a step")
+    require("MainThread" not in by_thread,
+            f"{arch_id}: the flash backward launched on the main thread")
+    require(all(math.isfinite(x) for x in losses),
+            f"{arch_id}: train losses not finite: {losses}")
+    ln_v = math.log(cfg.vocab)
+    require(abs(losses[0] - ln_v) < 1.5,
+            f"{arch_id}: first loss {losses[0]:.4f} is not near ln V = "
+            f"{ln_v:.4f}")
+    steady = statistics.median(ev_ms[1:])
+    steady_wall = statistics.median(wall[1:])
+    n_tokens = accum * TRAIN_S
+    n_flops, n_bytes = train_bound(cfg, n_tokens)
+    b_ms, b_by = bound_ms(n_bytes, n_flops, "bf16")
+    log(f"train {arch_id} step (median of steps 2-{NEW_TRAIN_STEPS}): "
+        f"{steady:.1f} ms (events), host wall {steady_wall:.1f} ms, "
+        f"{n_tokens / steady * 1e3:.0f} tokens/s; first step "
+        f"{ev_ms[0]:.1f} ms; peak memory {peak / 2**30:.2f} GiB "
+        f"(max_memory_allocated; estimated "
+        f"{train_peak_estimate(cfg) / 2**30:.2f} GiB); bound {b_ms:.1f} ms "
+        f"({b_by}; {n_flops:.4g} operations at the bf16 peak, "
+        f"{n_bytes / 1e9:.1f} GB); step / bound {steady / b_ms:.2f}x; {smi}")
+
+    # every layer's attention parameters get gradients through the kernel
+    before = flash_attention_bwd.launches
+    tokens_1, targets_1 = batch(0)
+    _, grads = lt.value_and_grad(params, cfg, tokens_1[:1], targets_1[:1])
+    require(flash_attention_bwd.launches - before == cfg.n_layers,
+            f"{arch_id}: value_and_grad did not launch the backward once a "
+            "layer")
+    names = (("w_dq", "w_uq", "w_dkv", "w_uk", "w_uv", "w_kr", "wo")
+             if cfg.attn_type == "mla" else ("wq", "wk", "wv", "wo"))
+    for name in names:
+        g = grads["layers"][name].float()
+        per_layer = g.abs().flatten(1).amax(dim=1)
+        require(bool(torch.isfinite(g).all()) and bool((per_layer > 0).all()),
+                f"{arch_id} {name}: a layer got no gradient")
+    log(f"train {arch_id}: {', '.join(names)} gradients finite and non-zero "
+        f"in all {cfg.n_layers} layers through the backward kernel")
+    del grads, g
+
+    profile_train_step(torch, arch_id,
+                       lambda: step(params, state, *batch(NEW_TRAIN_STEPS)),
+                       steady_wall, per_bwd)
+    del params, state
+    torch.cuda.empty_cache()
+    log(f"LM training phase {arch_id}: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def profile_train_step(torch, arch_id: str, run_step, steady_wall: float,
+                       per_bwd: int) -> None:
+    """One profiled train step (``run_step``): the device busy time by
+    kernel group (flash forward, flash backward, matrix products, the
+    rest) and the idle share against the unprofiled median host wall;
+    fails unless every backward of the bf16 step ran the tensor-core
+    kernels (``per_bwd`` launches each of dK/dV and dQ)."""
+    import re
+
+    by_name = traced(torch, run_step)
+    require(bool(by_name), f"profile train {arch_id}: no device time")
     groups = {"flash forward": 0.0, "flash backward": 0.0,
               "matrix products": 0.0, "rest": 0.0}
     n_bwd_wgmma = {"dkdv": 0, "dq": 0}
@@ -5118,7 +5488,7 @@ def phase_lm_train(torch, device, smi):
         low = name.lower()
         if "flash_fwd" in low:
             groups["flash forward"] += us / 1e3
-        elif re.search(r"bwd_(prep|dkdv|dq)(_wgmma)?_kernel", low):
+        elif re.search(r"bwd_(prep|dkdv|dq|reduce)(_wgmma)?_kernel", low):
             groups["flash backward"] += us / 1e3
             hit = re.search(r"bwd_(dkdv|dq)_wgmma_kernel", low)
             if hit:
@@ -5129,23 +5499,14 @@ def phase_lm_train(torch, device, smi):
         else:
             groups["rest"] += us / 1e3
     busy = sum(groups.values())
-    log(f"profile train step: device busy {busy:.1f} ms against a host wall "
-        f"of {steady_wall:.1f} ms (unprofiled median), idle share "
+    log(f"profile train {arch_id} step: device busy {busy:.1f} ms against a "
+        f"host wall of {steady_wall:.1f} ms (unprofiled median), idle share "
         f"{1.0 - busy / steady_wall:.4f}")
     for name, ms in groups.items():
         log(f"  {name:16s} {ms:9.3f} ms  share {ms / busy:.4f}")
-    # every backward of the bf16 step ran the tensor-core kernels
     require(n_bwd_wgmma == {"dkdv": per_bwd, "dq": per_bwd},
-            f"profile train step: wgmma backward launches {n_bwd_wgmma}, "
-            f"not {per_bwd} each")
-    del params, state
-    torch.cuda.empty_cache()
-
-    launcher_checks(torch)
-    row = bwd_timing_row(torch, device, operands,
-                         counts["flash_attention_bwd"], TRAIN_STEPS, bwd_err)
-    log(f"LM training phase: {time.perf_counter() - t_phase:.1f} s")
-    return row
+            f"profile train {arch_id}: wgmma backward launches "
+            f"{n_bwd_wgmma}, not {per_bwd} each")
 
 
 def launcher_checks(torch):
@@ -5190,14 +5551,16 @@ def launcher_checks(torch):
 
 
 def bwd_timing_row(torch, device, operands, launches: int, n_steps: int,
-                   err: float):
-    """The backward kernels at the training shape (one layer's call of one
-    microbatch), their plain version, and the backward of
+                   err: float, name: str = "flash_attention_bwd"):
+    """The backward kernels at an LM arch's training shape (one layer's
+    call of one microbatch; TinyLlama's for the row
+    ``flash_attention_bwd``), their plain version, and the backward of
     ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
     (timed here only, never called by the port) as the library
     yardstick, the kernel and SDPA timed in turns (kernel, SDPA, SDPA,
-    kernel), each the median of its two medians; and the kernels with
-    dK/dV in one part a KV head, against ``dkdv_split``'s choice."""
+    kernel), each the median of its two medians; where ``dkdv_split``
+    cuts the dK/dV heads in parts, also the kernels with dK/dV in one
+    part a KV head."""
     import re
 
     import torch.nn.functional as F
@@ -5221,54 +5584,65 @@ def bwd_timing_row(torch, device, operands, launches: int, n_steps: int,
         else:
             turns[who].append(timer.ms(lambda: torch.autograd.grad(
                 out, leaves, dot, retain_graph=True)))
-    # the same kernels with dK/dV in one part a KV head (dkdv_split's
-    # other side), and the device time of each, by the profiler
-    split, chosen = flash_ops.dkdv_split(q, k), flash_ops.dkdv_split
-    for parts in (split, 1):
-        flash_ops.dkdv_split = lambda q, k, n=parts: n
-        try:
-            call = (lambda: flash_ops.launch_bwd(q, k, v, o, do, lse, dq, dk,
-                                                 dv, True))
-            if parts == 1:
-                one_part = timer.ms(call)
-            by_name = traced(torch, lambda: [call() for _ in range(10)])
-        finally:
-            flash_ops.dkdv_split = chosen
-        times = sorted((re.search(r"bwd_\w+<[^>]*>", name).group(0), us / 1e4)
-                       for name, (us, _) in by_name.items() if "bwd_" in name)
-        log(f"  flash_attention_bwd kernels, dK/dV in {parts} part(s), ms a "
-            f"call: " + ", ".join(f"{n} {t:.4f}" for n, t in times))
+    split = flash_ops.dkdv_split(q, k)
+    one_part = None
+    if split > 1:
+        # the same kernels with dK/dV in one part a KV head (dkdv_split's
+        # other side), and the device time of each, by the profiler
+        chosen = flash_ops.dkdv_split
+        for parts in (split, 1):
+            flash_ops.dkdv_split = lambda q, k, n=parts: n
+            try:
+                call = (lambda: flash_ops.launch_bwd(q, k, v, o, do, lse, dq,
+                                                     dk, dv, True))
+                if parts == 1:
+                    one_part = timer.ms(call)
+                by_name = traced(torch, lambda: [call() for _ in range(10)])
+            finally:
+                flash_ops.dkdv_split = chosen
+            times = sorted((re.search(r"bwd_\w+<[^>]*>", n).group(0),
+                            us / 1e4)
+                           for n, (us, _) in by_name.items() if "bwd_" in n)
+            log(f"  {name} kernels, dK/dV in {parts} part(s), ms a call: "
+                + ", ".join(f"{n} {t:.4f}" for n, t in times))
     flash_attention_bwd.launches = before
     ms, lib = (statistics.median(turns[w]) for w in ("kernel", "sdpa"))
     plain = timer.ms(lambda: flash_ops.flash_attention_bwd_plain(
         q, k, v, o, do, True, lse=lse), repeats=5)
     b, s, hq, d = q.shape
+    d_v = v.shape[-1]
     n_bytes = sum(x.numel() * x.element_size()
                   for x in (q, k, v, o, do, lse, dq, dk, dv))
     # the gradient's five products (Q.K^T, dV, dP, dQ, dK) over the causal
-    # half: the key j <= query i pairs
-    n_flops = 10.0 * b * hq * d * (s * (s + 1) / 2)
+    # half, the key j <= query i pairs: 2 D operations each for Q.K^T, dQ
+    # and dK, 2 D_v for dV and dP
+    n_flops = 2.0 * (3 * d + 2 * d_v) * b * hq * (s * (s + 1) / 2)
     b_ms, b_by = bound_ms(n_bytes, n_flops, "bf16")
-    log(f"time flash_attention_bwd q={tuple(q.shape)} kv={tuple(k.shape)} "
-        f"bf16 causal: kernel {ms:.4f} ms (turns {turns['kernel']}; "
-        f"{n_flops / ms / 1e9:.2f} TFLOP/s of the five products; dK/dV in "
-        f"{split} parts a KV head, {one_part:.4f} ms in one), plain "
+    part_txt = ("" if one_part is None else
+                f", {one_part:.4f} ms in one")
+    log(f"time {name} q={tuple(q.shape)} k={tuple(k.shape)} "
+        f"v={tuple(v.shape)} bf16 causal: kernel {ms:.4f} ms (turns "
+        f"{turns['kernel']}; {n_flops / ms / 1e9:.2f} TFLOP/s of the five "
+        f"products; dK/dV in {split} parts a KV head{part_txt}), plain "
         f"{plain:.4f} ms, SDPA backward {lib:.4f} ms (turns "
-        f"{turns['sdpa']}), bound {b_ms:.4f} ms ({b_by}; "
-        f"{n_bytes / 1e6:.1f} MB, {n_flops:.4g} operations at the bf16 "
-        f"tensor-core peak), kernel / bound {ms / b_ms:.1f}x, kernel / SDPA "
-        f"{ms / lib:.2f}x; {launches / n_steps:.0f} launches a step; "
-        f"{smi_line()}")
-    return {
-        "name": "flash_attention_bwd", "route": "cuda",
+        f"{turns['sdpa']}), kernel / SDPA {ms / lib:.2f}x, bound "
+        f"{b_ms:.4f} ms "
+        f"({b_by}; {n_bytes / 1e6:.1f} MB, {n_flops:.4g} operations at the "
+        f"bf16 tensor-core peak), kernel / bound {ms / b_ms:.1f}x; "
+        f"{launches / n_steps:.0f} launches a step; {smi_line()}")
+    row = {
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/lm/attention.py:40 (XLA autodiff of "
                     "blockwise_attention; no pl.pallas_call)",
         "launches": launches, "max_abs_err": err,
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib, "launches_per_step": launches / n_steps,
-        "dkdv_parts": split, "one_part_ms": one_part,
+        "dkdv_parts": split, "instance": f"{d}/{d_v}",
     }
+    if one_part is not None:
+        row["one_part_ms"] = one_part
+    return row
 
 
 # ------------------------------------------------------------- phase 5
@@ -5386,41 +5760,46 @@ def phase_timing(torch, device, ops, counts, n_steps):
     return rows
 
 
-def flash_timing_row(torch, device, operands, launches: int, err: float):
-    """The flash kernel at TinyLlama's prefill shape (one layer's call),
-    its plain version at the kernel's tiles, and
-    ``F.scaled_dot_product_attention`` (timed here only, never called by
-    the port) as the library yardstick."""
+def flash_timing_row(torch, device, operands, launches: int, err: float,
+                     name: str = "flash_attention"):
+    """The flash kernel at an LM arch's prefill shape (one layer's call;
+    TinyLlama's for the row ``flash_attention``), its plain version at the
+    kernel's tiles, and ``F.scaled_dot_product_attention`` (timed here
+    only, never called by the port) as the library yardstick."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as flash_ops
 
     timer = Timer(torch, device)
     q, k, v = operands
-    o = torch.empty_like(q)
+    o = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype, device=device)
     ms = timer.ms(lambda: flash_ops.launch(q, k, v, o, True))
     plain = timer.ms(lambda: flash_ops.flash_attention_plain(
-        q, k, v, True, flash_ops.TILE_Q, flash_ops.TILE_K))
+        q, k, v, True, flash_ops.TILE_Q, flash_ops.TILE_K), repeats=5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib = timer.ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True))
     b, s, hq, d = q.shape
+    dv = v.shape[-1]
     n_bytes = (q.numel() + k.numel() + v.numel() + o.numel()) * q.element_size()
-    # both products over the causal half: the key j <= query i pairs
-    n_flops = 4.0 * b * hq * d * (s * (s + 1) / 2)
+    # both products over the causal half: the key j <= query i pairs, 2 D
+    # operations for q . k and 2 D_v for p . v
+    n_flops = 2.0 * (d + dv) * b * hq * (s * (s + 1) / 2)
     b_ms, b_by = bound_ms(n_bytes, n_flops, "bf16")
-    log(f"time flash_attention q={tuple(q.shape)} kv={tuple(k.shape)} bf16 "
-        f"causal: kernel {ms:.4f} ms ({n_flops / ms / 1e9:.2f} TFLOP/s), "
-        f"plain {plain:.4f} ms, F.scaled_dot_product_attention {lib:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}; {n_bytes / 1e6:.1f} MB, "
-        f"{n_flops:.4g} operations at the bf16 tensor-core peak)")
+    log(f"time {name} q={tuple(q.shape)} k={tuple(k.shape)} "
+        f"v={tuple(v.shape)} bf16 causal: kernel {ms:.4f} ms "
+        f"({n_flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
+        f"F.scaled_dot_product_attention {lib:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; {n_bytes / 1e6:.1f} MB, {n_flops:.4g} operations at the "
+        f"bf16 tensor-core peak), kernel / bound {ms / b_ms:.2f}x; "
+        f"{launches} launches; {smi_line()}")
     return {
-        "name": "flash_attention", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
         "launches": launches, "max_abs_err": err,
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib,
+        "library_ms": lib, "instance": f"{d}/{dv}",
     }
 
 
@@ -5478,15 +5857,42 @@ def main() -> int:
     phase_profile_decode(torch, device, cfg, params)
     del params
     torch.cuda.empty_cache()
-    bwd_row = phase_lm_train(torch, device, smi)
+    new_lm = {}   # the later slices' archs: qwen3 and MLA's minicpm3
+    for arch in NEW_LM_ARCHS:
+        t0 = time.perf_counter()
+        counts_a, cfg_a, params_a, tokens_a = phase_serving(torch, device,
+                                                            arch)
+        phase_profile_prefill(torch, cfg_a, params_a, tokens_a)
+        new_lm[arch] = {"prefill": counts_a["flash_attention"]}
+        del params_a, tokens_a
+        torch.cuda.empty_cache()
+        log(f"serving phase {arch}: {time.perf_counter() - t0:.1f} s")
+    bwd_row, bwd_err, bwd_operands = phase_lm_train(torch, device, smi)
+    for arch in NEW_LM_ARCHS:
+        new_lm[arch]["train"] = phase_lm_train_arch(torch, device, smi, arch)
     rows = phase_timing(torch, device, ops, counts, n_steps)
     rows.append(persisted_gather_row(torch, device, pipe_plans,
                                      pipe_builder_bags, pipe_rebuilds))
     rows.append(spmm_wide_timing_row(torch, device, full_counts["csr_spmm"],
                                      wide_err))
-    rows.append(flash_timing_row(torch, device, flash_operands,
+    rows.append(flash_timing_row(torch, device,
+                                 flash_operands.pop("tinyllama-1.1b"),
                                  lm_counts["flash_attention"], flash_err))
     rows.append(bwd_row)
+    t0 = time.perf_counter()
+    for arch in NEW_LM_ARCHS:
+        short = arch.split("-")[0]
+        rows.append(flash_timing_row(
+            torch, device, flash_operands.pop(arch),
+            new_lm[arch]["prefill"], flash_err,
+            name=f"flash_attention_{short}"))
+        train = new_lm[arch]["train"]
+        rows.append(bwd_timing_row(
+            torch, device, bwd_operands.pop(arch),
+            train["flash_attention_bwd"], NEW_TRAIN_STEPS, bwd_err,
+            name=f"flash_attention_bwd_{short}"))
+    log(f"timing rows of the qwen3 and minicpm3 instances: "
+        f"{time.perf_counter() - t0:.1f} s")
     rows.append(queue_window_timing_row(torch, device, queue_info))
     rows.append(cluster_window_timing_row(torch, device, cluster_info))
     phase_policy_profile(torch, device, policy_pools)

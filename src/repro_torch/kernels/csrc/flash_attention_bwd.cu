@@ -7,7 +7,8 @@
 // autodiff of that lax.scan is what this replaces. It differentiates the
 // forward as the port defines it:
 //
-//     S  = (Q . K^T) * scale            float32, scale = 1/sqrt(D)
+//     S  = (Q . K^T) * scale            float32, scale = 1/sqrt(D), D
+//                                       the q and k head dim
 //     S  = NEG_INF where key j > query i  (causal, positions from 0)
 //     P  = softmax(S) = exp(S - L),     L = the row's log-sum-exp
 //     O  = P . V
@@ -29,13 +30,14 @@
 //
 // The kernels, one after another on the caller's stream:
 //   1. bwd_prep_kernel: delta, one thread a (b, s, h) row, a bandwidth
-//      pass over dO and O.
+//      pass over dO and O (D_v columns).
 //   2. dK/dV, one CTA per (batch * KV head, key tile, part): holds its K
 //      and V tile, loops over its part of the g = Hq / Hkv query heads
 //      that read this KV head and over the q tiles at or below the
 //      diagonal, and sums dK and dV in registers. With one part (split =
 //      1) it stores them; with more, each part stores its float32 sums
-//      and bwd_reduce_kernel adds the parts in part order. So the GQA sum
+//      (its dK rows, then its dV rows) and bwd_reduce_kernel adds the
+//      parts in part order, one thread an 8-column chunk. So the GQA sum
 //      needs no atomics. The parts exist for the causal load: key tile 0
 //      meets every q tile of all g heads, and with one CTA a key tile it
 //      is the launch's critical path (chip_smoke.py times both).
@@ -52,7 +54,7 @@
 // computes), and the two wgmma forms.
 //   dK/dV, for each (head, q tile):
 //     S^T  = K . Q^T and dP^T = V . dO^T    wgmma_ss, M = 64 keys, N = 64
-//                                           q rows, K = D
+//                                           q rows, K = D and D_v
 //     P^T  = exp(scale S^T - L), dS^T = P^T * (dP^T - delta), on the
 //            accumulator fragments; L and delta are indexed by column (the
 //            q row) and ride in the ring with their Q and dO tiles
@@ -74,15 +76,22 @@
 // block of the score tile; operands staged in shared memory as float32
 // rows padded to D + 1; every product FMA.
 //
-// Layout: q, o, dO, dq are (B, Sq, Hq, D); k, v, dk, dv (B, Sk, Hkv, D);
-// each with unit stride along D and any (b, s, h) strides; lse and delta
-// (B, Hq, Sq) float32. Rows past Sq and keys past Sk are masked; keys that
-// no query sees get dK = dV = 0.
+// Layout: q, dq are (B, Sq, Hq, D); o, dO (B, Sq, Hq, D_v); k, dk (B, Sk,
+// Hkv, D); v, dv (B, Sk, Hkv, D_v); each with unit stride along its head
+// dim and any (b, s, h) strides; lse and delta (B, Hq, Sq) float32. Rows
+// past Sq and keys past Sk are masked; keys that no query sees get dK =
+// dV = 0. Every kernel is templated on the pair (D, D_v): (32, 32), (64,
+// 64), (128, 128) and MLA's (96, 64) (minicpm3's q/k and v head dims).
+// Each tile keeps its own dim's layout (flash_wgmma.cuh: D = 96 is three
+// 32-column atoms with 64-byte swizzle): dV's product runs over D_v
+// columns, dK's and dQ's over D (an N = 96 product is three m64n32k16).
 //
 // Bound: operations. At the training shape (B=1, S=4096, Hq=32, Hkv=4,
 // D=64, bf16, causal) the gradient's five products (Q.K^T recomputed, dV,
 // dP, dQ, dK) over the causal half are 1.7e11 operations: 0.1738 ms at
-// the bf16 tensor-core peak (989 TFLOP/s). This design does seven: S and
+// the bf16 tensor-core peak (989 TFLOP/s). A (query, key) pair costs
+// 2 (3 D + 2 D_v) operations: at minicpm3's (B=1, S=4096, H=40, D=96,
+// D_v=64) 2.79e11, 0.282 ms; at qwen3's (Hq=16, Hkv=8, D=128) 1.74e11. This design does seven: S and
 // dP once in each of the two kernels, the price of keeping dQ free of
 // atomics (a dQ summed across the dK/dV CTAs would need them, and their
 // order changes from run to run), a floor of ~0.24 ms.
@@ -127,7 +136,8 @@ __device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
   return acc;
 }
 
-template <typename T, int D>
+// delta over the DV columns of O and dO
+template <typename T, int DV>
 __global__ void __launch_bounds__(256)
 bwd_prep_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                 float* __restrict__ delta, int sq, int hq, Strides os,
@@ -141,12 +151,12 @@ bwd_prep_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   float acc = 0.f;
   if constexpr (sizeof(T) == 2) {  // bf16: 16-byte loads (aligned)
 #pragma unroll
-    for (int c = 0; c < D; c += 8)
+    for (int c = 0; c < DV; c += 8)
       acc = dot8(*reinterpret_cast<const uint4*>(drow + c),
                  *reinterpret_cast<const uint4*>(orow + c), acc);
   } else {
 #pragma unroll 8
-    for (int c = 0; c < D; ++c) acc = fmaf(drow[c], orow[c], acc);
+    for (int c = 0; c < DV; ++c) acc = fmaf(drow[c], orow[c], acc);
   }
   delta[(b * hq + h) * sq + s] = acc;
 }
@@ -203,8 +213,8 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int sq, int sk,
 }
 
 // P and dS of the thread's 4 x 4 block of one (q tile, key tile) pair from
-// the staged Q, dO, K, V, L and delta
-template <int D>
+// the staged Q, K (rows of DQK + 1), dO, V (rows of DV + 1), L and delta
+template <int DQK, int DV>
 __device__ __forceinline__ void p_and_ds(float (&p)[RPT][CPT],
                                          float (&ds)[RPT][CPT],
                                          const float* sQ, const float* sdO,
@@ -213,8 +223,8 @@ __device__ __forceinline__ void p_and_ds(float (&p)[RPT][CPT],
                                          int q0, int k0, int sq, int sk,
                                          float scale, int causal, int rg,
                                          int cg) {
-  tile_abt<D>(p, sQ, sK, rg, cg);    // S / scale
-  tile_abt<D>(ds, sdO, sV, rg, cg);  // dP
+  tile_abt<DQK>(p, sQ, sK, rg, cg);   // S / scale
+  tile_abt<DV>(ds, sdO, sV, rg, cg);  // dP
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int row = rg + 16 * i;
@@ -240,7 +250,7 @@ __device__ __forceinline__ void load_stats(float* sL, float* sD,
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
@@ -249,14 +259,14 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 float* __restrict__ dv, int sq, int sk, int hq, int hkv,
                 Strides qs, Strides ks, Strides vs, Strides dos,
                 Strides dks, Strides dvs, float scale, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int CO = D / 16;  // accumulator columns per thread
+  constexpr int QP = DQK + 1, VP = DV + 1;    // padded rows
+  constexpr int CK = DQK / 16, CV = DV / 16;  // accumulator columns
   extern __shared__ float smem[];
-  float* sK = smem;            // BK x DP
-  float* sV = sK + BK * DP;    // BK x DP
-  float* sQ = sV + BK * DP;    // BQ x DP
-  float* sdO = sQ + BQ * DP;   // BQ x DP
-  float* sP = sdO + BQ * DP;   // BQ x PP
+  float* sK = smem;            // BK x QP
+  float* sV = sK + BK * QP;    // BK x VP
+  float* sQ = sV + BK * VP;    // BQ x QP
+  float* sdO = sQ + BQ * QP;   // BQ x VP
+  float* sP = sdO + BQ * VP;   // BQ x PP
   float* sdS = sP + BQ * PP;   // BQ x PP
   float* sL = sdS + BQ * PP;   // BQ
   float* sD = sL + BQ;         // BQ
@@ -265,14 +275,18 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.x / hkv, hk = blockIdx.x % hkv;
   const int k0 = blockIdx.y * BK;  // key tile 0 meets the most q tiles
   const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
-  load_rows<D, BK>(sK, k + b * ks.b + hk * ks.h, ks.s, k0, sk);
-  load_rows<D, BK>(sV, v + b * vs.b + hk * vs.h, vs.s, k0, sk);
+  load_rows<DQK, BK>(sK, k + b * ks.b + hk * ks.h, ks.s, k0, sk);
+  load_rows<DV, BK>(sV, v + b * vs.b + hk * vs.h, vs.s, k0, sk);
 
-  float acc_k[RPT][CO], acc_v[RPT][CO];  // keys rg + 16 i, cols cg + 16 e
+  // keys rg + 16 i, columns cg + 16 e
+  float acc_k[RPT][CK], acc_v[RPT][CV];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int i = 0; i < RPT; ++i) {
 #pragma unroll
-    for (int e = 0; e < CO; ++e) acc_k[i][e] = acc_v[i][e] = 0.f;
+    for (int e = 0; e < CK; ++e) acc_k[i][e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < CV; ++e) acc_v[i][e] = 0.f;
+  }
 
   for (int r = 0; r < group; ++r) {
     const int h = hk * group + r;
@@ -280,13 +294,13 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* dob = dout + b * dos.b + h * dos.h;
     for (int q0 = first_q_tile(k0, causal); q0 < sq; q0 += BQ) {
       __syncthreads();  // the previous q tile's reads are done
-      load_rows<D, BQ>(sQ, qb, qs.s, q0, sq);
-      load_rows<D, BQ>(sdO, dob, dos.s, q0, sq);
+      load_rows<DQK, BQ>(sQ, qb, qs.s, q0, sq);
+      load_rows<DV, BQ>(sdO, dob, dos.s, q0, sq);
       load_stats(sL, sD, lse, delta, b, h, hq, q0, sq);
       __syncthreads();
       float p[RPT][CPT], ds[RPT][CPT];
-      p_and_ds<D>(p, ds, sQ, sdO, sK, sV, sL, sD, q0, k0, sq, sk, scale,
-                  causal, rg, cg);
+      p_and_ds<DQK, DV>(p, ds, sQ, sdO, sK, sV, sL, sD, q0, k0, sq, sk,
+                        scale, causal, rg, cg);
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -298,24 +312,25 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // dV += P^T . dO and dK += dS^T . Q over the tile's q rows
 #pragma unroll 4
       for (int row = 0; row < BQ; ++row) {
-        float pv[RPT], sv[RPT], ov[CO], qv[CO];
+        float pv[RPT], sv[RPT], ov[CV], qv[CK];
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
           pv[i] = sP[row * PP + rg + 16 * i];
           sv[i] = sdS[row * PP + rg + 16 * i];
         }
 #pragma unroll
-        for (int e = 0; e < CO; ++e) {
-          ov[e] = sdO[row * DP + cg + 16 * e];
-          qv[e] = sQ[row * DP + cg + 16 * e];
-        }
+        for (int e = 0; e < CV; ++e) ov[e] = sdO[row * VP + cg + 16 * e];
 #pragma unroll
-        for (int i = 0; i < RPT; ++i)
+        for (int e = 0; e < CK; ++e) qv[e] = sQ[row * QP + cg + 16 * e];
 #pragma unroll
-          for (int e = 0; e < CO; ++e) {
+        for (int i = 0; i < RPT; ++i) {
+#pragma unroll
+          for (int e = 0; e < CV; ++e)
             acc_v[i][e] = fmaf(pv[i], ov[e], acc_v[i][e]);
+#pragma unroll
+          for (int e = 0; e < CK; ++e)
             acc_k[i][e] = fmaf(sv[i], qv[e], acc_k[i][e]);
-          }
+        }
       }
     }
   }
@@ -327,14 +342,15 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int key = k0 + rg + 16 * i;
     if (key >= sk) continue;
 #pragma unroll
-    for (int e = 0; e < CO; ++e) {
+    for (int e = 0; e < CK; ++e)
       dkb[(long long)key * dks.s + cg + 16 * e] = acc_k[i][e] * scale;
+#pragma unroll
+    for (int e = 0; e < CV; ++e)
       dvb[(long long)key * dvs.s + cg + 16 * e] = acc_v[i][e];
-    }
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
@@ -342,14 +358,14 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               float* __restrict__ dq, int sq, int sk, int hq, int group,
               Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs,
               float scale, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int CO = D / 16;
+  constexpr int QP = DQK + 1, VP = DV + 1;
+  constexpr int CO = DQK / 16;
   extern __shared__ float smem[];
-  float* sQ = smem;            // BQ x DP
-  float* sdO = sQ + BQ * DP;   // BQ x DP
-  float* sK = sdO + BQ * DP;   // BK x DP
-  float* sV = sK + BK * DP;    // BK x DP
-  float* sdS = sV + BK * DP;   // BQ x PP
+  float* sQ = smem;            // BQ x QP
+  float* sdO = sQ + BQ * QP;   // BQ x VP
+  float* sK = sdO + BQ * VP;   // BK x QP
+  float* sV = sK + BK * QP;    // BK x VP
+  float* sdS = sV + BK * VP;   // BQ x PP
   float* sL = sdS + BQ * PP;   // BQ
   float* sD = sL + BQ;         // BQ
 
@@ -358,8 +374,8 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
   const float* kb = k + b * ks.b + hk * ks.h;
   const float* vb = v + b * vs.b + hk * vs.h;
-  load_rows<D, BQ>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq);
-  load_rows<D, BQ>(sdO, dout + b * dos.b + h * dos.h, dos.s, q0, sq);
+  load_rows<DQK, BQ>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq);
+  load_rows<DV, BQ>(sdO, dout + b * dos.b + h * dos.h, dos.s, q0, sq);
   load_stats(sL, sD, lse, delta, b, h, hq, q0, sq);
 
   float acc[RPT][CO];  // rows rg + 16 i, cols cg + 16 e
@@ -372,12 +388,12 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile's reads of sK, sV, sdS are done
-    load_rows<D, BK>(sK, kb, ks.s, k0, sk);
-    load_rows<D, BK>(sV, vb, vs.s, k0, sk);
+    load_rows<DQK, BK>(sK, kb, ks.s, k0, sk);
+    load_rows<DV, BK>(sV, vb, vs.s, k0, sk);
     __syncthreads();
     float p[RPT][CPT], ds[RPT][CPT];
-    p_and_ds<D>(p, ds, sQ, sdO, sK, sV, sL, sD, q0, k0, sq, sk, scale,
-                causal, rg, cg);
+    p_and_ds<DQK, DV>(p, ds, sQ, sdO, sK, sV, sL, sD, q0, k0, sq, sk,
+                      scale, causal, rg, cg);
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -391,7 +407,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < RPT; ++i) sv[i] = sdS[(rg + 16 * i) * PP + key];
 #pragma unroll
-      for (int e = 0; e < CO; ++e) kv[e] = sK[key * DP + cg + 16 * e];
+      for (int e = 0; e < CO; ++e) kv[e] = sK[key * QP + cg + 16 * e];
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -411,14 +427,16 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dkdv_smem() {
-  return sizeof(float) * (2 * (BK + BQ) * (D + 1) + 2 * BQ * PP + 2 * BQ);
+  return sizeof(float) * ((BK + BQ) * (DQK + 1) + (BK + BQ) * (DV + 1)
+                          + 2 * BQ * PP + 2 * BQ);
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * (BK + BQ) * (D + 1) + BQ * PP + 2 * BQ);
+  return sizeof(float) * ((BK + BQ) * (DQK + 1) + (BK + BQ) * (DV + 1)
+                          + BQ * PP + 2 * BQ);
 }
 
 }  // namespace simt
@@ -431,56 +449,75 @@ using namespace flash;
 constexpr int THREADS = 128;  // one warpgroup
 constexpr int STAGES = 2;     // the ring of streamed tiles
 
+// a 64-row tile of D columns: its bytes and its atoms' bytes
 template <int D>
-struct Cfg : Swz<D> {
-  static constexpr int ATOM = 64 * Swz<D>::ROWB;  // bytes of a tile's atom
-  static constexpr int TILE = 64 * D * 2;         // bytes of a 64-row tile
-  static constexpr int STATS = 2 * BQ * 4;        // L and delta of a q tile
+struct Tile : Swz<D> {
+  static constexpr int ATOM = 64 * Swz<D>::ROWB;
+  static constexpr int BYTES = 64 * D * 2;
+  static_assert(BYTES % 1024 == 0, "every tile on the 1024-byte repeat");
+};
+
+// a 64 x D accumulator fragment, one array of AW / 2 floats a column atom
+template <int D>
+using Acc = float[Swz<D>::NA][Swz<D>::AW / 2];
+
+template <int DQK, int DV>
+struct Cfg {
+  static constexpr int QK = Tile<DQK>::BYTES;  // a q or k tile
+  static constexpr int VT = Tile<DV>::BYTES;   // a v or dO tile
+  static constexpr int STATS = 2 * BQ * 4;     // L and delta of a q tile
   // dK/dV: K, V, STAGES x (Q, dO), STAGES x (L, delta); dQ: Q, dO,
   // STAGES x (K, V). + 1 KB to align the tiles to the swizzle repeat.
   static constexpr int DKDV_SMEM =
-      1024 + 2 * TILE + STAGES * (2 * TILE + STATS);
-  static constexpr int DQ_SMEM = 1024 + 2 * TILE + STAGES * 2 * TILE;
+      1024 + QK + VT + STAGES * (QK + VT + STATS);
+  static constexpr int DQ_SMEM = 1024 + QK + VT + STAGES * (QK + VT);
 };
 
 // acc (+)= A . B^T over D for two 64-row tiles read row-wise (K-major)
 template <int D>
 __device__ __forceinline__ void tile_ss(float (&acc)[32], uint32_t a,
                                         uint32_t b) {
-  using C = Cfg<D>;
+  using T = Tile<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const int at = kk / (C::AW / 16);                // column atom
-    const uint32_t off = (kk % (C::AW / 16)) * 32;   // bytes into its rows
+    const int at = kk / (T::AW / 16);                // column atom
+    const uint32_t off = (kk % (T::AW / 16)) * 32;   // bytes into its rows
     wgmma_ss(acc,
-             make_desc(a + at * C::ATOM + off, 16, C::GROUP, C::SWZ),
-             make_desc(b + at * C::ATOM + off, 16, C::GROUP, C::SWZ),
+             make_desc(a + at * T::ATOM + off, 16, T::GROUP, T::SWZ),
+             make_desc(b + at * T::ATOM + off, 16, T::GROUP, T::SWZ),
              kk > 0);
   }
 }
 
-// acc[a] += A . B over the 64 rows of B, A from registers (a 64 x 64
-// probability-shaped fragment, 4 k-steps), B read column-wise through the
-// transpose bit, one instruction per k-step and column atom
+// acc[a] += A . B over the 64 rows of B (D columns), A from registers (a
+// 64 x 64 probability-shaped fragment, 4 k-steps), B read column-wise
+// through the transpose bit, one instruction per k-step and column atom
 template <int D>
-__device__ __forceinline__ void tile_rs(float (&acc)[Cfg<D>::NA][Cfg<D>::AW / 2],
+__device__ __forceinline__ void tile_rs(Acc<D>& acc,
                                         const uint32_t (&a)[4][4],
                                         uint32_t b) {
-  using C = Cfg<D>;
+  using T = Tile<D>;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int at = 0; at < C::NA; ++at)
+    for (int at = 0; at < T::NA; ++at)
       wgmma_rs_tb(acc[at], a[kk],
-                  make_desc(b + at * C::ATOM + kk * 16 * C::ROWB, C::ATOM,
-                            C::GROUP, C::SWZ));
+                  make_desc(b + at * T::ATOM + kk * 16 * T::ROWB, T::ATOM,
+                            T::GROUP, T::SWZ));
 }
 
 template <int D>
-__device__ __forceinline__ void fence_acc(
-    float (&acc)[Cfg<D>::NA][Cfg<D>::AW / 2]) {
+__device__ __forceinline__ void fence_acc(Acc<D>& acc) {
 #pragma unroll
-  for (int at = 0; at < Cfg<D>::NA; ++at) fence_regs(acc[at]);
+  for (int at = 0; at < Swz<D>::NA; ++at) fence_regs(acc[at]);
+}
+
+template <int D>
+__device__ __forceinline__ void zero_acc(Acc<D>& acc) {
+#pragma unroll
+  for (int at = 0; at < Swz<D>::NA; ++at)
+#pragma unroll
+    for (int i = 0; i < Swz<D>::AW / 2; ++i) acc[at][i] = 0.f;
 }
 
 __device__ __forceinline__ void put2(bf16* p, float x, float y) {
@@ -494,26 +531,26 @@ __device__ __forceinline__ void put2(float* p, float x, float y) {
 // the fragment (rows r0 + 8 i, columns 8 n + c2 + j) of a 64 x D product
 // scaled by `mul`, stored as pairs of T at rows row0 + r0 + 8 i < lim
 template <int D, typename T>
-__device__ __forceinline__ void store_acc(
-    T* base, long long stride, int row0, int lim, int r0, int c2,
-    const float (&acc)[Cfg<D>::NA][Cfg<D>::AW / 2], float mul) {
-  using C = Cfg<D>;
+__device__ __forceinline__ void store_acc(T* base, long long stride,
+                                          int row0, int lim, int r0, int c2,
+                                          const Acc<D>& acc, float mul) {
+  using S = Swz<D>;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + r0 + 8 * i;
     if (row >= lim) continue;
     T* dst = base + (long long)row * stride;
 #pragma unroll
-    for (int at = 0; at < C::NA; ++at)
+    for (int at = 0; at < S::NA; ++at)
 #pragma unroll
-      for (int n = 0; n < C::AW / 8; ++n)
-        put2(dst + at * C::AW + 8 * n + c2, acc[at][4 * n + 2 * i] * mul,
+      for (int n = 0; n < S::AW / 8; ++n)
+        put2(dst + at * S::AW + 8 * n + c2, acc[at][4 * n + 2 * i] * mul,
              acc[at][4 * n + 2 * i + 1] * mul);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(THREADS, DV <= 64 ? 2 : 1)
 bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const bf16* __restrict__ dout,
@@ -523,14 +560,13 @@ bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       int split, int sq, int sk, int hq, int hkv, Strides qs,
                       Strides ks, Strides vs, Strides dos, Strides dks,
                       Strides dvs, float scale, int causal) {
-  using C = Cfg<D>;
-  constexpr int NA = C::NA, AW = C::AW;
+  using C = Cfg<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sK = (raw + 1023u) & ~1023u;
-  const uint32_t sV = sK + C::TILE;
-  const uint32_t sQ0 = sV + C::TILE;  // stage st: Q, then dO
-  const uint32_t sSt0 = sQ0 + STAGES * 2 * C::TILE;  // stage st: L, delta
+  const uint32_t sV = sK + C::QK;
+  const uint32_t sQ0 = sV + C::VT;  // stage st: Q, then dO
+  const uint32_t sSt0 = sQ0 + STAGES * (C::QK + C::VT);  // stage: L, delta
   const float* stats =
       reinterpret_cast<const float*>(smem_raw + (sSt0 - raw));
 
@@ -549,11 +585,11 @@ bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // stage it % 2 <- the Q and dO tiles, L and delta of pair it
   auto load_pair = [&](int it) {
     const int h = h0 + it / n_q, q0 = q_first + (it % n_q) * BQ;
-    const uint32_t st = sQ0 + (it % STAGES) * 2 * C::TILE;
-    load_tile<D, BQ, THREADS>(st, q + b * qs.b + h * qs.h, qs.s, q0, sq,
-                              C::ATOM);
-    load_tile<D, BQ, THREADS>(st + C::TILE, dout + b * dos.b + h * dos.h,
-                              dos.s, q0, sq, C::ATOM);
+    const uint32_t st = sQ0 + (it % STAGES) * (C::QK + C::VT);
+    load_tile<DQK, BQ, THREADS>(st, q + b * qs.b + h * qs.h, qs.s, q0, sq,
+                                Tile<DQK>::ATOM);
+    load_tile<DV, BQ, THREADS>(st + C::QK, dout + b * dos.b + h * dos.h,
+                               dos.s, q0, sq, Tile<DV>::ATOM);
     const int r = t % BQ;  // threads 0-63 copy L, 64-127 delta
     const float* src = (t < BQ ? lse : delta) + ((long long)b * hq + h) * sq;
     const bool in = q0 + r < sq;
@@ -562,19 +598,18 @@ bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
 
   if (n_it > 0) {
-    load_tile<D, BK, THREADS>(sK, k + b * ks.b + hk * ks.h, ks.s, k0, sk,
-                              C::ATOM);
-    load_tile<D, BK, THREADS>(sV, v + b * vs.b + hk * vs.h, vs.s, k0, sk,
-                              C::ATOM);
+    load_tile<DQK, BK, THREADS>(sK, k + b * ks.b + hk * ks.h, ks.s, k0, sk,
+                                Tile<DQK>::ATOM);
+    load_tile<DV, BK, THREADS>(sV, v + b * vs.b + hk * vs.h, vs.s, k0, sk,
+                               Tile<DV>::ATOM);
     load_pair(0);
   }
   cp_async_commit();
 
-  float acc_k[NA][AW / 2], acc_v[NA][AW / 2];  // rows: keys r0 + 8 i
-#pragma unroll
-  for (int a = 0; a < NA; ++a)
-#pragma unroll
-    for (int i = 0; i < AW / 2; ++i) acc_k[a][i] = acc_v[a][i] = 0.f;
+  Acc<DQK> acc_k;  // rows: keys r0 + 8 i
+  Acc<DV> acc_v;
+  zero_acc<DQK>(acc_k);
+  zero_acc<DV>(acc_v);
   const float scale_log2 = scale * LOG2E;
   float s[32], dp[32];  // the scores' and dP's fragments, overwritten by
 #pragma unroll          // each tile's first product (scale_d = 0)
@@ -589,8 +624,8 @@ bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_commit();
     }
     const int q0 = q_first + (it % n_q) * BQ;
-    const uint32_t sQ = sQ0 + (it % STAGES) * 2 * C::TILE;
-    const uint32_t sdO = sQ + C::TILE;
+    const uint32_t sQ = sQ0 + (it % STAGES) * (C::QK + C::VT);
+    const uint32_t sdO = sQ + C::QK;
     const float* sL = stats + (it % STAGES) * 2 * BQ;
     const float* sD = sL + BQ;
 
@@ -598,8 +633,8 @@ bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
-    tile_ss<D>(s, sK, sQ);
-    tile_ss<D>(dp, sV, sdO);
+    tile_ss<DQK>(s, sK, sQ);
+    tile_ss<DV>(dp, sV, sdO);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -634,77 +669,82 @@ bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // dV += P^T . dO and dK += dS^T . Q over the tile's q rows
-    fence_acc<D>(acc_v);
-    fence_acc<D>(acc_k);
+    fence_acc<DV>(acc_v);
+    fence_acc<DQK>(acc_k);
     fence_regs(pa);
     fence_regs(dsa);
     wgmma_fence();
-    tile_rs<D>(acc_v, pa, sdO);
-    tile_rs<D>(acc_k, dsa, sQ);
+    tile_rs<DV>(acc_v, pa, sdO);
+    tile_rs<DQK>(acc_k, dsa, sQ);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(pa);  // the fragments stay live until the products end
     fence_regs(dsa);
-    fence_acc<D>(acc_v);
-    fence_acc<D>(acc_k);
+    fence_acc<DV>(acc_v);
+    fence_acc<DQK>(acc_k);
   }
   cp_async_wait_all();
 
   if (split == 1) {
-    store_acc<D>(dk + b * dks.b + hk * dks.h, dks.s, k0, sk, r0, c2, acc_k,
-                 scale);
-    store_acc<D>(dv + b * dvs.b + hk * dvs.h, dvs.s, k0, sk, r0, c2, acc_v,
-                 1.f);
+    store_acc<DQK>(dk + b * dks.b + hk * dks.h, dks.s, k0, sk, r0, c2, acc_k,
+                   scale);
+    store_acc<DV>(dv + b * dvs.b + hk * dvs.h, dvs.s, k0, sk, r0, c2, acc_v,
+                  1.f);
     return;
   }
-  // this part's float32 sums, [part][dK, dV][b][key][hk][D], for
-  // bwd_reduce_kernel
+  // this part's float32 sums for bwd_reduce_kernel: its dK rows
+  // [b][key][hk][DQK], then its dV rows [b][key][hk][DV]
   const long long n_rows = (long long)(gridDim.x / split) * sk;
-  float* pk = part + ((2LL * pi * n_rows + (long long)b * sk * hkv) + hk) * D;
-  store_acc<D>(pk, (long long)hkv * D, k0, sk, r0, c2, acc_k, 1.f);
-  store_acc<D>(pk + n_rows * D, (long long)hkv * D, k0, sk, r0, c2, acc_v,
-               1.f);
+  const long long row = (long long)b * sk * hkv + hk;  // (b, key 0, hk)
+  float* pk = part + pi * n_rows * (DQK + DV);
+  store_acc<DQK>(pk + row * DQK, (long long)hkv * DQK, k0, sk, r0, c2,
+                 acc_k, 1.f);
+  store_acc<DV>(pk + n_rows * DQK + row * DV, (long long)hkv * DV, k0, sk,
+                r0, c2, acc_v, 1.f);
 }
 
 // dK and dV from the dK/dV kernel's `split` float32 parts, summed in part
-// order: one thread a (b, key, KV head) row's 8 columns
-template <int D>
+// order: one thread an 8-column chunk of a (b, key, KV head) row of dK
+// (DQK / 8 chunks a row) or of dV (DV / 8)
+template <int DQK, int DV>
 __global__ void __launch_bounds__(256)
 bwd_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
                   bf16* __restrict__ dv, int split, int sk, int hkv,
                   Strides dks, Strides dvs, float scale, long long n_rows) {
-  constexpr int CPR = D / 8;
+  constexpr int CQ = DQK / 8, CV = DV / 8;
   const long long e = blockIdx.x * 256LL + threadIdx.x;
-  if (e >= n_rows * CPR) return;
-  const long long row = e / CPR;  // (b, key, hk)
-  const int c = (int)(e % CPR) * 8, hk = row % hkv, key = (row / hkv) % sk;
+  if (e >= n_rows * (CQ + CV)) return;
+  const long long row = e / (CQ + CV);  // (b, key, hk)
+  const int cc = (int)(e % (CQ + CV));
+  const bool is_k = cc < CQ;
+  const int c = (is_k ? cc : cc - CQ) * 8;
+  const int hk = row % hkv, key = (row / hkv) % sk;
   const long long b = row / ((long long)hkv * sk);
+  const float* src0 =
+      part + (is_k ? row * DQK : n_rows * DQK + row * DV) + c;
+  float acc[8];
 #pragma unroll
-  for (int w = 0; w < 2; ++w) {
-    float acc[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-    for (int p = 0; p < split; ++p) {
-      const float4* src = reinterpret_cast<const float4*>(
-          part + ((2LL * p + w) * n_rows + row) * D + c);
-      const float4 x = src[0], y = src[1];
-      acc[0] += x.x; acc[1] += x.y; acc[2] += x.z; acc[3] += x.w;
-      acc[4] += y.x; acc[5] += y.y; acc[6] += y.z; acc[7] += y.w;
-    }
-    const float mul = w == 0 ? scale : 1.f;
-    uint4 out;
-    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      o[j] = pack_bf16(acc[2 * j] * mul, acc[2 * j + 1] * mul);
-    bf16* dst = w == 0 ? dk + b * dks.b + key * dks.s + hk * dks.h
-                       : dv + b * dvs.b + key * dvs.s + hk * dvs.h;
-    *reinterpret_cast<uint4*>(dst + c) = out;
+  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+  for (int p = 0; p < split; ++p) {
+    const float4* src = reinterpret_cast<const float4*>(
+        src0 + (long long)p * n_rows * (DQK + DV));
+    const float4 x = src[0], y = src[1];
+    acc[0] += x.x; acc[1] += x.y; acc[2] += x.z; acc[3] += x.w;
+    acc[4] += y.x; acc[5] += y.y; acc[6] += y.z; acc[7] += y.w;
   }
+  const float mul = is_k ? scale : 1.f;
+  uint4 out;
+  uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    o[j] = pack_bf16(acc[2 * j] * mul, acc[2 * j + 1] * mul);
+  bf16* dst = is_k ? dk + b * dks.b + key * dks.s + hk * dks.h
+                   : dv + b * dvs.b + key * dvs.s + hk * dvs.h;
+  *reinterpret_cast<uint4*>(dst + c) = out;
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(THREADS, DV <= 64 ? 2 : 1)
 bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse,
@@ -712,12 +752,11 @@ bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     int sq, int sk, int hq, int group, Strides qs,
                     Strides ks, Strides vs, Strides dos, Strides dqs,
                     float scale, int causal) {
-  using C = Cfg<D>;
-  constexpr int NA = C::NA, AW = C::AW;
+  using C = Cfg<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sdO = sQ + C::TILE;
-  const uint32_t sKV0 = sdO + C::TILE;  // stage st: K, then V
+  const uint32_t sdO = sQ + C::QK;
+  const uint32_t sKV0 = sdO + C::VT;  // stage st: K, then V
 
   const int b = blockIdx.x / hq, h = blockIdx.x % hq, hk = h / group;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest first
@@ -728,14 +767,16 @@ bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + b * vs.b + hk * vs.h;
   const int n_tiles = kv_tiles(q0, sq, sk, causal);
 
-  load_tile<D, BQ, THREADS>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq,
-                            C::ATOM);
-  load_tile<D, BQ, THREADS>(sdO, dout + b * dos.b + h * dos.h, dos.s, q0,
-                            sq, C::ATOM);
-  if (n_tiles > 0) {
-    load_tile<D, BK, THREADS>(sKV0, kb, ks.s, 0, sk, C::ATOM);
-    load_tile<D, BK, THREADS>(sKV0 + C::TILE, vb, vs.s, 0, sk, C::ATOM);
-  }
+  // stage st <- the K and V tiles of keys [k0, k0 + BK)
+  auto load_kv = [&](uint32_t st, int k0) {
+    load_tile<DQK, BK, THREADS>(st, kb, ks.s, k0, sk, Tile<DQK>::ATOM);
+    load_tile<DV, BK, THREADS>(st + C::QK, vb, vs.s, k0, sk, Tile<DV>::ATOM);
+  };
+  load_tile<DQK, BQ, THREADS>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq,
+                              Tile<DQK>::ATOM);
+  load_tile<DV, BQ, THREADS>(sdO, dout + b * dos.b + h * dos.h, dos.s, q0,
+                             sq, Tile<DV>::ATOM);
+  if (n_tiles > 0) load_kv(sKV0, 0);
   cp_async_commit();
 
   float lb[2], dl[2];  // L (log2 units) and delta of rows r0 + 8 i
@@ -746,11 +787,8 @@ bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lb[i] = row < sq ? lse[at] * LOG2E : 0.f;
     dl[i] = row < sq ? delta[at] : 0.f;
   }
-  float acc[NA][AW / 2];
-#pragma unroll
-  for (int a = 0; a < NA; ++a)
-#pragma unroll
-    for (int i = 0; i < AW / 2; ++i) acc[a][i] = 0.f;
+  Acc<DQK> acc;
+  zero_acc<DQK>(acc);
   const float scale_log2 = scale * LOG2E;
   float s[32], dp[32];  // the scores' and dP's fragments, overwritten by
 #pragma unroll          // each tile's first product (scale_d = 0)
@@ -761,22 +799,19 @@ bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_proxy_async();
     __syncthreads();
     if (it + 1 < n_tiles) {
-      const uint32_t nxt = sKV0 + ((it + 1) % STAGES) * 2 * C::TILE;
-      load_tile<D, BK, THREADS>(nxt, kb, ks.s, (it + 1) * BK, sk, C::ATOM);
-      load_tile<D, BK, THREADS>(nxt + C::TILE, vb, vs.s, (it + 1) * BK, sk,
-                                C::ATOM);
+      load_kv(sKV0 + ((it + 1) % STAGES) * (C::QK + C::VT), (it + 1) * BK);
       cp_async_commit();
     }
     const int k0 = it * BK;
-    const uint32_t sK = sKV0 + (it % STAGES) * 2 * C::TILE;
-    const uint32_t sV = sK + C::TILE;
+    const uint32_t sK = sKV0 + (it % STAGES) * (C::QK + C::VT);
+    const uint32_t sV = sK + C::QK;
 
     // S = Q . K^T and dP = dO . V^T: rows are q rows, columns keys
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
-    tile_ss<D>(s, sQ, sK);
-    tile_ss<D>(dp, sdO, sV);
+    tile_ss<DQK>(s, sQ, sK);
+    tile_ss<DV>(dp, sdO, sV);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -803,19 +838,19 @@ bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
 
     // dQ += dS . K over the tile's keys
-    fence_acc<D>(acc);
+    fence_acc<DQK>(acc);
     fence_regs(dsa);
     wgmma_fence();
-    tile_rs<D>(acc, dsa, sK);
+    tile_rs<DQK>(acc, dsa, sK);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(dsa);
-    fence_acc<D>(acc);
+    fence_acc<DQK>(acc);
   }
   cp_async_wait_all();
 
-  store_acc<D>(dq + b * dqs.b + h * dqs.h, dqs.s, q0, sq, r0, c2, acc,
-               scale);
+  store_acc<DQK>(dq + b * dqs.b + h * dqs.h, dqs.s, q0, sq, r0, c2, acc,
+                 scale);
 }
 
 }  // namespace tc
@@ -835,58 +870,62 @@ struct Args {
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
 };
 
-template <typename T, int D>
+template <typename T, int DV>
 cudaError_t launch_prep(const Args& a, cudaStream_t stream) {
   const long long n_rows = (long long)a.batch * a.sq * a.hq;
-  bwd_prep_kernel<T, D><<<(unsigned)((n_rows + 255) / 256), 256, 0,
-                          stream>>>(
+  bwd_prep_kernel<T, DV><<<(unsigned)((n_rows + 255) / 256), 256, 0,
+                           stream>>>(
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta,
       a.sq, a.hq, a.os, a.dos, n_rows);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_f32(const Args& a, cudaStream_t stream) {
   using namespace simt;
-  const float scale = (float)(1.0 / sqrt((double)D));
+  const float scale = (float)(1.0 / sqrt((double)DQK));
   const float* q = static_cast<const float*>(a.q);
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
   const float* dout = static_cast<const float*>(a.dout);
-  cudaError_t err = allow_smem(bwd_dkdv_kernel<D>, dkdv_smem<D>());
-  if (err == cudaSuccess) err = allow_smem(bwd_dq_kernel<D>, dq_smem<D>());
-  if (err == cudaSuccess) err = launch_prep<float, D>(a, stream);
+  cudaError_t err =
+      allow_smem(bwd_dkdv_kernel<DQK, DV>, dkdv_smem<DQK, DV>());
+  if (err == cudaSuccess)
+    err = allow_smem(bwd_dq_kernel<DQK, DV>, dq_smem<DQK, DV>());
+  if (err == cudaSuccess) err = launch_prep<float, DV>(a, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 kv_grid(a.batch * a.hkv, (a.sk + BK - 1) / BK);
-  bwd_dkdv_kernel<D><<<kv_grid, THREADS, dkdv_smem<D>(), stream>>>(
+  bwd_dkdv_kernel<DQK, DV><<<kv_grid, THREADS, dkdv_smem<DQK, DV>(),
+                             stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dk),
       static_cast<float*>(a.dv), a.sq, a.sk, a.hq, a.hkv, a.qs, a.ks, a.vs,
       a.dos, a.dks, a.dvs, scale, a.causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 q_grid(a.batch * a.hq, (a.sq + BQ - 1) / BQ);
-  bwd_dq_kernel<D><<<q_grid, THREADS, dq_smem<D>(), stream>>>(
+  bwd_dq_kernel<DQK, DV><<<q_grid, THREADS, dq_smem<DQK, DV>(), stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dq), a.sq, a.sk,
       a.hq, a.hq / a.hkv, a.qs, a.ks, a.vs, a.dos, a.dqs, scale, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_bf16(const Args& a, cudaStream_t stream) {
   using namespace tc;
-  using C = Cfg<D>;
-  const float scale = (float)(1.0 / sqrt((double)D));
+  using C = Cfg<DQK, DV>;
+  const float scale = (float)(1.0 / sqrt((double)DQK));
   const bf16* q = static_cast<const bf16*>(a.q);
   const bf16* k = static_cast<const bf16*>(a.k);
   const bf16* v = static_cast<const bf16*>(a.v);
   const bf16* dout = static_cast<const bf16*>(a.dout);
-  cudaError_t err = allow_smem(bwd_dkdv_wgmma_kernel<D>, C::DKDV_SMEM);
+  cudaError_t err = allow_smem(bwd_dkdv_wgmma_kernel<DQK, DV>, C::DKDV_SMEM);
   if (err == cudaSuccess)
-    err = allow_smem(bwd_dq_wgmma_kernel<D>, C::DQ_SMEM);
-  if (err == cudaSuccess) err = launch_prep<bf16, D>(a, stream);
+    err = allow_smem(bwd_dq_wgmma_kernel<DQK, DV>, C::DQ_SMEM);
+  if (err == cudaSuccess) err = launch_prep<bf16, DV>(a, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 kv_grid(a.batch * a.hkv * a.split, (a.sk + BK - 1) / BK);
-  bwd_dkdv_wgmma_kernel<D><<<kv_grid, THREADS, C::DKDV_SMEM, stream>>>(
+  bwd_dkdv_wgmma_kernel<DQK, DV><<<kv_grid, THREADS, C::DKDV_SMEM,
+                                   stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), a.part, a.split, a.sq, a.sk, a.hq, a.hkv,
       a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs, scale, a.causal);
@@ -894,43 +933,61 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (a.split > 1) {
     const long long n_rows = (long long)a.batch * a.sk * a.hkv;
-    bwd_reduce_kernel<D><<<(unsigned)((n_rows * (D / 8) + 255) / 256), 256,
-                           0, stream>>>(
+    const long long n_chunks = n_rows * ((DQK + DV) / 8);
+    bwd_reduce_kernel<DQK, DV><<<(unsigned)((n_chunks + 255) / 256), 256,
+                                 0, stream>>>(
         a.part, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.split,
         a.sk, a.hkv, a.dks, a.dvs, scale, n_rows);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 q_grid(a.batch * a.hq, (a.sq + BQ - 1) / BQ);
-  bwd_dq_wgmma_kernel<D><<<q_grid, THREADS, C::DQ_SMEM, stream>>>(
+  bwd_dq_wgmma_kernel<DQK, DV><<<q_grid, THREADS, C::DQ_SMEM, stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.dq), a.sq, a.sk,
       a.hq, a.hq / a.hkv, a.qs, a.ks, a.vs, a.dos, a.dqs, scale, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the (DQK, DV) instance for the dtype: 0 = float32 (SIMT; one part), 1 =
+// bfloat16 (wgmma; 16-byte aligned pointers and strides, checked here)
+template <int DQK, int DV>
+int launch(int dtype, const Args& a, cudaStream_t stream) {
+  if (dtype == 0 && a.split == 1) return launch_f32<DQK, DV>(a, stream);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Strides* all[] = {&a.qs, &a.ks, &a.vs, &a.os, &a.dos,
+                          &a.dqs, &a.dks, &a.dvs};
+  const void* ptrs[] = {a.q, a.k, a.v, a.o, a.dout, a.dq, a.dk, a.dv};
+  for (int i = 0; i < 8; ++i)
+    if (!flash::aligned(ptrs[i], *all[i]))
+      return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bf16<DQK, DV>(a, stream);
+}
+
 }  // namespace
 
-// q, o, dout, dq: (batch, sq, hq, d); k, v, dk, dv: (batch, sk, hkv, d).
-// Strides in elements, (batch, seq, head) for each tensor; d has unit
-// stride. lse: the forward's float32 (batch, hq, sq) log-sum-exp, an
-// input; delta: float32 scratch of batch * hq * sq. split: the parts the
-// bf16 dK/dV kernel cuts each KV head's hq / hkv query heads into (a
-// divisor of it; 1 for float32); part: float32 scratch of split * 2 *
-// batch * sk * hkv * d when split > 1, else unused. dtype: 0 = float32
-// (SIMT kernels), 1 = bfloat16 (wgmma kernels; 16-byte aligned pointers
-// and strides); d in {32, 64, 128}. Returns cudaGetLastError() after the
-// launches (or the attribute's error).
+// q, dq: (batch, sq, hq, d); o, dout: (batch, sq, hq, dv); k, dk: (batch,
+// sk, hkv, d); v, dv: (batch, sk, hkv, dv). Strides in elements, (batch,
+// seq, head) for each tensor; the head dim has unit stride. lse: the
+// forward's float32 (batch, hq, sq) log-sum-exp, an input; delta: float32
+// scratch of batch * hq * sq. split: the parts the bf16 dK/dV kernel cuts
+// each KV head's hq / hkv query heads into (a divisor of it; 1 for
+// float32); part: float32 scratch of split * batch * sk * hkv * (d + dv)
+// when split > 1, else unused. dtype: 0 = float32 (SIMT kernels), 1 =
+// bfloat16 (wgmma kernels; 16-byte aligned pointers and strides); (d, dv)
+// in {(32, 32), (64, 64), (128, 128), (96, 64)}: any other pair returns
+// cudaErrorInvalidValue. Returns cudaGetLastError() after the launches (or
+// the attribute's error).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, const float* lse,
-    float* delta, float* part, int dtype, int d, int batch, int sq, int sk,
-    int hq, int hkv, int split, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, long long o_sb, long long o_ss, long long o_sh,
-    long long do_sb, long long do_ss, long long do_sh, long long dq_sb,
-    long long dq_ss, long long dq_sh, long long dk_sb, long long dk_ss,
-    long long dk_sh, long long dv_sb, long long dv_ss, long long dv_sh,
-    int causal, void* stream) {
+    float* delta, float* part, int dtype, int d, int d_v, int batch, int sq,
+    int sk, int hq, int hkv, int split, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+    long long o_ss, long long o_sh, long long do_sb, long long do_ss,
+    long long do_sh, long long dq_sb, long long dq_ss, long long dq_sh,
+    long long dk_sb, long long dk_ss, long long dk_sh, long long dv_sb,
+    long long dv_ss, long long dv_sh, int causal, void* stream) {
   constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0 || sq <= 0 || sk <= 0 || hq <= 0) return 0;
   if (hkv <= 0 || hq % hkv != 0 || split <= 0 || (hq / hkv) % split != 0
@@ -943,24 +1000,9 @@ extern "C" int flash_attention_bwd(
                {dq_sb, dq_ss, dq_sh}, {dk_sb, dk_ss, dk_sh},
                {dv_sb, dv_ss, dv_sh}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    switch (d) {
-      case 32: return launch_f32<32>(a, st);
-      case 64: return launch_f32<64>(a, st);
-      case 128: return launch_f32<128>(a, st);
-    }
-    return kInvalid;
-  }
-  if (dtype != 1) return kInvalid;
-  const Strides* all[] = {&a.qs, &a.ks, &a.vs, &a.os, &a.dos,
-                          &a.dqs, &a.dks, &a.dvs};
-  const void* ptrs[] = {q, k, v, o, dout, dq, dk, dv};
-  for (int i = 0; i < 8; ++i)
-    if (!flash::aligned(ptrs[i], *all[i])) return kInvalid;
-  switch (d) {
-    case 32: return launch_bf16<32>(a, st);
-    case 64: return launch_bf16<64>(a, st);
-    case 128: return launch_bf16<128>(a, st);
-  }
+  if (d == 32 && d_v == 32) return launch<32, 32>(dtype, a, st);
+  if (d == 64 && d_v == 64) return launch<64, 64>(dtype, a, st);
+  if (d == 128 && d_v == 128) return launch<128, 128>(dtype, a, st);
+  if (d == 96 && d_v == 64) return launch<96, 64>(dtype, a, st);
   return kInvalid;
 }

@@ -4,10 +4,13 @@
 // Tiles live in shared memory in bf16 in the swizzled layout the wgmma
 // descriptors read: a tile of ROWS rows of D columns is NA column atoms of
 // AW columns each, atom a at a * ROWS * ROWB bytes, row r of an atom at
-// r * ROWB. Rows are 64 columns (128 bytes, 128-byte swizzle) for D = 64
-// and 128 (two atoms at D = 128), 32 columns (64 bytes, 64-byte swizzle)
-// for D = 32. Every tile starts on the 1024-byte swizzle repeat. Tiles
-// arrive by 16-byte cp.async copies, zero-filled past the sequence's end.
+// r * ROWB. Atoms are 64 columns (128 bytes, 128-byte swizzle) where 64
+// divides D (one at D = 64, two at D = 128), else 32 columns (64 bytes,
+// 64-byte swizzle: one at D = 32, three at D = 96, MLA's q/k head dim).
+// Every tile starts on the 1024-byte swizzle repeat, and every atom on its
+// mode's repeat (512 bytes at 64-byte swizzle). Tiles arrive by 16-byte
+// cp.async copies, zero-filled past the sequence's end. A kernel whose q/k
+// and v head dims differ keeps each tile in its own dim's layout.
 //
 // The two product forms, both wgmma.mma_async bf16 -> f32 (inline PTX):
 //   wgmma_ss (m64n64k16): A and B both from shared memory, K-major: A's
@@ -15,7 +18,8 @@
 //     columns, so C = A . B^T of two tiles read row-wise.
 //   wgmma_rs_tb (m64n32k16, m64n64k16): A from registers, B from shared
 //     memory through the transpose bit (MN-major): B's K dimension runs
-//     along the tile's rows, so C += A . B of a tile read column-wise.
+//     along the tile's rows, so C += A . B of a tile read column-wise, one
+//     instruction a column atom (N = 96 is three m64n32k16).
 // The f32 accumulator fragment of a product (thread t of the warpgroup
 // holds rows 16 w + t/4 + {0, 8}, columns 8 n + 2 (t%4) + {0, 1}, w the
 // warp) rounded to bf16 pairs is the A fragment of m64nXk16 as it stands:
@@ -41,12 +45,12 @@ struct Strides {  // element strides of a (B, S, H, D) tensor, D contiguous
 // the swizzled layout of a bf16 tile with rows of D columns
 template <int D>
 struct Swz {
-  static constexpr int AW = D < 64 ? D : 64;       // columns per atom
-  static constexpr int NA = D / AW;                // atoms per row of D
-  static constexpr int ROWB = 2 * AW;              // bytes per atom row
-  static constexpr int SWZ = ROWB == 128 ? 1 : 2;  // descriptor: 128B, 64B
-  static constexpr int GROUP = 8 * ROWB;           // 8 rows: the SBO
-  static_assert(D % 32 == 0 && D <= 128, "D in {32, 64, 128}");
+  static constexpr int AW = D % 64 == 0 ? 64 : 32;  // columns per atom
+  static constexpr int NA = D / AW;                 // atoms per row of D
+  static constexpr int ROWB = 2 * AW;               // bytes per atom row
+  static constexpr int SWZ = ROWB == 128 ? 1 : 2;   // descriptor: 128B, 64B
+  static constexpr int GROUP = 8 * ROWB;            // 8 rows: the SBO
+  static_assert(D % 32 == 0 && D <= 128, "D in {32, 64, 96, 128}");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

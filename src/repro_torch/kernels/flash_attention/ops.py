@@ -11,10 +11,15 @@ body ``_flash_kernel``) for CUDA tensors, and take
 - :func:`flash_attention` on ``(B, S, H, D)`` with GQA (``Hq = g * Hkv``,
   q head ``h`` reads KV head ``h // g``), as the reference wrapper, but
   without its transposes and KV-head repeats: the kernel takes the
-  ``(B, S, H, D)`` strides and maps the heads itself.
+  ``(B, S, H, D)`` strides and maps the heads itself. v may have a head
+  dim ``D_v`` other than q's and k's ``D`` (MLA: ``D = d_nope + d_rope``
+  = 96, ``D_v`` = 64), as the reference's XLA ``blockwise_attention``
+  takes it; the output then has ``D_v`` columns. The CUDA kernels are
+  compiled for the ``(D, D_v)`` pairs in ``HEAD_DIMS``.
 
 Both compute what ``_flash_kernel`` computes: scores ``(q . k) * scale`` in
-float32 with ``scale = 1/sqrt(D)``, a causal mask from positions (query
+float32 with ``scale = 1/sqrt(D)`` (q's and k's dim, as the reference
+divides by ``sqrt(q.shape[-1])``), a causal mask from positions (query
 ``i`` sees keys ``j <= i``), an online softmax with float32 running max,
 sum and accumulator, ``p`` rounded to v's dtype before ``p . V``, the
 ``NEG_INF = -1e30`` guards that keep fully masked rows at zero, and the
@@ -73,25 +78,27 @@ TILE_Q, TILE_K = 128, 64       # the bf16 (tensor-core) kernel's tiles
 F32_TILE = 64                   # the float32 (SIMT) kernel's tiles
 BWD_TILE = 64                   # the backward kernels' q and key tiles
 DKDV_CTAS_PER_SM = 2            # see dkdv_split
-HEAD_DIMS = (32, 64, 128)       # the CUDA kernel's template instances
+# the CUDA kernels' template instances: (D of q and k, D_v of v)
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (96, 64))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the C entry's dtype codes
 NEG_INF = -1e30
 
 
 def flash_attention_plain(q, k, v, causal: bool = True, block_q: int = 128,
                           block_k: int = 128, return_lse: bool = False):
-    """Plain PyTorch version on ``(B, S, H, D)`` with GQA: the same online
-    softmax over ``block_q`` x ``block_k`` tiles with the same float32 state
-    and the same rounding of ``p``. With ``return_lse``, returns ``(out,
+    """Plain PyTorch version on ``(B, S, H, D)`` with GQA (v's head dim
+    may differ from q's; the output takes v's): the same online softmax
+    over ``block_q`` x ``block_k`` tiles with the same float32 state and
+    the same rounding of ``p``. With ``return_lse``, returns ``(out,
     lse)``: each row's log-sum-exp ``m + log(l)`` of its scaled, masked
     scores from the final running max and sum, float32 ``(B, Hq, Sq)``
     (``NEG_INF`` for a row that sees no key), as the kernels write it."""
     b, sq, hq, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     scale = 1.0 / (d ** 0.5)
     qg = q.reshape(b, sq, hkv, hq // hkv, d).float()
     kf, vf = k.float(), v.float()
-    out = torch.empty((b, hkv, hq // hkv, sq, d), dtype=torch.float32,
+    out = torch.empty((b, hkv, hq // hkv, sq, dv), dtype=torch.float32,
                       device=q.device)
     lse = torch.empty((b, hkv, hq // hkv, sq), dtype=torch.float32,
                       device=q.device)
@@ -100,7 +107,7 @@ def flash_attention_plain(q, k, v, causal: bool = True, block_q: int = 128,
         stat = (b, hkv, hq // hkv, q1 - q0)
         m = torch.full(stat, NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros(stat, dtype=torch.float32, device=q.device)
-        acc = torch.zeros(stat + (d,), dtype=torch.float32, device=q.device)
+        acc = torch.zeros(stat + (dv,), dtype=torch.float32, device=q.device)
         # a tile wholly above the diagonal adds exactly zero: skip it
         k_end = min(sk, q1) if causal else sk
         for k0 in range(0, k_end, block_k):
@@ -122,7 +129,7 @@ def flash_attention_plain(q, k, v, causal: bool = True, block_q: int = 128,
             m = m_new
         out[..., q0:q1, :] = acc / l.clamp_min(1e-30)[..., None]
         lse[..., q0:q1] = torch.where(l > 0, m + torch.log(l), NEG_INF)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv).to(q.dtype)
     return (out, lse.reshape(b, hq, sq)) if return_lse else out
 
 
@@ -130,10 +137,12 @@ def _check(q, k, v, block_q: int, block_k: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be (B, S, H, D)")
     b, sq, hq, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d
+            or v.shape[3] == 0):
         raise ValueError(
             f"flash_attention: k {tuple(k.shape)} and v {tuple(v.shape)} "
-            f"must be (B, Sk, Hkv, D) with q's B and D {tuple(q.shape)}")
+            f"must be (B, Sk, Hkv, D) and (B, Sk, Hkv, D_v) with q's B and "
+            f"D {tuple(q.shape)}")
     hkv = k.shape[2]
     if hkv == 0 or hq % hkv:
         raise ValueError(f"flash_attention: Hq={hq} is not a multiple of "
@@ -149,6 +158,14 @@ def _check(q, k, v, block_q: int, block_k: int) -> None:
                          f"block_k={block_k}")
 
 
+def _check_head_dims(who: str, q, v) -> None:
+    pair = (q.shape[-1], v.shape[-1])
+    if pair not in HEAD_DIMS:
+        raise ValueError(f"{who}: the CUDA kernel is compiled for D (q, k) "
+                         f"and D_v (v) in {HEAD_DIMS}, not D={pair[0]}, "
+                         f"D_v={pair[1]}")
+
+
 def bsh_strides(t) -> tuple:
     """``t``'s (b, s, h) strides as the kernels take them: 0 along a dim
     of size 1, which a kernel never steps along and whose stride PyTorch
@@ -158,15 +175,12 @@ def bsh_strides(t) -> tuple:
 
 
 def check_kernel_operands(q, k, v) -> None:
-    """What the CUDA kernels take beyond :func:`_check`: a compiled head
-    dim, unit stride along D, at most 65535 q tiles, and for bf16 (16-byte
-    ``cp.async`` copies) 16-byte aligned ``data_ptr`` and (b, s, h)
-    strides. Plain checks on the operands' metadata: the wrapper calls
-    them for CUDA tensors only."""
-    d = q.shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the CUDA kernel is compiled for "
-                         f"D in {HEAD_DIMS}, not D={d}")
+    """What the CUDA kernels take beyond :func:`_check`: a compiled pair
+    of head dims (q's and k's D, v's D_v), unit stride along D, at most
+    65535 q tiles, and for bf16 (16-byte ``cp.async`` copies) 16-byte
+    aligned ``data_ptr`` and (b, s, h) strides. Plain checks on the
+    operands' metadata: the wrapper calls them for CUDA tensors only."""
+    _check_head_dims("flash_attention", q, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name} must have unit "
@@ -189,7 +203,8 @@ def check_kernel_operands(q, k, v) -> None:
 
 def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
-    """(B, Sq, Hq, D) attention of q over k, v (B, Sk, Hkv, D), GQA.
+    """(B, Sq, Hq, D_v) attention of q (B, Sq, Hq, D) over k (B, Sk, Hkv,
+    D) and v (B, Sk, Hkv, D_v), GQA.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     that the dtype selects (bf16: the ``wgmma`` kernel at ``TILE_Q`` x
@@ -221,7 +236,8 @@ def _forward(q, k, v, causal: bool, block_q: int, block_k: int,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     check_kernel_operands(q, k, v)
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    o = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
+                    device=q.device)
     if not with_lse:
         launch(q, k, v, o, causal)
         return o
@@ -254,7 +270,8 @@ def flash_attention_bwd_plain(q, k, v, o, do, causal: bool = True,
                               block_q: int = 512, lse=None):
     """Plain PyTorch gradient (dq, dk, dv) of the forward at ``(q, k, v)``
     with output ``o`` and output gradient ``do``, all ``(B, S, H, D)``
-    with GQA: dense float32 scores over ``block_q`` query rows at a time,
+    with GQA (v, o, do and dv at v's head dim ``D_v``, which may differ
+    from D): dense float32 scores over ``block_q`` query rows at a time,
     ``P = exp(S - L)``, ``dS = P * (dO . V^T - rowsum(dO * O))``, with
     ``P`` and ``dS`` rounded to the inputs' dtype before the products
     that take them, as the kernels' bf16 operands are (a no-op at
@@ -262,7 +279,7 @@ def flash_attention_bwd_plain(q, k, v, o, do, causal: bool = True,
     ``None`` computes it here with ``torch.logsumexp``. Returns the
     gradients in the inputs' dtypes."""
     b, sq, hq, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    sk, hkv, d_v = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
     scale = 1.0 / (d ** 0.5)
     kf, vf = k.float(), v.float()
@@ -278,8 +295,8 @@ def flash_attention_bwd_plain(q, k, v, o, do, causal: bool = True,
     for q0 in range(0, sq, block_q):
         q1 = min(q0 + block_q, sq)
         qg = q[:, q0:q1].reshape(b, q1 - q0, hkv, g, d).float()
-        dog = do[:, q0:q1].reshape(b, q1 - q0, hkv, g, d).float()
-        og = o[:, q0:q1].reshape(b, q1 - q0, hkv, g, d).float()
+        dog = do[:, q0:q1].reshape(b, q1 - q0, hkv, g, d_v).float()
+        og = o[:, q0:q1].reshape(b, q1 - q0, hkv, g, d_v).float()
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
         if causal:
             qpos = torch.arange(q0, q1, device=q.device)
@@ -307,9 +324,11 @@ def flash_attention_bwd(q, k, v, o, do, causal: bool = True, lse=None):
     be ``None``); CUDA tensors launch the backward kernels
     (:func:`launch_bwd`), which take ``lse`` as an input, or raise."""
     _check(q, k, v, 1, 1)
-    if o.shape != q.shape or do.shape != q.shape:
+    o_shape = q.shape[:3] + v.shape[3:]
+    if o.shape != o_shape or do.shape != o_shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
-                         f"{tuple(do.shape)} must be q's {tuple(q.shape)}")
+                         f"{tuple(do.shape)} must be {tuple(o_shape)}, q's "
+                         "(B, Sq, Hq) and v's D_v")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, causal, lse=lse)
     if q.device.type != "cuda":
@@ -347,7 +366,7 @@ def launch(q, k, v, o, causal: bool, lse=None) -> None:
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        DTYPES[q.dtype], d, b, sq, k.shape[1], hq, k.shape[2],
+        DTYPES[q.dtype], d, v.shape[-1], b, sq, k.shape[1], hq, k.shape[2],
         *bsh_strides(q), *bsh_strides(k), *bsh_strides(v), *bsh_strides(o),
         int(causal), torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -356,7 +375,8 @@ def launch(q, k, v, o, causal: bool, lse=None) -> None:
 
 
 def check_bwd_operands(q, k, v, o, do, lse, dq, dk, dv) -> None:
-    """What the backward kernels take: a compiled head dim; one dtype
+    """What the backward kernels take: a compiled pair of head dims (q's,
+    k's, dq's and dk's D; v's, o's, do's and dv's D_v); one dtype
     (float32 or bfloat16) and one device for the eight (B, S, H, D)
     tensors, each with unit stride along D; ``lse`` float32, contiguous,
     (B, Hq, Sq), on their device; at most 65535 q or key tiles; and for
@@ -365,10 +385,12 @@ def check_bwd_operands(q, k, v, o, do, lse, dq, dk, dv) -> None:
     before the device is asked for, so they hold on any device."""
     tensors = {"q": q, "k": k, "v": v, "o": o, "do": do, "dq": dq,
                "dk": dk, "dv": dv}
-    d = q.shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: the CUDA kernel is compiled "
-                         f"for D in {HEAD_DIMS}, not D={d}")
+    _check_head_dims("flash_attention_bwd", q, v)
+    for name, t, like in (("o", o, v), ("do", do, v), ("dq", dq, q),
+                          ("dk", dk, k), ("dv", dv, v)):
+        if t.shape[-1] != like.shape[-1]:
+            raise ValueError(f"flash_attention_bwd: {name}'s head dim "
+                             f"{t.shape[-1]} is not {like.shape[-1]}")
     if q.dtype not in DTYPES:
         raise ValueError("flash_attention_bwd: the kernel takes float32 or "
                          "bfloat16 CUDA tensors")
@@ -432,18 +454,20 @@ def launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal: bool) -> None:
         raise ValueError("flash_attention_bwd: the kernel takes float32 or "
                          "bfloat16 CUDA tensors")
     b, sq, hq, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    sk, hkv, d_v = k.shape[1], k.shape[2], v.shape[-1]
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     split = dkdv_split(q, k)
-    part = (torch.empty((split, 2, b, sk, hkv, d), dtype=torch.float32,
-                        device=q.device) if split > 1 else None)
+    # a part: its dK sums (b, sk, hkv, D), then its dV sums (b, sk, hkv, D_v)
+    part = (torch.empty((split, b * sk * hkv * (d + d_v)),
+                        dtype=torch.float32, device=q.device)
+            if split > 1 else None)
     tensors = (q, k, v, o, do, dq, dk, dv)
     fn = _build.entry("flash_attention_bwd")
     strides = [st for t in tensors for st in bsh_strides(t)]
     err = fn(
         *(t.data_ptr() for t in tensors), lse.data_ptr(), delta.data_ptr(),
-        None if part is None else part.data_ptr(), DTYPES[q.dtype], d, b,
-        sq, sk, hq, hkv, split, *strides, int(causal),
+        None if part is None else part.data_ptr(), DTYPES[q.dtype], d,
+        d_v, b, sq, sk, hq, hkv, split, *strides, int(causal),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.count_launch(flash_attention_bwd)

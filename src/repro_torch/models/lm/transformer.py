@@ -1,5 +1,5 @@
-"""Decoder-only transformer: the GQA + dense SwiGLU archs, for training and
-serving.
+"""Decoder-only transformer: the GQA and MLA archs with dense SwiGLU
+layers, for training and serving.
 
 Port of ``repro/models/lm/transformer.py``: ``LMConfig`` (same fields and
 defaults), ``init``, ``forward`` (with its ``mode``), ``logits_of``,
@@ -7,7 +7,12 @@ defaults), ``init``, ``forward`` (with its ``mode``), ``logits_of``,
 ``S >= blockwise_threshold`` run attention through the flash-attention
 kernel (``attention.blockwise_attention``), whose gradient is the
 backward kernel; shorter ones through the plain dense path; decode steps
-attend over the KV cache. With ``cfg.remat`` and ``mode="train"`` each
+attend over the KV cache. MLA (``attn_type="mla"``, minicpm3) expands its
+compressed latent to per-head K and V for prefill and training (q/k head
+dim ``d_nope + d_rope``, v head dim ``d_v``: the flash kernels' (96, 64)
+instance at minicpm3's widths) and decodes by the absorbed-matrix path
+against a latent cache ``{"c": (L, B, Smax, kv_lora), "r": (L, B, Smax,
+d_rope)}`` (DeepSeek-V2 Sec. 2.1). With ``cfg.remat`` and ``mode="train"`` each
 layer is rematerialised (``torch.utils.checkpoint``, non-reentrant: only
 the layer's input is kept, its activations are recomputed in the
 backward, as ``jax.checkpoint`` with ``nothing_saveable``), and
@@ -19,16 +24,17 @@ What differs from the reference:
   ``params["layers"]`` (leading ``(L, ...)`` axis, as ``vmap_init``
   stacks them);
 - ``shard_activation`` is the identity on one card and is dropped;
-- the KV cache keeps the reference's ``{"k", "v"}: (L, B, Smax, Hkv, D)``
-  dict, but ``decode_step`` writes it in place;
+- the cache keeps the reference's dicts (GQA ``{"k", "v"}: (L, B, Smax,
+  Hkv, D)``, MLA ``{"c", "r"}``), but ``decode_step`` writes it in place;
 - the stacked layer parameters are split once with ``unbind``, so their
   gradient is one stack of the layers' gradients;
-- ``attn_type="mla"``, ``moe=True`` and the MoE archs' ``first_k_dense``
-  layers raise ``NotImplementedError`` (ROADMAP.md queue 1 item 8).
+- ``moe=True`` and the MoE archs' ``first_k_dense`` layers raise
+  ``NotImplementedError`` (ROADMAP.md queue 1 item 4).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -90,31 +96,57 @@ class LMConfig:
 
 
 def _check_supported(cfg: LMConfig) -> None:
-    if cfg.attn_type == "mla":
-        raise NotImplementedError(
-            "attn_type='mla' is not ported yet (ROADMAP.md queue 1 item 8)")
-    if cfg.attn_type != "gqa":
+    if cfg.attn_type not in ("gqa", "mla"):
         raise ValueError(cfg.attn_type)
     if cfg.moe or cfg.first_k_dense:
         raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP.md queue 1 item 8)")
+            "MoE layers are not ported yet (ROADMAP.md queue 1 item 4)")
 
 
 # --------------------------------------------------------------------- init
+def _attention_shapes(cfg: LMConfig) -> dict:
+    """name -> (per-layer shape, init) of the attention's parameters, in
+    the reference's ``_init_attention`` order."""
+    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if cfg.attn_type == "gqa":
+        shapes = {
+            "wq": ((d, h, dh), "normal"),
+            "wk": ((d, hkv, dh), "normal"),
+            "wv": ((d, hkv, dh), "normal"),
+            "wo": ((h, dh, d), "normal"),
+        }
+        if cfg.qk_norm:
+            shapes["q_norm"] = ((dh,), "ones")
+            shapes["k_norm"] = ((dh,), "ones")
+        return shapes
+    d_qk = cfg.d_nope + cfg.d_rope
+    if cfg.q_lora > 0:
+        shapes = {
+            "w_dq": ((d, cfg.q_lora), "normal"),
+            "q_norm": ((cfg.q_lora,), "ones"),
+            "w_uq": ((cfg.q_lora, h, d_qk), "normal"),
+        }
+    else:
+        shapes = {"w_q": ((d, h, d_qk), "normal")}
+    shapes.update({
+        "w_dkv": ((d, cfg.kv_lora), "normal"),
+        "kv_norm": ((cfg.kv_lora,), "ones"),
+        "w_uk": ((cfg.kv_lora, h, cfg.d_nope), "normal"),
+        "w_uv": ((cfg.kv_lora, h, cfg.d_v), "normal"),
+        "w_kr": ((d, cfg.d_rope), "normal"),
+        "wo": ((h, cfg.d_v, d), "normal"),
+    })
+    return shapes
+
+
 def _layer_shapes(cfg: LMConfig) -> dict:
     """name -> (per-layer shape, init), in ``_init_layer``'s order."""
-    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    d = cfg.d_model
     shapes = {
         "ln_attn": ((d,), "ones"),
         "ln_ffn": ((d,), "ones"),
-        "wq": ((d, h, dh), "normal"),
-        "wk": ((d, hkv, dh), "normal"),
-        "wv": ((d, hkv, dh), "normal"),
-        "wo": ((h, dh, d), "normal"),
+        **_attention_shapes(cfg),
     }
-    if cfg.qk_norm:
-        shapes["q_norm"] = ((dh,), "ones")
-        shapes["k_norm"] = ((dh,), "ones")
     shapes["w_gate"] = ((d, cfg.d_ff), "normal")
     shapes["w_up"] = ((d, cfg.d_ff), "normal")
     shapes["w_down"] = ((cfg.d_ff, d), "normal")
@@ -170,10 +202,67 @@ def _gqa_attention(p, cfg: LMConfig, x, positions, cache_kv, cache_len):
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
+def _mla_attention(p, cfg: LMConfig, x, positions, cache_kv, cache_len):
+    """MLA: compressed-latent KV. Prefill and training expand the latent
+    to per-head K/V; decode takes the absorbed-matrix path against the
+    latent cache (DeepSeek-V2 Sec. 2.1), writing it in place."""
+    b, s, _ = x.shape
+    if cfg.q_lora > 0:
+        cq = rms_norm(x @ p["w_dq"], p["q_norm"])
+        q = torch.einsum("bsq,qhk->bshk", cq, p["w_uq"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["w_q"])
+    q_nope, q_rope = q[..., :cfg.d_nope], q[..., cfg.d_nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    c_kv = rms_norm(x @ p["w_dkv"], p["kv_norm"])          # (B,S,kv_lora)
+    k_rope = apply_rope((x @ p["w_kr"])[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]        # (B,S,d_rope)
+
+    if cache_kv is None:
+        # prefill/train: expand the latent to per-head K/V
+        k_nope = torch.einsum("bsc,chk->bshk", c_kv, p["w_uk"])
+        v = torch.einsum("bsc,chk->bshk", c_kv, p["w_uv"])
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            *k_nope.shape[:3], cfg.d_rope)], dim=-1)
+        qfull = torch.cat([q_nope, q_rope], dim=-1)
+        if s >= cfg.blockwise_threshold:
+            out = attn.blockwise_attention(qfull, k, v, causal=True,
+                                           block_k=cfg.attn_block_k)
+        else:
+            out = attn.dense_attention(qfull, k, v, causal=True)
+    else:
+        cc, ckr = cache_kv         # this layer's (B, Smax, .) views
+        cc[:, cache_len:cache_len + s] = c_kv.to(cc.dtype)
+        ckr[:, cache_len:cache_len + s] = k_rope.to(ckr.dtype)
+        # absorbed path: scores = (q_nope W_uk) . c + q_rope . k_rope
+        q_abs = torch.einsum("bshk,chk->bshc", q_nope, p["w_uk"])
+        s_lat = torch.einsum("bshc,btc->bhst", q_abs, cc)
+        s_rope = torch.einsum("bshk,btk->bhst", q_rope, ckr)
+        scores = (s_lat + s_rope).float() * _inv_sqrt(cfg.d_nope + cfg.d_rope)
+        valid = torch.arange(cc.shape[1], device=x.device) < cache_len + s
+        scores = torch.where(valid, scores, attn.NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(cc.dtype)
+        o_lat = torch.einsum("bhst,btc->bshc", probs, cc)
+        out = torch.einsum("bshc,chk->bshk", o_lat, p["w_uv"])
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_sqrt(d: int) -> torch.Tensor:
+    """``1.0 / jnp.sqrt(d).astype(float32)``, the reference's MLA decode
+    scale: a float32 square root, then a float32 division. A 0-dim CPU
+    tensor, which a CUDA op reads as a scalar; made once per d and only
+    ever read."""
+    root = torch.tensor(float(d), dtype=torch.float32).sqrt()
+    return torch.tensor(1.0, dtype=torch.float32) / root
+
+
 # -------------------------------------------------------------------- layers
 def _layer_apply(p, cfg: LMConfig, h, positions, cache_kv, cache_len):
-    h = h + _gqa_attention(p, cfg, rms_norm(h, p["ln_attn"]), positions,
-                           cache_kv, cache_len)
+    attn_fn = _mla_attention if cfg.attn_type == "mla" else _gqa_attention
+    h = h + attn_fn(p, cfg, rms_norm(h, p["ln_attn"]), positions, cache_kv,
+                    cache_len)
     x = rms_norm(h, p["ln_ffn"])
     return h + swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
@@ -182,7 +271,9 @@ def _layer_apply(p, cfg: LMConfig, h, positions, cache_kv, cache_len):
 def forward(params, cfg: LMConfig, tokens, positions=None, cache=None,
             cache_len: int = 0, mode: str = "train"):
     """tokens: (B, S). cache: the ``init_cache`` dict or None; with a cache
-    the step's K/V are written into it in place at ``cache_len``.
+    the step's K/V (MLA: latent and rotary key) are written into it in
+    place at ``cache_len``; a layer reads the dict's entries in the order
+    of their sorted keys, as the reference does.
     ``mode``: ``"train"`` rematerialises each layer when ``cfg.remat``;
     ``"prefill"`` and ``"decode"`` never do. Returns hidden (B, S, D)."""
     _check_supported(cfg)
@@ -192,9 +283,10 @@ def forward(params, cfg: LMConfig, tokens, positions=None, cache=None,
     h = params["embed"][tokens].to(cfg.torch_dtype())
     layers = {name: t.unbind(0) for name, t in params["layers"].items()}
     remat = cfg.remat and mode == "train"
+    keys = sorted(cache) if cache is not None else ()
     for i in range(cfg.n_layers):
         lp = {name: t[i] for name, t in layers.items()}
-        lc = None if cache is None else (cache["k"][i], cache["v"][i])
+        lc = None if cache is None else tuple(cache[k][i] for k in keys)
         if remat:
             h = checkpoint(_layer_apply, lp, cfg, h, positions, lc,
                            cache_len, use_reentrant=False)
@@ -245,8 +337,14 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> dict:
     _check_supported(cfg)
     dtype = dtype or cfg.torch_dtype()
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
     dev = resolve(device)
+    lead = (cfg.n_layers, batch, max_len)
+    if cfg.attn_type == "mla":
+        return {"c": torch.zeros(lead + (cfg.kv_lora,), dtype=dtype,
+                                 device=dev),
+                "r": torch.zeros(lead + (cfg.d_rope,), dtype=dtype,
+                                 device=dev)}
+    shape = lead + (cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
@@ -261,8 +359,8 @@ def prefill(params, cfg: LMConfig, tokens):
 @torch.no_grad()
 def decode_step(params, cfg: LMConfig, token, cache, cache_len: int):
     """One serving step: token (B, 1) given a cache filled to
-    ``cache_len``. Writes the step's K/V into ``cache`` in place and
-    returns (logits (B, V), cache)."""
+    ``cache_len``. Writes the step's K/V (MLA: latent and rotary key) into
+    ``cache`` in place and returns (logits (B, V), cache)."""
     cache_len = int(cache_len)
     positions = torch.full(token.shape, cache_len, dtype=torch.int32,
                            device=token.device)

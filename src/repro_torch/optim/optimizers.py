@@ -129,6 +129,9 @@ def adamw(
                       state.mu, grads)
         nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
                       state.nu, grads)
+        # the clipped tree is read for the last time: free it before the
+        # updates take their own tree (a float32 copy of the parameters)
+        del grads
         t = torch.tensor(float(step), dtype=torch.float32)
         bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** t).item()
         bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** t).item()

@@ -162,7 +162,9 @@ def test_registry():
     assert arch.model_module == "repro_torch.models.lm.transformer"
     assert set(preg._MODULES) | set(preg._NOT_PORTED) == set(rreg._MODULES)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        preg.get_arch("qwen3-1.7b")
+        preg.get_arch("moonshot-v1-16b-a3b")
+    assert preg.get_arch("qwen3-1.7b").arch_id == "qwen3-1.7b"
+    assert preg.get_arch("minicpm3-4b").arch_id == "minicpm3-4b"
     with pytest.raises(KeyError):
         preg.get_arch("gpt-5")
 
@@ -344,11 +346,9 @@ def test_serve_main_runs_the_smoke_config(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(attn_type="mla", q_lora=32, kv_lora=24, d_nope=16, d_rope=8,
-         d_v=16),
     dict(moe=True, n_experts=8, top_k=2, d_ff_expert=32),
     dict(first_k_dense=1),
-], ids=["mla", "moe", "first_k_dense"])
+], ids=["moe", "first_k_dense"])
 def test_unported_layers_raise(kw):
     pcfg, _ = _cfgs(**kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
