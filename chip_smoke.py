@@ -11,8 +11,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (sm_90a),
    one ``nvcc`` per source, all at once. Read ptxas's report of the bf16
    flash kernel (``flash_fwd_wgmma_kernel<D, D_v>``, (D, D_v) in (32,
-   32), (64, 64), (128, 128) and MLA's (96, 64)) and of the backward's
-   26 instances: log their registers and spills, and fail if a bf16
+   32), (64, 64), (128, 128) and MLA's (96, 64) and (192, 128)) and of
+   the backward's 31 instances: log their registers and spills, and fail if a bf16
    instance spills or if ptxas says "wgmma.mma_async instructions are
    serialized". Likewise fail if an
    instance of the CSR SpMM (``csr_spmm_kernel<G, V>``, 12 of them) or of
@@ -20,9 +20,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    spills, or the envs' window kernels' instance for the path's owner
    count (``queue_window_kernel<3>``, ``cluster_window_kernel<3>``; those
    of 1, 2, 4, 8 and 16 are logged with the shared memory a block takes).
-2. The policy phase, first after the build (the profiler has dropped
-   kernels from later traces in a process that ran the training's
-   millions of launches first): the paper's calibrate -> train -> deploy
+2. The policy phase, after the build and the checks of phase 3 that
+   read the trainer's kernels from the profiler (the profiler has
+   dropped kernels from later traces in a process that ran the
+   training's millions of launches first): the paper's calibrate -> train -> deploy
    flow through ``repro_torch.train.policy``. ``calibrate_table_from_bundle`` and
    ``calibrate_from_bundle`` run on the main path's bundle (the (W, delta)
    stall grid through the modeled trainer). The tensor cost laws, both
@@ -84,22 +85,22 @@ Phases, each of which ends the run with a non-zero exit on failure:
    process's first run's epoch 0 within ``EPOCH0_BAND`` of its later
    epochs' joules on every rank.
 3. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes its main path gives it. The trainer's kernels at the first
+   shapes its main path gives it. The trainer's kernels' checks run
+   right after the build, with the trainer's two profiles of phase 4:
+   they read the kernels' instances from ``torch.profiler``, and a
+   process that has launched ~3M kernels (the policy phase launches tens
+   of millions) got none of those kernels into a trace. The trainer's kernels at the first
    mini-batch of the default ``reddit`` trace: the CSR SpMM for layer 0,
    layer 1 and layer 1's transposed CSR (atol 1e-4, rtol 1e-5: fp32
-   summed in another order; two launches bit-identical), each also
-   ``torch.equal`` to the dense-block kernel (``block_spmm``, the first
-   port, kept off the path as the witness) on the same adjacency, built
-   by ``to_block_sparse`` at the same buckets (both sum the same FFMAs in
-   ascending column order); ``Spmm``'s backward against plain autograd
+   summed in another order; two launches bit-identical); ``Spmm``'s
+   backward against plain autograd
    (same tolerance). Then the CSR SpMM at any width: F = 6 and 130 (the
    scalar instance) and 132 and 256 (float4, two column slabs) on the
    layer-0 CSR, and F = 1,433 on full_graph_sm's layer-0 CSR from the
    trainer's input rows (1,436 floats apart: float4, 12 slabs) and from
    the same rows contiguous (scalar, 45 slabs); each against the plain
    version (``TOL_SPMM``), relaunched bit-identical, the instance read
-   from the profiler's kernel names, and at F % 4 == 0 ``torch.equal`` to
-   the dense-block kernel. The EmbeddingBag
+   from the profiler's kernel names. The EmbeddingBag
    gather ``torch.equal`` to ``table[idx]`` at the padded L = 8192 shape
    the gather ran until the port dropped the pad, and at the path's own
    shape (one bag per hit, built by ``BagFormat.from_numpy`` as the device
@@ -134,8 +135,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
    Every launch count is zeroed just before and read just after; the run
    must have launched both of its kernels (the CSR SpMM 3 times a step,
    twice in the parity check and 3 times in each of the engine's untimed
-   first runs of a new shape signature, ``n_compiles``; the dense-block
-   kernel never; the
+   first runs of a new shape signature, ``n_compiles``; the
    EmbeddingBag kernel once a step with hits and once a rebuild that keeps
    rows of the active table, its persisted-row gather), passed
    the CSR-path/scatter parity check (< 2e-3), given finite losses and
@@ -156,11 +156,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
    (discrete streams equal, losses rtol 1e-4), and static_w and heuristic
    under both scenarios in the modeled lane with device payloads (the
    card gathers through the EmbeddingBag kernel) with the CPU: every field
-   of the result digest, energy totals included, bit-equal. Then ``torch.profiler``
-   splits steady trainer steps into device time by kernel against the host
-   clock, and fails unless the steps' kernels include
-   ``csr_spmm_kernel`` and no ``block_spmm_kernel``, and one
-   ``embedding_bag_kernel`` per step with hits and no
+   of the result digest, energy totals included, bit-equal. The trainer's
+   profile (``phase_profile``, run right after the build, see phase 3)
+   splits steady trainer steps into device time by kernel against
+   the host clock, and fails unless the steps' kernels include
+   ``csr_spmm_kernel``, and one
+   ``embedding_bag_kernel`` per step with hits (and one per rebuild that
+   keeps rows) and no
    ``radixSortKVInPlace``; it logs the host spans (the device-tier
    gather, the host feature rows, the input placement) and the copies
    each way.
@@ -179,7 +181,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    async-noprefetch, async, sync) twice), and the ``PipelineReport``
    (builder wall, exposed wait, overlap
    efficiency, swap latency) are printed. ``torch.profiler`` over two
-   threaded windows must show the builds' uploads as pinned copies on a
+   threaded windows (``phase_pipeline_profile``, also right after the
+   build) must show the builds' uploads as pinned copies on a
    stream other than the compute stream, the persisted-row gathers there
    too, and no pageable copy the size of a payload table. greendygnn
    threaded under the paper schedule must rebuild and decide windows in
@@ -264,7 +267,29 @@ Phases, each of which ends the run with a non-zero exit on failure:
    96, v head dim 64; 4.26B parameters), at full width: 28 and 62 flash
    launches a prefill, all ``flash_fwd_wgmma_kernel``; minicpm3's serve
    run decodes by the absorbed-matrix path against the latent cache, and
-   its last prompt step is held against the expanded prefill.
+   its last prompt step is held against the expanded prefill. Then the
+   MoE archs: ``moonshot-v1-16b-a3b`` at full depth (48 layers, GQA 16 x
+   128, the first dense, then 64 routed experts top-6 and 2 shared;
+   28.39B parameters) and ``deepseek-v2-236b`` (MLA at (192, 128), 128
+   heads; 160 experts top-6 and 2 shared) cut in depth to what
+   ``serve_peak_estimate`` fits in ``MEM_FRAC`` of the card (the log
+   states the estimate). Each logs its routing: the share of (token, k)
+   assignments dropped at capacity and the heaviest expert's load, for
+   the decode steps (no drop: required) and the prefill. A bf16
+   difference between two paths can flip an expert choice and so move
+   which later tokens an expert drops, so each comparison's second path
+   replays the first path's routing and logs the share of assignments
+   its own router picked otherwise: the decode steps replay a no-drop
+   prefill of the prompts, and the dense path replays a flash prefill of
+   one sequence (the dense comparison's memory). At the served depth the
+   decode steps are held against the prefill at ``TOL_MOE_DEEP`` (a
+   max |diff| and a row relative L2 set from ``scripts/moe_depth_gap.py``'s
+   readings against depth), and the serve run's logits, on its own
+   routing, must equal those of the same decode steps. After the served
+   model is freed, a model of ``MOE_CMP_LAYERS`` layers drawn on its own
+   holds both comparisons at ``TOL_LOGITS`` (``phase_moe_paths``), each
+   path's pick within the bound of the other path's best logit
+   (random-weight logits tie in some rows).
    The LM training phase (``phase_lm_train``) follows. The flash
    backward (``csrc/flash_attention_bwd.cu``: float32 SIMT kernels, bf16
    ``wgmma`` kernels, one C entry) against its plain version on the same
@@ -298,32 +323,38 @@ Phases, each of which ends the run with a non-zero exit on failure:
    launches each of dK/dV and dQ). Then the user's entry point in subprocesses: ``python -m
    repro_torch.launch.train --arch tinyllama-1.1b --steps 20
    --ckpt-every 10`` and ``--resume --steps 10``, their printed lines
-   checked. The backward's checks cover MLA's (96, 64) instance (float32
-   and bf16, causal and not, ragged S, Sk > Sq, strided GQA heads) and
-   bf16 at qwen3's and minicpm3's training shapes (two launches
-   bit-identical). Then ``phase_lm_train_arch`` runs the train_4k step
-   at ``qwen3-1.7b`` and ``minicpm3-4b``: full width, S = 4,096, the
-   global batch cut to ``grad_accum`` (2 and 4, one sequence a
-   microbatch), ``NEW_TRAIN_STEPS`` steps, the depth cut only where the
-   step's estimated peak would not fit ``TRAIN_MEM_FRAC`` of the card
+   checked. The backward's checks cover MLA's (96, 64) and (192, 128)
+   instances (float32 and bf16, causal and not, ragged S, Sk > Sq,
+   strided GQA heads) and bf16 at qwen3's, minicpm3's, moonshot's and
+   deepseek-v2's training shapes (two launches bit-identical). Then
+   ``phase_lm_train_arch`` runs the train_4k step at ``qwen3-1.7b``,
+   ``minicpm3-4b``, ``moonshot-v1-16b-a3b`` and ``deepseek-v2-236b``:
+   full width, S = 4,096, the global batch cut to ``grad_accum`` (2, 4,
+   4 and 8, one sequence a microbatch), ``NEW_TRAIN_STEPS`` steps, the
+   depth cut only where the
+   step's estimated peak would not fit ``MEM_FRAC`` of the card
    (logged beside the measured peak): flash forward launches ``2 L
    accum`` a step, backward ``L accum``, none of them on the main
    thread; losses finite, the first within 1.5 of ln V; every layer's
-   attention parameters get gradients; step time (events), tokens/s,
-   peak memory, bound; a profiled step.
+   attention parameters get gradients (and every MoE layer's router,
+   experts and shared experts); the first step's routing logged as in
+   serving; step time (events), tokens/s, peak memory, bound; a profiled
+   step. moonshot trains 3 of 48 layers, deepseek-v2 1 (its dense layer
+   at full width: one MoE layer alone would need ~111 GB).
 7. Time each kernel, its plain version and the equivalent library call
    with CUDA events (median of 25 launches, L2 flushed before each and
    each queued behind a spin kernel so the host's enqueue time is not
    counted), beside the least time the card could take, and print one
-   ``{"kernels": ...}`` line. The SpMM row also carries the dense-block
-   kernel's time on the same adjacency (``dense_ms``); a second SpMM row,
+   ``{"kernels": ...}`` line. A second SpMM row,
    ``csr_spmm_f1433``, times full_graph_sm's layer 0 (F = 1,433) with its
    bound from the entries, the X rows they reference and Y, and the
    scalar instance's time on the same rows contiguous (``scalar_ms``). The EmbeddingBag
    row, at the path's shape, also carries the kernel's own device time
    from ``torch.profiler`` (``kernel_ms``: L2 flushed before each call;
-   ``kernel_warm_ms``: back to back) and the event time at the padded
-   shape (``padded_ms``). A second EmbeddingBag row,
+   ``kernel_warm_ms``: back to back), read right after the build
+   (``phase_bag_profile``: later the profiler drops the gather from its
+   traces) and null where no trace of three held the kernel for every
+   call, and the event time at the padded shape (``padded_ms``). A second EmbeddingBag row,
    ``embedding_bag_persisted``, times the persisted-row gather at the
    threaded run's median rebuild. The ``queue_window`` row times the
    queue env's window kernel at 32 envs and W = 128 (every step live)
@@ -335,11 +366,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
    (the yardstick, timed in turns with the kernels) and the bound of the
    gradient's five products over the causal half, with its launches in
-   the training run. The rows ``flash_attention_qwen3`` and
-   ``flash_attention_minicpm3`` time the forward at those archs' prefill
-   shapes (launches: a prefill's), ``flash_attention_bwd_qwen3`` and
-   ``flash_attention_bwd_minicpm3`` the backward at their training shapes
-   (launches: the training run's), SDPA's beside each.
+   the training run. The rows ``flash_attention_<arch>`` (qwen3,
+   minicpm3, moonshot, deepseek) time the forward at those archs'
+   prefill shapes (launches: a prefill's), ``flash_attention_bwd_<arch>``
+   the backward at their training shapes (launches: the training run's),
+   SDPA's beside each.
    TF32 is off throughout: float32 results are compared in full float32.
    Every bound is read from ``repro_torch.launch.roofline``'s peaks for
    the card's name (a card missing from its table fails the run).
@@ -368,8 +399,9 @@ TOL_BF16 = dict(atol=4e-2, rtol=2e-2)     # bf16 kernel vs float32 oracle
 TOL_BF16_PLAIN = dict(atol=1e-3, rtol=1e-2)  # bf16 kernel vs bf16 plain
 # logits of the random-weight bf16 model (scale ~1-6) after 22-62 layers,
 # one path against another (flash against dense attention; decode steps
-# against a prefill, MLA's absorbed decode against its expanded prefill):
-# bf16 rounding at different places, one bf16 ulp at 4-8 is 0.031
+# against a prefill, MLA's absorbed decode against its expanded prefill;
+# at the MoE archs the second path replays the first's routing): bf16
+# rounding at different places, one bf16 ulp at 4-8 is 0.031
 TOL_LOGITS = 0.25
 PREFILL_B, PREFILL_S = 2, 4096          # the LM archs' prefill shape here
 # the later LM slices' archs, at full width: (Hq, Hkv, D of q and k, D_v)
@@ -377,15 +409,22 @@ PREFILL_B, PREFILL_S = 2, 4096          # the LM archs' prefill shape here
 # prefill and training expand the latent to 40 heads of q/k dim
 # d_nope + d_rope = 96 and v dim d_v = 64
 PREFILL_HEADS = {"qwen3-1.7b": (16, 8, 128, 128),
-                 "minicpm3-4b": (40, 40, 96, 64)}
+                 "minicpm3-4b": (40, 40, 96, 64),
+                 "moonshot-v1-16b-a3b": (16, 16, 128, 128),
+                 "deepseek-v2-236b": (128, 128, 192, 128)}
 NEW_LM_ARCHS = tuple(PREFILL_HEADS)
+# MLA's q/k head dims and their v head dims (minicpm3, deepseek-v2)
+MLA_DV = {96: 64, 192: 128}
+# an MoE layer's expert stacks, (E, D, F) and (E, F, D)
+EXPERT_STACKS = ("w_gate", "w_up", "w_down")
 # their train_4k steps: the global batch cut to grad_accum (one sequence a
 # microbatch), NEW_TRAIN_STEPS steps; depth cut only where the card's
 # memory forces it: to the most layers whose estimated peak
-# (train_peak_estimate) fits in TRAIN_MEM_FRAC of the card. minicpm3's
-# 4.26B parameters would need ~135 GB
+# (train_peak_estimate) fits in MEM_FRAC of the card. minicpm3's 4.26B
+# parameters would need ~135 GB. Serving cuts depth by the same rule
+# (serve_peak_estimate: deepseek-v2's 236B parameters do not fit)
 NEW_TRAIN_STEPS = 3
-TRAIN_MEM_FRAC = 0.85
+MEM_FRAC = 0.85
 # the policy phase: card against CPU within float32 reassociation and
 # last-bit pow/sin differences; training on 32 envs, a few thousand
 # iterations an env; a same-seed pair of short runs; two profiled runs
@@ -396,6 +435,24 @@ POLICY_SHORT = 200
 POLICY_PROFILED = (20, 60)
 POLICY_HELD_OUT = 4
 REPEATS = 25
+# the MoE archs' paths: on a model of MOE_CMP_LAYERS layers (1 dense + 3
+# MoE) drawn on its own, decode against prefill and flash against dense
+# at TOL_LOGITS; at the served depth, decode against prefill (the routing
+# replayed) at TOL_MOE_DEEP. The reference's expert stacks draw at
+# 1/sqrt(E) (ROADMAP queue 3 item 5), so each MoE layer adds a large
+# output to the residual stream, and two paths' bf16 roundings grow apart
+# with depth (scripts/moe_depth_gap.py, H100: moonshot's decode against
+# prefill 0.082 / 0.125 / 0.211 / 0.422 max|diff|, row rel L2 0.017 /
+# 0.028 / 0.047 / 0.092 at 4 / 8 / 16 / 48 layers; deepseek-v2's 0.137,
+# 0.030 at 9), where the same paths in float32 agree within 5e-5 at 12
+# layers with no routing flip. TOL_MOE_DEEP is ~1.8x and ~2.2x moonshot's
+# 48-layer reading; a fault moves the logits by their whole scale (max
+# ~5, row rel L2 ~1)
+MOE_CMP_LAYERS = 4
+TOL_MOE_DEEP = dict(max_abs=0.75, rel_l2=0.2)
+# serve.run in the serving phase: batch 4, SERVE_PROMPT prompt steps, then
+# SERVE_GEN greedy tokens
+SERVE_PROMPT, SERVE_GEN = 8, 16
 # a spin of about 0.5 ms on the device before each timed call, long enough
 # for the host to enqueue the events and the call behind it
 SPIN_CYCLES = 1_000_000
@@ -503,13 +560,19 @@ class Timer:
             samples.append(start.elapsed_time(end))
         return statistics.median(samples)
 
-    def kernel_ms(self, fn, repeats: int = REPEATS,
-                  warm_calls: int = 50) -> tuple[float, float]:
+    def kernel_ms(self, fn, pattern: str, repeats: int = REPEATS,
+                  warm_calls: int = 50, tries: int = 3):
         """The device time of ``fn``'s own kernels from ``torch.profiler``
         (no launch latency, no event cost): (flushed, warm). Flushed: the
         L2 zeroed and a spin queued before each of ``repeats`` calls, the
         flush's and the spin's kernels left out. Warm: ``warm_calls``
-        calls back to back, their inputs in L2."""
+        calls back to back, their inputs in L2. The profiler here has
+        dropped kernels from a trace (``scripts/profiler_drops.py``), so
+        a reading counts only if its trace holds a kernel whose name
+        matches ``pattern`` (``fn``'s own) for every call; it is taken
+        again, up to ``tries`` times, and is None if no trace held them."""
+        import re
+
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
@@ -521,22 +584,36 @@ class Timer:
                     torch.cuda._sleep(SPIN_CYCLES)
                 torch.cuda.synchronize()
             self._setup_names = set(device_time_by_name(prof))
+
+        def setup():
+            self.flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
+
+        def reading(calls, before_each):
+            for _ in range(tries):
+                with profile(activities=acts) as prof:
+                    for _ in range(calls):
+                        before_each()
+                        fn()
+                    torch.cuda.synchronize()
+                by_name = device_time_by_name(prof)
+                own = sum(cnt for name, (_, cnt) in by_name.items()
+                          if re.search(pattern, name))
+                if own >= calls:
+                    return sum(us for name, (us, _) in by_name.items()
+                               if name not in self._setup_names) / 1e3 / calls
+                log(f"profiler: {own} of {calls} {pattern} kernels in the "
+                    "trace; taking it again")
+            return None
+
         for _ in range(3):
             fn()
-        with profile(activities=acts) as prof:
-            for _ in range(repeats):
-                self.flush.zero_()
-                torch.cuda._sleep(SPIN_CYCLES)
-                fn()
-            torch.cuda.synchronize()
-        flushed = sum(us for name, (us, _) in device_time_by_name(prof).items()
-                      if name not in self._setup_names) / 1e3 / repeats
-        with profile(activities=acts) as prof:
-            for _ in range(warm_calls):
-                fn()
-            torch.cuda.synchronize()
-        warm = sum(us for us, _ in device_time_by_name(prof).values())
-        return flushed, warm / 1e3 / warm_calls
+        return reading(repeats, setup), reading(warm_calls, lambda: None)
+
+
+def fmt_ms(ms) -> str:
+    """A profiler reading for the log: None where no trace held it."""
+    return "not in the trace" if ms is None else f"{ms:.4f} ms"
 
 
 def bound_ms(n_bytes: float, n_flops: float,
@@ -754,13 +831,7 @@ def bag_instances(torch, fn) -> list:
 
 # ------------------------------------------------------------- phase 2
 def main_path_operands(torch, device):
-    """The kernels' operands as the main path's first step builds them,
-    and the same adjacencies as dense blocks for the witness kernel."""
-    import numpy as np
-
-    from repro_torch.kernels.segment_mm import (
-        BlockFormat, to_block_sparse, transpose_block_sparse,
-    )
+    """The kernels' operands as the main path's first step builds them."""
     from repro_torch.store import MemoryBudget
     from repro_torch.train import compute, gnn_trainer as gt
 
@@ -772,18 +843,6 @@ def main_path_operands(torch, device):
     eng = compute.ComputeEngine(graph, cfg)
     mb = mbs[0][0]
     layers, x_rows, n_edges = eng.prepare(mb)
-    dense = []
-    for blk, layer in zip(mb.blocks, layers):
-        fwd = layer["fwd"]
-        rows, cols, blocks, ndb, n_src_pad = to_block_sparse(
-            blk.edge_src, blk.edge_dst, fwd.n_rows, fwd.n_cols, 128, 128,
-            blk.edge_mask.astype(np.float32))
-        require((ndb * 128, n_src_pad) == (fwd.n_rows, fwd.n_cols),
-                "dense witness: blocks do not match the CSR's buckets")
-        dense.append(BlockFormat.from_numpy(rows, cols, blocks, ndb, device))
-        if layer["bwd"] is not None:
-            dense.append(BlockFormat.from_numpy(*transpose_block_sparse(
-                rows, cols, blocks, n_src_pad // 128), device))
     gen = torch.Generator().manual_seed(SEED)
     x0 = eng.pad_input(graph.features[mb.input_nodes], x_rows)
     h1 = torch.randn((layers[0]["fwd"].n_rows, 16), generator=gen).to(device)
@@ -791,52 +850,41 @@ def main_path_operands(torch, device):
     n_feat = graph.features.shape[1]
     capacity = int(cfg.cache_frac * graph.n_nodes)
     remote = int((_owner[mb.input_nodes] != 0).sum())
-    return dict(layers=layers, dense=dense, x0=x0, h1=h1, dy1=dy1,
+    return dict(layers=layers, x0=x0, h1=h1, dy1=dy1,
                 n_edges=n_edges, n_feat=n_feat, capacity=capacity,
                 n_remote=remote)
 
 
 def spmm_cases(ops):
-    """(label, CSR format, dense witness format, x) for the three SpMM
-    calls of one step."""
+    """(label, CSR format, x) for the three SpMM calls of one step."""
     layers, x0, h1, dy1 = ops["layers"], ops["x0"], ops["h1"], ops["dy1"]
-    d0, d1, d1t = ops["dense"]
     return [
-        ("layer0", layers[0]["fwd"], d0, x0),
-        ("layer1", layers[1]["fwd"], d1, h1),
-        ("layer1^T", layers[1]["bwd"], d1t, dy1),
+        ("layer0", layers[0]["fwd"], x0),
+        ("layer1", layers[1]["fwd"], h1),
+        ("layer1^T", layers[1]["bwd"], dy1),
     ]
 
 
 def phase_kernels_vs_plain(torch, device, ops):
     from repro_torch.kernels.segment_mm import (
-        Spmm, block_spmm, csr_spmm, csr_spmm_plain,
+        Spmm, csr_spmm, csr_spmm_plain,
     )
 
     errs = {"csr_spmm": 0.0, "embedding_bag": 0.0}
-    for label, fmt, dense, x in spmm_cases(ops):
+    for label, fmt, x in spmm_cases(ops):
         got = csr_spmm(fmt, x)
         again = csr_spmm(fmt, x)
-        witness = block_spmm(dense.rows, dense.cols, dense.blocks, x,
-                             dense.n_dst_blocks)
         torch.cuda.synchronize()
         want = csr_spmm_plain(fmt.rowptr, fmt.col, fmt.val, x)
         err = float((got - want).abs().max())
         errs["csr_spmm"] = max(errs["csr_spmm"], err)
-        d_wit = float((got - witness).abs().max())
         log(f"csr_spmm {label}: nnz={fmt.col.shape[0]} x={tuple(x.shape)} "
             f"y={tuple(got.shape)} max|kernel-plain|={err:.3e}, "
-            f"max|kernel-dense kernel|={d_wit:.3e} "
-            f"({dense.rows.shape[0]} blocks), torch.equal to the dense "
-            f"kernel: {torch.equal(got, witness)}, bit-identical relaunch: "
-            f"{torch.equal(got, again)}")
+            f"bit-identical relaunch: {torch.equal(got, again)}")
         require(torch.allclose(got, want, **TOL_SPMM),
                 f"csr_spmm {label}: kernel vs plain max |diff| {err:.3e}")
         require(torch.equal(got, again),
                 f"csr_spmm {label}: two launches differ")
-        require(torch.equal(got, witness),
-                f"csr_spmm {label}: not bit-equal to the dense-block kernel "
-                f"(max |diff| {d_wit:.3e})")
 
     # autograd: dX = A^T dY through the kernel vs plain autograd
     lay = ops["layers"][1]
@@ -975,6 +1023,44 @@ def phase_bags_vs_plain(torch, device, ops):
     return err
 
 
+def phase_bag_profile(torch, device, ops):
+    """The EmbeddingBag kernel's and ``F.embedding_bag``'s own device time
+    from ``torch.profiler`` (``Timer.kernel_ms``: L2 flushed before each
+    call, and back to back) at the padded and the path's shapes, and the
+    kernel's floor on one empty bag, into ``ops["bag_profile"]``. Read
+    here, before the policy phases' tens of millions of launches: later
+    in the process the profiler drops the gather from its traces."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+
+    timer = Timer(torch, device)
+    bags = ops["bags"]
+    table = bags["table"]
+    own, lib_pat = r"embedding_bag_kernel<", r"(?i)embeddingbag|embedding_bag"
+    readings = {}
+    for label in ("padded", "path"):
+        fmt = bags[label]
+        out = torch.empty((fmt.n_bags, table.shape[1]), device=device)
+        kernel = timer.kernel_ms(lambda: bag_ops.bag_launch(fmt, table, out),
+                                 own)
+        lib = timer.kernel_ms(lambda: F.embedding_bag(
+            fmt.idx, table, fmt.offsets[:-1], mode="sum",
+            per_sample_weights=fmt.w, include_last_offset=False), lib_pat)
+        readings[label] = {"kernel": kernel, "library": lib}
+        log(f"profile embedding_bag {label} L={fmt.idx.numel()} "
+            f"bags={fmt.n_bags}: kernel {fmt_ms(kernel[0])} flushed / "
+            f"{fmt_ms(kernel[1])} warm; F.embedding_bag {fmt_ms(lib[0])} / "
+            f"{fmt_ms(lib[1])}")
+    empty = bag_ops.BagFormat.from_numpy([], [], 1, None, device)
+    one = torch.zeros((1, table.shape[1]), device=device)
+    out = torch.empty_like(one)
+    floor = timer.kernel_ms(lambda: bag_ops.bag_launch(empty, one, out), own)
+    log(f"profile embedding_bag floor (one empty bag): {fmt_ms(floor[0])} "
+        f"flushed / {fmt_ms(floor[1])} warm")
+    ops["bag_profile"] = readings
+
+
 def phase_flash_vs_plain(torch, device):
     """The flash-attention kernel against its plain version and the dense
     oracle; returns the largest kernel-vs-plain difference and the
@@ -1035,37 +1121,39 @@ def phase_flash_vs_plain(torch, device):
     log(f"flash GQA (2,128,8,32)/(2,128,2,32), strided heads: "
         f"max|kernel-plain|={e:.3e} max|kernel-dense|={diff(got, dense):.3e}")
 
-    # MLA's instance, q/k head dim 96 and v head dim 64, float32: causal
-    # and not, ragged S, Sk > Sq, GQA over strided heads, against the plain
-    # version and dense_attention
-    qb, kb = randn(1, 192, 8, 96), randn(1, 192, 4, 96)
-    vb = randn(1, 192, 4, 64)
-    for label, q, k, v, causal in [
-            ("s=256 MHA causal", randn(2, 256, 4, 96), randn(2, 256, 4, 96),
-             randn(2, 256, 4, 64), True),
-            ("s=256 GQA 4/2 full", randn(2, 256, 4, 96),
-             randn(2, 256, 2, 96), randn(2, 256, 2, 64), False),
-            ("s=100 (ragged) causal", randn(1, 100, 4, 96),
-             randn(1, 100, 4, 96), randn(1, 100, 4, 64), True),
-            ("sq=136 sk=200 causal", randn(1, 136, 4, 96),
-             randn(1, 200, 2, 96), randn(1, 200, 2, 64), True),
-            ("strided heads causal", qb[:, :, 2:6], kb[:, :, :2],
-             vb[:, :, 2:], True)]:
-        got = flash_attention(q, k, v, causal, q.shape[1], k.shape[1])
-        want = flash_attention_plain(q, k, v, causal, q.shape[1],
-                                     k.shape[1])
-        dense = dense_attention(q, k, v, causal=causal)
-        e = diff(got, want)
-        err = max(err, e)
-        require(tuple(got.shape) == tuple(q.shape[:3]) + (64,),
-                f"flash f32 96/64 {label}: shape {tuple(got.shape)}")
-        require(torch.allclose(got, want, **TOL_F32),
-                f"flash f32 96/64 {label}: kernel vs plain {e:.3e}")
-        require(torch.allclose(got, dense, **TOL_F32),
-                f"flash f32 96/64 {label}: kernel vs dense "
-                f"{diff(got, dense):.3e}")
-        log(f"flash f32 d=96 dv=64 {label}: max|kernel-plain|={e:.3e} "
-            f"max|kernel-dense|={diff(got, dense):.3e}")
+    # MLA's instances, q/k head dim 96 and v head dim 64 (minicpm3), 192
+    # and 128 (deepseek-v2), float32: causal and not, ragged S, Sk > Sq,
+    # GQA over strided heads, against the plain version and
+    # dense_attention
+    for d, dv in MLA_DV.items():
+        qb, kb = randn(1, 192, 8, d), randn(1, 192, 4, d)
+        vb = randn(1, 192, 4, dv)
+        for label, q, k, v, causal in [
+                ("s=256 MHA causal", randn(2, 256, 4, d),
+                 randn(2, 256, 4, d), randn(2, 256, 4, dv), True),
+                ("s=256 GQA 4/2 full", randn(2, 256, 4, d),
+                 randn(2, 256, 2, d), randn(2, 256, 2, dv), False),
+                ("s=100 (ragged) causal", randn(1, 100, 4, d),
+                 randn(1, 100, 4, d), randn(1, 100, 4, dv), True),
+                ("sq=136 sk=200 causal", randn(1, 136, 4, d),
+                 randn(1, 200, 2, d), randn(1, 200, 2, dv), True),
+                ("strided heads causal", qb[:, :, 2:6], kb[:, :, :2],
+                 vb[:, :, 2:], True)]:
+            got = flash_attention(q, k, v, causal, q.shape[1], k.shape[1])
+            want = flash_attention_plain(q, k, v, causal, q.shape[1],
+                                         k.shape[1])
+            dense = dense_attention(q, k, v, causal=causal)
+            e = diff(got, want)
+            err = max(err, e)
+            tag = f"flash f32 {d}/{dv} {label}"
+            require(tuple(got.shape) == tuple(q.shape[:3]) + (dv,),
+                    f"{tag}: shape {tuple(got.shape)}")
+            require(torch.allclose(got, want, **TOL_F32),
+                    f"{tag}: kernel vs plain {e:.3e}")
+            require(torch.allclose(got, dense, **TOL_F32),
+                    f"{tag}: kernel vs dense {diff(got, dense):.3e}")
+            log(f"flash f32 d={d} dv={dv} {label}: max|kernel-plain|="
+                f"{e:.3e} max|kernel-dense|={diff(got, dense):.3e}")
 
     def row_rel(a, b_):  # largest per-row relative L2 error
         a, b_ = a.float(), b_.float()
@@ -1088,7 +1176,7 @@ def phase_flash_vs_plain(torch, device):
                            randn(1, s, 2, dv, dtype=bf))
                 cases.append((f"d={d} dv={dv} causal={causal} s={s}", q, k, v,
                               causal))
-    for d, dv in ((64, 64), (128, 128), (96, 64)):
+    for d, dv in ((64, 64), (128, 128), (96, 64), (192, 128)):
         for causal in (True, False):
             q, k, v = (randn(2, 200, 4, d, dtype=bf),
                        randn(2, 456, 1, d, dtype=bf),
@@ -2506,7 +2594,7 @@ def phase_main_path(torch, device, qnet):
 
     from repro_torch.core import dqn
     from repro_torch.kernels.embedding_bag import embedding_bag
-    from repro_torch.kernels.segment_mm import block_spmm, csr_spmm
+    from repro_torch.kernels.segment_mm import csr_spmm
     from repro_torch.store import MemoryBudget
     from repro_torch.train import gnn_trainer as gt
 
@@ -2524,14 +2612,12 @@ def phase_main_path(torch, device, qnet):
     bundle = gt.build_trace(cfg)
     with plans_swapped() as plans:
         csr_spmm.launches = 0
-        block_spmm.launches = 0
         embedding_bag.launches = 0
         t0 = time.perf_counter()
         res = gt.run(cfg, bundle)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {"csr_spmm": csr_spmm.launches,
-                  "block_spmm": block_spmm.launches,
                   "embedding_bag": embedding_bag.launches}
     kept = persisted_builds(plans)
     rep = res.compute_report
@@ -2548,9 +2634,6 @@ def phase_main_path(torch, device, qnet):
     require(counts["csr_spmm"] == 3 * n_steps + 2 + 3 * rep["n_compiles"],
             f"csr_spmm launches {counts['csr_spmm']} != 3 per step + 2 + 3 "
             f"per untimed first run ({rep['n_compiles']})")
-    require(counts["block_spmm"] == 0,
-            f"the trainer launched the dense-block kernel "
-            f"{counts['block_spmm']} times")
     # one gather a step with hits, one persisted-row gather a rebuild
     # that keeps rows of the active table
     require(steps_with_hits > 0
@@ -2620,9 +2703,10 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
     timers; then ``torch.profiler`` records ``n_each`` more for the device
     time by kernel (and the next ``n_each``, up to twice, if the trace
     dropped a kernel the wrappers counted: on a slow host both of two
-    windows have held 3 of 4 gathers). The profiler's own host overhead
-    is large, so
-    the host wall comes from the unprofiled steps."""
+    windows have held 3 of 4 gathers). A window's gathers are one a step
+    with hits and one a rebuild in it that keeps rows (its persisted-row
+    gather). The profiler's own host overhead is large, so the host wall
+    comes from the unprofiled steps."""
     import collections
 
     from repro_torch.store import MemoryBudget
@@ -2684,7 +2768,10 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
     for attempt in (1, 2, 3):
         bags0, csr0 = embedding_bag.launches, csr_spmm.launches
         compiles0 = w.engine.n_compiles
-        by_name = traced(torch, lambda: window(n_warm + attempt * n_each))
+        with plans_swapped() as plans:
+            by_name = traced(torch,
+                             lambda: window(n_warm + attempt * n_each))
+        kept = persisted_builds(plans)
         # a new shape signature's untimed first run launches 3 more
         warm_runs = w.engine.n_compiles - compiles0
         wrapper_bags = embedding_bag.launches - bags0
@@ -2720,31 +2807,28 @@ def phase_profile(torch, device, n_warm: int = 2, n_each: int = 4):
     csr = [(us, cnt) for name, (us, cnt) in by_name.items()
            if "csr_spmm_kernel" in name]
     n_csr = sum(cnt for _, cnt in csr)
-    n_dense = sum(cnt for name, (_, cnt) in by_name.items()
-                  if "block_spmm_kernel" in name)
     log(f"profile: {n_csr} csr_spmm_kernel launches in {n_each} steps, "
         f"{sum(us for us, _ in csr) / 1e3 / n_each:.4f} ms/step of device "
-        f"time; {n_dense} block_spmm_kernel launches")
+        f"time")
     want_csr = 3 * (n_each + warm_runs)
-    require(n_csr == want_csr and n_dense == 0,
+    require(n_csr == want_csr,
             f"profile: {n_csr} csr_spmm_kernel launches (want {want_csr}: "
-            f"{warm_runs} untimed first runs) and {n_dense} "
-            "block_spmm_kernel (want 0)")
+            f"{warm_runs} untimed first runs)")
     bags = [(us, cnt) for name, (us, cnt) in by_name.items()
             if "embedding_bag_kernel" in name]
     n_bags = sum(cnt for _, cnt in bags)
     n_sort = sum(cnt for name, (_, cnt) in by_name.items()
                  if "radixSort" in name)
     log(f"profile: {n_bags} embedding_bag_kernel launches in {n_each} steps "
-        f"({steps_with_hits} with hits, {wrapper_bags} counted by the "
-        f"wrapper), "
+        f"({steps_with_hits} with hits, {kept} rebuilds keeping rows, "
+        f"{wrapper_bags} counted by the wrapper), "
         f"{sum(us for us, _ in bags) / 1e3 / n_each:.4f} ms/step of device "
         f"time; {n_sort} radixSort kernels")
     require(steps_with_hits > 0
-            and n_bags == wrapper_bags == steps_with_hits,
+            and n_bags == wrapper_bags == steps_with_hits + kept,
             f"profile: {n_bags} embedding_bag_kernel launches in the trace, "
             f"{wrapper_bags} counted, want one per step with hits "
-            f"({steps_with_hits})")
+            f"({steps_with_hits}) and one per rebuild keeping rows ({kept})")
     require(n_sort == 0, f"profile: {n_sort} radixSort kernels in the steps")
 
 
@@ -2789,26 +2873,22 @@ def phase_spmm_widths(torch, device, ops):
     layer-0 CSR, and F = 1,433 on full_graph_sm's layer-0 CSR, from the
     trainer's padded-stride input (float4, twelve slabs) and from the same
     rows contiguous (scalar, 45 slabs). Each against the plain version at
-    ``TOL_SPMM``, a relaunch bit-identical, and where F % 4 == 0
-    ``torch.equal`` to the dense witness."""
-    from repro_torch.kernels.segment_mm import (
-        block_spmm, csr_spmm, csr_spmm_plain,
-    )
+    ``TOL_SPMM`` and a relaunch bit-identical."""
+    from repro_torch.kernels.segment_mm import csr_spmm, csr_spmm_plain
     from repro_torch.kernels.segment_mm import ops as spmm_ops
 
-    fmt0, dense0 = ops["layers"][0]["fwd"], ops["dense"][0]
+    fmt0 = ops["layers"][0]["fwd"]
     gen = torch.Generator().manual_seed(SEED + 1)
     cases = []
     for f in (6, 130, 132, 256):
         x = torch.randn((fmt0.n_cols, f), generator=gen).to(device)
-        cases.append((f"reddit layer0 F={f}", fmt0, x, dense0))
+        cases.append((f"reddit layer0 F={f}", fmt0, x))
     fmt_fg, x_fg, _ = full_graph_operands(torch, device)
-    cases.append(("full_graph_sm layer0 F=1433 trainer layout", fmt_fg, x_fg,
-                  None))
+    cases.append(("full_graph_sm layer0 F=1433 trainer layout", fmt_fg, x_fg))
     cases.append(("full_graph_sm layer0 F=1433 contiguous", fmt_fg,
-                  x_fg.contiguous(), None))
+                  x_fg.contiguous()))
     err_max = 0.0
-    for label, fmt, x, dense in cases:
+    for label, fmt, x in cases:
         f = x.shape[1]
         got = csr_spmm(fmt, x)
         again = csr_spmm(fmt, x)
@@ -2829,13 +2909,6 @@ def phase_spmm_widths(torch, device, ops):
                 f"csr_spmm {label}: kernel vs plain max |diff| {err:.3e}")
         require(torch.equal(got, again),
                 f"csr_spmm {label}: two launches differ")
-        if dense is not None and f % 4 == 0:
-            witness = block_spmm(dense.rows, dense.cols, dense.blocks,
-                                 x.contiguous(), dense.n_dst_blocks)
-            eq = torch.equal(got, witness)
-            line += f", torch.equal to the dense kernel: {eq}"
-            require(eq, f"csr_spmm {label}: not bit-equal to the dense "
-                    "kernel")
         log(line)
     require(spmm_ops._rows_ok(x_fg, 1433),
             "the trainer's full_graph_sm input does not take the float4 "
@@ -2876,11 +2949,11 @@ def counted_run(torch, cfg, bundle):
     the EmbeddingBag launches made on the pipeline's builder thread (the
     thread named ``cache-builder``), as the wrapper counted them."""
     from repro_torch.kernels.embedding_bag import embedding_bag
-    from repro_torch.kernels.segment_mm import block_spmm, csr_spmm
+    from repro_torch.kernels.segment_mm import csr_spmm
     from repro_torch.train import gnn_trainer as gt
 
     with plans_swapped() as plans:
-        for wrapper in (csr_spmm, block_spmm, embedding_bag):
+        for wrapper in (csr_spmm, embedding_bag):
             wrapper.launches = 0
             wrapper.launches_by_thread = {}
         t0 = time.perf_counter()
@@ -2888,7 +2961,6 @@ def counted_run(torch, cfg, bundle):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {"csr_spmm": csr_spmm.launches,
-                  "block_spmm": block_spmm.launches,
                   "embedding_bag": embedding_bag.launches,
                   "embedding_bag_builder":
                       embedding_bag.launches_by_thread.get("cache-builder", 0)}
@@ -2898,7 +2970,7 @@ def counted_run(torch, cfg, bundle):
 def require_path_counts(label, res, counts, plans, measured=True):
     """The main path's launch rules: 3 CSR launches a measured step, 2 in
     the parity check and 3 in each untimed first run of a new shape
-    signature (``n_compiles``), no dense-block launch, one gather a step with
+    signature (``n_compiles``), one gather a step with
     hits and one persisted-row gather for each rebuild in ``plans`` that
     keeps rows of the active table; with the threaded pipeline, every
     persisted-row gather is launched on the builder thread, and no other
@@ -2919,9 +2991,6 @@ def require_path_counts(label, res, counts, plans, measured=True):
                 f"{label}: parity_max_diff {rep['parity_max_diff']}")
     else:
         require(counts["csr_spmm"] == 0, f"{label}: SpMM in a modeled run")
-    require(counts["block_spmm"] == 0,
-            f"{label}: the dense-block kernel ran {counts['block_spmm']} "
-            "times")
     require(counts["embedding_bag"] == with_hits + kept,
             f"{label}: embedding_bag launches {counts['embedding_bag']} != "
             f"{with_hits} steps with hits + {kept} rebuilds with persisted "
@@ -3598,8 +3667,6 @@ def persisted_gather_row(torch, device, plans, launches: int,
     timer = Timer(torch, device)
     out = torch.empty((n, d), device=device)
     ms = timer.ms(lambda: bag_ops.bag_launch(fmt, table, out))
-    k_flushed, k_warm = timer.kernel_ms(
-        lambda: bag_ops.bag_launch(fmt, table, out))
     plain = timer.ms(lambda: bag_ops.bag_plain(fmt, table))
     lib = timer.ms(lambda: F.embedding_bag(
         fmt.idx, table, fmt.offsets[:-1], mode="sum",
@@ -3612,8 +3679,7 @@ def persisted_gather_row(torch, device, plans, launches: int,
     b_ms, b_by = bound_ms(n_bytes, 2.0 * n * d)
     log(f"time embedding_bag persisted gather: {n} of {len(old)} rows "
         f"(median of {len(kept)} rebuilds keeping rows, "
-        f"{[k for k, _ in kept]}): kernel {ms:.4f} ms (events), "
-        f"{k_flushed:.4f} / {k_warm:.4f} ms (profiler, flushed / warm); plain "
+        f"{[k for k, _ in kept]}): kernel {ms:.4f} ms (events); plain "
         f"{plain:.4f} ms; F.embedding_bag {lib:.4f} ms; bound {b_ms:.4f} ms "
         f"({b_by}; {n_bytes / 1e6:.3f} MB); {launches} launches on the "
         f"builder thread in {n_rebuilds} rebuilds")
@@ -3623,8 +3689,7 @@ def persisted_gather_row(torch, device, plans, launches: int,
         "replaces": "src/repro/kernels/embedding_bag/kernel.py:48",
         "launches": launches, "max_abs_err": err,
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib, "kernel_ms": k_flushed, "kernel_warm_ms": k_warm,
-        "rows": n, "launches_per_rebuild": launches / max(n_rebuilds, 1),
+        "library_ms": lib, "rows": n, "launches_per_rebuild": launches / max(n_rebuilds, 1),
     }
 
 
@@ -3754,11 +3819,10 @@ def counted_cluster(torch, cfg, cc, bundles):
     import numpy as np
 
     from repro_torch.kernels.embedding_bag import embedding_bag
-    from repro_torch.kernels.segment_mm import block_spmm, csr_spmm
+    from repro_torch.kernels.segment_mm import csr_spmm
     from repro_torch.train import cluster as cl
 
-    wrappers = {"csr_spmm": csr_spmm, "block_spmm": block_spmm,
-                "embedding_bag": embedding_bag}
+    wrappers = {"csr_spmm": csr_spmm, "embedding_bag": embedding_bag}
     with swaps_by_thread() as swaps, global_steps_timed() as stamps, \
             launches_by_rank() as by_rank:
         for wrapper in wrappers.values():
@@ -3783,7 +3847,7 @@ def require_rank_counts(label, rep, counts, swaps, measured=True):
     ``trainer-worker-{rank}`` thread; the backward's CSR launch (layer 1
     transposed) on the thread PyTorch's autograd engine keeps for the
     card, one a measured step and one an untimed first run; no other
-    thread launched, and the dense-block kernel never ran."""
+    thread launched."""
     ranks = {f"trainer-worker-{r}" for r in rep.active_ranks}
     backward = 0
     for r in rep.active_ranks:
@@ -3818,8 +3882,6 @@ def require_rank_counts(label, rep, counts, swaps, measured=True):
              if t not in ranks}
     require(not other, f"{label}: embedding_bag launched off the ranks' "
             f"threads: {other}")
-    require(not counts["block_spmm"],
-            f"{label}: the dense-block kernel ran: {counts['block_spmm']}")
 
 
 def rank_epoch_joules(res, epoch: int) -> float:
@@ -4620,50 +4682,144 @@ def phase_trace(torch, device, smi, qnet):
     return out
 
 
+@contextlib.contextmanager
+def routing(replay=None):
+    """Every MoE layer's routing while the context is open: the
+    ``moe.route_topk`` calls' (weights, experts), in call order, into the
+    list it yields. With ``replay`` (a call's index -> the (weights,
+    experts) to take), each call takes the replayed routing instead of its
+    own, and the yielded stats count the (token, expert) assignments its
+    own router picked that the replayed routing does not."""
+    from repro_torch.models.lm import moe
+
+    route = moe.route_topk
+    calls, stats = [], {"assignments": 0, "flipped": 0}
+
+    def hooked(logits, top_k):
+        w, e = route(logits, top_k)
+        if replay is not None:
+            rw, re_ = replay(len(calls))
+            kept = (e[:, :, None] == re_[:, None, :]).any(-1)
+            stats["assignments"] += e.numel()
+            stats["flipped"] += int((~kept).sum())
+            w, e = rw, re_
+        calls.append((w, e))
+        return w, e
+
+    moe.route_topk = hooked
+    try:
+        yield calls, stats
+    finally:
+        moe.route_topk = route
+
+
+def moe_load(torch, calls, cfg, no_drop: bool = False):
+    """(share of the (token, k) assignments dropped at the experts'
+    capacity, the heaviest expert's load over the mean load) over the
+    recorded MoE calls of ``cfg``."""
+    from repro_torch.models.lm import moe
+
+    dropped = total = 0
+    heaviest = 0.0
+    for _, e in calls:
+        cap = moe.capacity_of(e.shape[0], cfg.n_experts, cfg.top_k,
+                              cfg.capacity_factor, no_drop)
+        counts = torch.bincount(e.flatten(), minlength=cfg.n_experts)
+        dropped += int((counts - cap).clamp_min(0).sum())
+        total += e.numel()
+        heaviest = max(heaviest,
+                       float(counts.max()) * cfg.n_experts / e.numel())
+    return dropped / max(total, 1), heaviest
+
+
+def fit_depth(full, estimate, budget: float) -> int:
+    """The most layers (down to 1) of ``full`` whose ``estimate`` of the
+    peak bytes fits in ``budget``."""
+    import dataclasses
+
+    depth = full.n_layers
+    while depth > 1 and estimate(
+            dataclasses.replace(full, n_layers=depth)) > budget:
+        depth -= 1
+    return depth
+
+
+def serve_peak_estimate(cfg, rows: int) -> float:
+    """Bytes the serving phase holds at its peak: the bf16 weights, the
+    full-depth flash-against-dense comparison's dense attention over
+    ``rows`` sequences of ``PREFILL_S`` (float32 scores and probabilities
+    beside their bf16 copies: ~10 bytes a (head, query, key), as measured
+    at deepseek-v2's 128 heads; none at the MoE archs, which make that
+    comparison on a model of their own, ``phase_moe_paths``), and ~3 GB
+    of activations, logits and cache."""
+    return (2.0 * lm_param_counts(cfg)[0]
+            + 10.0 * rows * cfg.n_heads * PREFILL_S ** 2 + 3e9)
+
+
 def phase_serving(torch, device, arch_id: str = "tinyllama-1.1b"):
     """The LM serving path of ``arch_id`` at full width, through the
     user's entry points, with the launch counts zeroed just before and
-    read just after. For MLA (minicpm3) the serve run's decode steps take
-    the absorbed-matrix path against the latent cache, and its last
-    prompt step is held against the expanded prefill."""
+    read just after; the depth cut only where ``serve_peak_estimate`` does
+    not fit ``MEM_FRAC`` of the card (deepseek-v2). The MoE archs log
+    their routing (the share of assignments dropped at capacity, the
+    heaviest expert's load). Then ``compare_paths``: decode against
+    prefill and flash against dense; at the MoE archs, decode against
+    prefill at ``TOL_MOE_DEEP`` and the serve run's logits equal to the
+    decode steps', flash against dense left to ``phase_moe_paths``."""
     import dataclasses
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.segment_mm import block_spmm, csr_spmm
+    from repro_torch.kernels.segment_mm import csr_spmm
     from repro_torch.launch import serve
     from repro_torch.models.lm import transformer as tf
     from repro_torch.optim.optimizers import tree_leaves
 
-    cfg = get_arch(arch_id).make_config()
+    full = get_arch(arch_id).make_config()
+    rows = 0 if full.moe else PREFILL_B   # the dense comparison's sequences
+    budget = MEM_FRAC * torch.cuda.get_device_properties(device).total_memory
+    depth = fit_depth(full, lambda c: serve_peak_estimate(c, rows), budget)
+    cfg = (full if depth == full.n_layers
+           else dataclasses.replace(full, n_layers=depth))
+    if depth < full.n_layers:
+        log(f"serve {arch_id}: {lm_param_counts(full)[0] / 1e9:.3f}B "
+            f"parameters at full depth ({full.n_layers} layers), the "
+            f"phase's peak estimated at "
+            f"{serve_peak_estimate(full, rows) / 1e9:.1f} GB against "
+            f"{MEM_FRAC} of the card ({budget / 1e9:.1f} GB): depth cut to "
+            f"{depth} layers (estimated "
+            f"{serve_peak_estimate(cfg, rows) / 1e9:.1f} GB)")
     t0 = time.perf_counter()
     params = tf.init(cfg, seed=SEED, device=device)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
     log(f"{arch_id}: {n_params / 1e9:.3f}B parameters ({cfg.dtype}, "
-        f"{cfg.n_layers} layers, {cfg.attn_type}) drawn on the card in "
-        f"{time.perf_counter() - t0:.2f} s")
-    gen = torch.Generator().manual_seed(SEED + 3)
-    prompts = torch.randint(0, cfg.vocab, (4, 8), generator=gen)
-    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
-                           generator=gen).to(device)
+        f"{cfg.n_layers} layers, {cfg.attn_type}"
+        + (f", {cfg.first_k_dense} dense + {cfg.n_scan_layers} MoE of "
+           f"{cfg.n_experts} experts, top-{cfg.top_k}, {cfg.n_shared} "
+           f"shared" if cfg.moe else "")
+        + f") drawn on the card in {time.perf_counter() - t0:.2f} s")
+    has_moe = cfg.moe and cfg.n_scan_layers > 0
+    prompts, tokens = serve_inputs(torch, cfg, device)
 
     csr_spmm.launches = 0
-    block_spmm.launches = 0
     embedding_bag.launches = 0
     flash_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    res = serve.run(cfg, batch=4, prompt_len=8, gen_len=16, device=device,
-                    prompts=prompts, params=params)
+    with routing() as (serve_routes, _):
+        res = serve.run(cfg, batch=4, prompt_len=SERVE_PROMPT,
+                        gen_len=SERVE_GEN, device=device, prompts=prompts,
+                        params=params)
     serve_s = time.perf_counter() - t0
     after_serve = flash_attention.launches
     t0 = time.perf_counter()
-    logits = tf.prefill(params, cfg, tokens)
-    torch.cuda.synchronize()
+    with routing() as (prefill_routes, _):
+        logits = tf.prefill(params, cfg, tokens)
+        torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     counts = {"csr_spmm": csr_spmm.launches,
-              "block_spmm": block_spmm.launches,
               "embedding_bag": embedding_bag.launches,
               "flash_attention": flash_attention.launches}
     log(f"serving path {arch_id}: serve.run (batch 4, prompt 8, gen 16) "
@@ -4671,15 +4827,32 @@ def phase_serving(torch, device, arch_id: str = "tinyllama-1.1b"):
         f"(decode {res.decode_s * 1e3 / 15:.2f} ms/step, "
         f"{4 * 15 / res.decode_s:.0f} tok/s), prefill B={PREFILL_B} "
         f"S={PREFILL_S} {prefill_s * 1e3:.1f} ms (first call), launches "
-        f"{counts}")
+        f"{counts}; peak memory "
+        f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB "
+        f"(max_memory_allocated; estimated "
+        f"{serve_peak_estimate(cfg, rows) / 2**30:.2f} GiB)")
     require(after_serve == 0, f"decode steps launched the flash kernel "
             f"{after_serve} times")
     require(counts["flash_attention"] == cfg.n_layers,
             f"prefill launched the flash kernel {counts['flash_attention']} "
             f"times, not once per layer ({cfg.n_layers})")
-    require(counts["csr_spmm"] == counts["block_spmm"]
-            == counts["embedding_bag"] == 0,
+    require(counts["csr_spmm"] == counts["embedding_bag"] == 0,
             "the serving path launched a trainer kernel")
+    if has_moe:
+        n_moe = cfg.n_scan_layers
+        require(len(serve_routes) == 23 * n_moe
+                and len(prefill_routes) == n_moe,
+                f"{arch_id}: {len(serve_routes)} and {len(prefill_routes)} "
+                f"MoE routings, not {23 * n_moe} and {n_moe}")
+        drop_s, heavy_s = moe_load(torch, serve_routes, cfg, no_drop=True)
+        drop_p, heavy_p = moe_load(torch, prefill_routes, cfg)
+        log(f"MoE routing {arch_id}: decode steps (no drop, capacity B) "
+            f"dropped {drop_s:.4f} of the assignments, heaviest expert "
+            f"{heavy_s:.2f}x the mean load; prefill B={PREFILL_B} "
+            f"S={PREFILL_S} (capacity factor {cfg.capacity_factor}) dropped "
+            f"{drop_p:.4f}, heaviest expert {heavy_p:.2f}x the mean")
+        require(drop_s == 0.0, f"{arch_id}: a decode step dropped")
+    del serve_routes, prefill_routes
 
     # serve: the tokens, and the last prompt step's logits against prefill
     require(tuple(res.tokens.shape) == (4, 16), "serve tokens shape")
@@ -4687,32 +4860,181 @@ def phase_serving(torch, device, arch_id: str = "tinyllama-1.1b"):
             "serve tokens out of range")
     require(bool(torch.isfinite(res.prompt_logits).all()),
             "serve logits not finite")
-    pre = tf.prefill(params, cfg, prompts.to(device)).float()
-    ok, exact, tol = same_choice(res.prompt_logits.float(), pre)
-    path = ("absorbed MLA decode vs expanded prefill"
-            if cfg.attn_type == "mla" else "decode vs prefill")
-    log(f"serve vs prefill ({path}, S=8, dense path): max|diff| {tol:.4f} "
-        f"(logits max |{float(pre.abs().max()):.3f}|), argmax equal in "
-        f"{exact}/4 rows; first sequence {res.tokens[0].tolist()}")
-    require(ok and tol <= TOL_LOGITS, f"{arch_id}: serve logits vs prefill")
-
-    # the S=4096 prefill through the flash kernel against the dense path
     require(tuple(logits.shape) == (PREFILL_B, cfg.padded_vocab),
             "prefill shape")
     require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
-    dense_cfg = dataclasses.replace(cfg, blockwise_threshold=PREFILL_S + 1)
-    dense = tf.prefill(params, dense_cfg, tokens).float()
-    require(flash_attention.launches == counts["flash_attention"],
-            "the dense path launched the flash kernel")
-    ok, exact, tol = same_choice(logits.float(), dense)
-    log(f"prefill S={PREFILL_S}: flash vs dense path max|diff| {tol:.4f} "
-        f"(logits max |{float(dense.abs().max()):.3f}|), argmax equal in "
-        f"{exact}/{PREFILL_B} rows")
-    require(ok and tol <= TOL_LOGITS,
-            f"{arch_id}: prefill flash vs dense path")
-    del dense
+    if not has_moe:
+        compare_paths(torch, device, cfg, params, prompts, tokens, arch_id,
+                      res.prompt_logits, logits)
+    else:
+        compare_paths(torch, device, cfg, params, prompts, tokens, arch_id,
+                      res.prompt_logits, None, bound=TOL_MOE_DEEP,
+                      dense=False)
     torch.cuda.empty_cache()
     return counts, cfg, params, tokens
+
+
+def serve_inputs(torch, cfg, device):
+    """The serving phase's prompts (4, SERVE_PROMPT), on the host, and
+    its prefill tokens (PREFILL_B, PREFILL_S), on ``device``."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    prompts = torch.randint(0, cfg.vocab, (4, SERVE_PROMPT), generator=gen)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                           generator=gen).to(device)
+    return prompts, tokens
+
+
+def phase_moe_paths(torch, device, arch_id: str) -> None:
+    """An MoE arch's paths on a model of ``MOE_CMP_LAYERS`` layers drawn
+    on its own (after the served model's parameters are freed, so that
+    the dense comparison's memory does not cut the serving depth): decode
+    steps against prefill and the S=4096 prefill through the flash kernel
+    against the dense path, held at ``TOL_LOGITS``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import transformer as tf
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(arch_id).make_config(),
+                              n_layers=MOE_CMP_LAYERS)
+    params = tf.init(cfg, seed=SEED, device=device)
+    prompts, tokens = serve_inputs(torch, cfg, device)
+    compare_paths(torch, device, cfg, params, prompts, tokens, arch_id,
+                  None, None)
+    del params, tokens
+    torch.cuda.empty_cache()
+    log(f"MoE paths {arch_id} ({MOE_CMP_LAYERS} layers drawn on their "
+        f"own): {time.perf_counter() - t0:.1f} s")
+
+
+def compare_paths(torch, device, cfg, params, prompts, tokens, arch_id,
+                  serve_logits, prefill_logits, bound=TOL_LOGITS,
+                  dense: bool = True) -> dict:
+    """Two paths of one model against each other, each held to ``bound``
+    (None: logged only): the last prompt step of cached decode steps
+    against ``prefill`` of the prompts (MLA: the absorbed decode against
+    the expanded prefill), and, with ``dense``, the S=4096 prefill
+    through the flash kernel against the dense path. ``bound`` is a
+    max |diff| (``TOL_LOGITS``) with the argmax equal in every row, or a
+    dict of ``max_abs`` and ``rel_l2`` (the row's relative L2) bounds
+    (``TOL_MOE_DEEP``). At the MoE archs the argmax may differ where the
+    top logits tie within the max |diff| bound; each path's pick must be
+    that close to the other's best. ``serve_logits``/``prefill_logits``:
+    the serve run's and the counted prefill's, when they are what the
+    comparison takes. At the MoE archs a bf16 difference between two
+    paths can flip an expert choice, and a flip moves which later tokens
+    an expert's capacity drops, so the second path replays the first
+    path's routing (``routing``; the share of assignments its own router
+    picked otherwise is logged): decode steps replay a no-drop prefill of
+    the prompts (decode routes without drops), and the dense path replays
+    a flash prefill of one sequence (the dense comparison's memory); the
+    serve run's logits, on its own routing, must equal those of the same
+    decode steps on theirs. Returns {label: {max_abs, rel_l2,
+    argmax_equal, rows, flipped}}."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.lm import transformer as tf
+
+    has_moe = cfg.moe and cfg.n_scan_layers > 0
+    tag = f"{arch_id} ({cfg.n_layers} layers, {cfg.dtype})"
+    deep = isinstance(bound, dict)
+    window = bound["max_abs"] if deep else bound
+    readings = {}
+
+    def held(label, a, b, st, n_rows):
+        ok, exact, tol = same_choice(a, b)
+        if has_moe and window is not None:
+            # each path's pick within the bound of the other's best: the
+            # MoE archs' random-weight logits tie within the paths' bf16
+            # difference in some rows (deepseek: 1 of 4 at 4 layers)
+            ok = all(
+                bool((y.gather(-1, x.argmax(-1, keepdim=True))[:, 0]
+                      >= y.amax(-1) - window).all())
+                for x, y in ((a, b), (b, a)))
+        rel = float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
+        flipped = st["flipped"] / max(st["assignments"], 1)
+        readings[label] = dict(max_abs=tol, rel_l2=rel, argmax_equal=exact,
+                               rows=n_rows, flipped=flipped)
+        flips = ("" if not st["assignments"] else
+                 f"; the second path replayed the first's routing: "
+                 f"{st['flipped']}/{st['assignments']} assignments "
+                 f"({flipped:.4f}) its own router picked otherwise")
+        log(f"{label} {tag}: max|diff| {tol:.4g} (logits max "
+            f"|{float(b.abs().max()):.3f}|, row rel L2 {rel:.4g}), argmax "
+            f"equal in {exact}/{n_rows} rows{flips}"
+            + ("" if bound is not None else " (logged, not held)"))
+        if deep:
+            require(ok and tol <= bound["max_abs"]
+                    and rel <= bound["rel_l2"],
+                    f"{arch_id}: {label}: max|diff| {tol:.4g}, row rel L2 "
+                    f"{rel:.4g} against {bound}")
+        elif bound is not None:
+            require(ok and tol <= bound, f"{arch_id}: {label}")
+
+    path = ("absorbed MLA decode vs expanded prefill"
+            if cfg.attn_type == "mla" else "decode vs prefill")
+    none = {"assignments": 0, "flipped": 0}
+    n_prompt = prompts.shape[1]
+    if not has_moe:
+        pre = tf.prefill(params, cfg, prompts.to(device)).float()
+        held(f"serve vs prefill ({path}, S={n_prompt}, dense path)",
+             serve_logits.float(), pre, none, 4)
+    else:
+        nd = dataclasses.replace(cfg, capacity_factor=2.0 * cfg.n_experts
+                                 / cfg.top_k)
+        with routing() as (rec, _):
+            pre = tf.prefill(params, nd, prompts.to(device)).float()
+        b_rows = torch.arange(4, device=device) * n_prompt
+
+        def from_prefill(i):
+            w, e = rec[i % cfg.n_scan_layers]
+            at = b_rows + i // cfg.n_scan_layers
+            return w[at], e[at]
+
+        def decode(replay):
+            # the serve run's cache length: its prompt steps' shapes
+            cache = tf.init_cache(cfg, 4, SERVE_PROMPT + SERVE_GEN,
+                                  device=device)
+            with routing(replay) as (_, st):
+                for i in range(n_prompt):
+                    out, cache = tf.decode_step(
+                        params, cfg, prompts[:, i:i + 1].to(device), cache, i)
+            return out, st
+
+        dec, st = decode(from_prefill)
+        del rec
+        held(f"decode steps vs no-drop prefill ({path}, S={n_prompt}, "
+             "dense path)", dec.float(), pre, st, 4)
+        if serve_logits is not None:
+            own, _ = decode(None)
+            gap = float((serve_logits.float() - own.float()).abs().max())
+            log(f"  the serve run's logits against the same decode steps' "
+                f"on their own routing: max|diff| {gap:.4g} (held equal; "
+                f"{float((serve_logits.float() - dec.float()).abs().max()):.4g}"
+                " from the replayed run)")
+            require(torch.equal(serve_logits, own),
+                    f"{arch_id}: the serve run's logits differ from its "
+                    f"decode steps' by {gap:.4g}")
+    if not dense:
+        return readings
+
+    rows = 1 if has_moe else PREFILL_B
+    flash, rec = prefill_logits, []
+    if flash is None:
+        with routing() as (rec, _):
+            flash = tf.prefill(params, cfg, tokens[:rows])
+    before = flash_attention.launches
+    dense_cfg = dataclasses.replace(cfg, blockwise_threshold=PREFILL_S + 1)
+    with routing(rec.__getitem__) as (_, st):
+        dense_out = tf.prefill(params, dense_cfg, tokens[:rows]).float()
+    require(flash_attention.launches == before,
+            "the dense path launched the flash kernel")
+    held(f"prefill S={PREFILL_S} B={rows}: flash vs dense path",
+         flash.float(), dense_out, st, rows)
+    del dense_out, flash
+    return readings
 
 
 def phase_profile_decode(torch, device, cfg, params, batch: int = 4,
@@ -4827,9 +5149,11 @@ def check_bwd_build(text: str) -> None:
     """The flash backward's ptxas report: the delta pass for float32 and
     bf16 at each D_v (32, 64, 128), and the float32 SIMT dK/dV and dQ
     kernels, the bf16 wgmma ones and the sum of the dK/dV parts at each
-    compiled (D, D_v) pair, (96, 64) MLA's among them (26 instances),
-    logged with their registers and spills; no wgmma that ptxas had to
-    serialize, and no spill in a bf16 instance."""
+    compiled (D, D_v) pair, MLA's (96, 64) and (192, 128) among them (31
+    instances; at (192, 128) the wgmma dK/dV and dQ kernels are the
+    two-warpgroup ones, ``*_wgmma2_kernel``), logged with their registers
+    and spills; no wgmma that ptxas had to serialize, and no spill in a
+    bf16 instance."""
     import re
 
     from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
@@ -4841,7 +5165,7 @@ def check_bwd_build(text: str) -> None:
     require(not serialized, "ptxas serialized the flash backward's wgmma")
     found = {}
     for name, info in ptxas_functions(text).items():
-        hit = re.search(r"(bwd_(?:prep|dkdv|dq|reduce)(?:_wgmma)?_kernel)"
+        hit = re.search(r"(bwd_(?:prep|dkdv|dq|reduce)(?:_wgmma2?)?_kernel)"
                         r"I(f|13__nv_bfloat16)?Li(\d+)E(?:Li(\d+)E)?", name)
         if hit:
             kern, t, d, dv = hit.groups()
@@ -4855,10 +5179,11 @@ def check_bwd_build(text: str) -> None:
                   + [(k, "f32", p) for k in ("bwd_dkdv_kernel",
                                              "bwd_dq_kernel")
                      for p in pairs]
-                  + [(k, "bf16", p) for k in ("bwd_dkdv_wgmma_kernel",
-                                              "bwd_dq_wgmma_kernel",
-                                              "bwd_reduce_kernel")
-                     for p in pairs])
+                  + [(k.replace("wgmma", "wgmma2") if d > 128 else k,
+                      "bf16", f"{d}, {dv}")
+                     for k in ("bwd_dkdv_wgmma_kernel", "bwd_dq_wgmma_kernel",
+                               "bwd_reduce_kernel")
+                     for d, dv in HEAD_DIMS])
     require(sorted(found) == want,
             f"ptxas report lists flash backward instances {sorted(found)}, "
             f"not {want} (is the build log missing?)")
@@ -4954,15 +5279,23 @@ def bwd_vs_plain(torch, device):
                   (dt, "d=96 dv=64 causal=True sq=136 sk=200 (Sk > Sq, "
                    "ragged)", (1, 136, 4, 96), (1, 200, 2, 96), True, 64),
                   (dt, "d=96 dv=64 causal=False strided heads s=192",
-                   (1, 192, 16, 96), (1, 192, 4, 96), False, "strided")]
+                   (1, 192, 16, 96), (1, 192, 4, 96), False, "strided"),
+                  (dt, "d=192 dv=128 causal=True MHA s=256",
+                   (1, 256, 4, 192), (1, 256, 4, 192), True, 128),
+                  (dt, "d=192 dv=128 causal=True s=200 (ragged)",
+                   (1, 200, 4, 192), (1, 200, 1, 192), True, 128),
+                  (dt, "d=192 dv=128 causal=True sq=136 sk=200 (Sk > Sq, "
+                   "ragged)", (1, 136, 4, 192), (1, 200, 2, 192), True, 128),
+                  (dt, "d=192 dv=128 causal=False strided heads s=192",
+                   (1, 192, 16, 192), (1, 192, 4, 192), False, "strided")]
     for dt, label, qs, ks, causal, how in cases:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         label = f"{dt} {label}"
         if how == "strided":   # views into wider head axes
             qb, kb = randn(*qs, dtype=dtype), randn(*ks, dtype=dtype)
             q, k, v = qb[:, :, 4:12], kb[:, :, :2], kb[:, :, 2:]
-            if qs[-1] == 96:   # MLA: v's heads from a tensor of D_v = 64
-                v = randn(*ks[:3], 64, dtype=dtype)[:, :, 2:]
+            if qs[-1] in MLA_DV:   # v's heads from a tensor of D_v
+                v = randn(*ks[:3], MLA_DV[qs[-1]], dtype=dtype)[:, :, 2:]
         else:
             dv = how or ks[-1]
             q, k, v = (randn(*qs, dtype=dtype), randn(*ks, dtype=dtype),
@@ -5297,18 +5630,32 @@ def phase_lm_train(torch, device, smi):
     return row, bwd_err, operands
 
 
-def lm_param_counts(cfg) -> tuple[int, int, int]:
-    """(every parameter, the matrices', the largest leaf's) of ``cfg``'s
-    model, from the port's own layer shapes (MLA's or GQA's)."""
+def lm_param_counts(cfg) -> tuple[int, float, int]:
+    """(every parameter, the matrices' a token runs through, the largest
+    leaf's) of ``cfg``'s model, from the port's own layer shapes (MLA's or
+    GQA's; the ``first_k_dense`` dense layers and the stacked ones, MoE's
+    router, expert stacks and shared experts). A token runs through
+    ``top_k`` of the ``n_experts`` experts, so the expert stacks count at
+    that share in the matrices."""
     from repro_torch.models.lm import transformer as tf
 
-    shapes = [sh for sh, _ in tf._layer_shapes(cfg).values()]
-    per_layer = sum(math.prod(sh) for sh in shapes if len(sh) > 1)
-    norms = sum(math.prod(sh) for sh in shapes if len(sh) == 1)
+    def layer(use_moe):  # (parameters, matrices a token runs, largest)
+        shapes = tf._layer_shapes(cfg, use_moe)
+        n_all = sum(math.prod(sh) for sh, _ in shapes.values())
+        n_mat = sum(math.prod(sh) * (cfg.top_k / cfg.n_experts
+                                     if use_moe and name in EXPERT_STACKS
+                                     else 1.0)
+                    for name, (sh, _) in shapes.items() if len(sh) > 1)
+        return n_all, n_mat, max(math.prod(sh) for sh, _ in shapes.values())
+
     d, v = cfg.d_model, cfg.padded_vocab
-    n_mat = cfg.n_layers * per_layer + d * v       # lm_head; embed gathers
-    n_all = n_mat + d * v + cfg.n_layers * norms + d
-    largest = max([d * v] + [cfg.n_layers * math.prod(sh) for sh in shapes])
+    dense, stacked = layer(False), layer(cfg.moe)
+    n_dense, n_stack = cfg.first_k_dense, cfg.n_scan_layers
+    n_mat = n_dense * dense[1] + n_stack * stacked[1] + d * v  # lm_head
+    n_all = (n_dense * dense[0] + n_stack * stacked[0] + 2 * d * v
+             + d)                                   # embed, final_norm
+    largest = max(d * v, dense[2] if n_dense else 0,
+                  n_stack * stacked[2])
     return n_all, n_mat, largest
 
 
@@ -5328,11 +5675,13 @@ def phase_lm_train_arch(torch, device, smi, arch_id: str) -> dict:
     cross-entropy) at S = 4,096, the global batch cut to ``grad_accum``
     (one sequence a microbatch), ``NEW_TRAIN_STEPS`` steps, the depth cut
     where the card's memory forces it (to the most layers whose estimated
-    peak fits in ``TRAIN_MEM_FRAC`` of the card; logged with the estimate
+    peak fits in ``MEM_FRAC`` of the card; logged with the estimate
     that forced it and the measured peak). The counts are zeroed
-    just before the steps and read just after; then the attention
-    parameters' gradients in every layer and one profiled step. Returns
-    the launch counts."""
+    just before the steps and read just after; at the MoE archs the
+    first step's routing is logged (the share of assignments dropped at
+    capacity, the heaviest expert's load). Then the attention parameters'
+    gradients in every layer (MoE: the router, the experts and the shared
+    experts too) and one profiled step. Returns the launch counts."""
     import dataclasses
 
     from repro_torch import optim
@@ -5349,11 +5698,8 @@ def phase_lm_train_arch(torch, device, smi, arch_id: str) -> dict:
     require(full.remat and TRAIN_S >= full.blockwise_threshold,
             f"{arch_id}'s config does not train through remat and flash")
     card = torch.cuda.get_device_properties(device)
-    budget = TRAIN_MEM_FRAC * card.total_memory
-    depth = full.n_layers
-    while depth > 1 and train_peak_estimate(
-            dataclasses.replace(full, n_layers=depth)) > budget:
-        depth -= 1
+    budget = MEM_FRAC * card.total_memory
+    depth = fit_depth(full, train_peak_estimate, budget)
     cut = None if depth == full.n_layers else depth
     cfg = full if cut is None else dataclasses.replace(full, n_layers=cut)
     accum = cfg.grad_accum
@@ -5361,7 +5707,7 @@ def phase_lm_train_arch(torch, device, smi, arch_id: str) -> dict:
     log(f"train {arch_id}: {n_full / 1e9:.3f}B parameters at full depth "
         f"({full.n_layers} layers), the step's peak estimated at "
         f"{train_peak_estimate(full) / 1e9:.1f} GB against "
-        f"{TRAIN_MEM_FRAC} of the card's {card.total_memory / 1e9:.1f} GB; "
+        f"{MEM_FRAC} of the card's {card.total_memory / 1e9:.1f} GB; "
         + ("no depth cut" if cut is None else
            f"depth cut to {cut} layers ({n_all / 1e9:.3f}B parameters, "
            f"estimated {train_peak_estimate(cfg) / 1e9:.1f} GB)")
@@ -5398,9 +5744,22 @@ def phase_lm_train_arch(torch, device, smi, arch_id: str) -> dict:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             start.record()
-            params, state, loss = step(params, state, tokens, targets)
+            with routing() as (routes, _):
+                params, state, loss = step(params, state, tokens, targets)
             end.record()
             torch.cuda.synchronize()
+            if i == 0 and cfg.moe and cfg.n_scan_layers:
+                # the forward and remat's recompute route each microbatch
+                # in every MoE layer alike
+                require(len(routes) == 2 * cfg.n_scan_layers * accum,
+                        f"{arch_id}: {len(routes)} MoE routings in a step")
+                drop, heavy = moe_load(torch, routes, cfg)
+                log(f"MoE routing {arch_id} train step 1 ({accum} "
+                    f"microbatches of {TRAIN_S} tokens, capacity factor "
+                    f"{cfg.capacity_factor}): dropped {drop:.4f} of the "
+                    f"assignments, heaviest expert {heavy:.2f}x the mean "
+                    "load")
+            del routes
             wall.append((time.perf_counter() - t0) * 1e3)
             ev_ms.append(start.elapsed_time(end))
             losses.append(float(loss))
@@ -5452,13 +5811,26 @@ def phase_lm_train_arch(torch, device, smi, arch_id: str) -> dict:
             "layer")
     names = (("w_dq", "w_uq", "w_dkv", "w_uk", "w_uv", "w_kr", "wo")
              if cfg.attn_type == "mla" else ("wq", "wk", "wv", "wo"))
-    for name in names:
-        g = grads["layers"][name].float()
-        per_layer = g.abs().flatten(1).amax(dim=1)
-        require(bool(torch.isfinite(g).all()) and bool((per_layer > 0).all()),
-                f"{arch_id} {name}: a layer got no gradient")
+    moe_names = ("router", "w_gate", "w_up", "w_down") + (
+        ("ws_gate", "ws_up", "ws_down") if cfg.n_shared else ())
+    # every layer's: the dense layers' own leaves, the stack's per layer
+    groups = [(grads[f"dense_layer_{i}"], names, False)
+              for i in range(cfg.first_k_dense)]
+    if cfg.n_scan_layers:
+        groups.append((grads["layers"],
+                       names + (moe_names if cfg.moe else ()), True))
+    for tree, group, stacked in groups:
+        for name in group:
+            g = tree[name].float()
+            per_layer = (g.abs().flatten(1).amax(dim=1) if stacked
+                         else g.abs().max()[None])
+            require(bool(torch.isfinite(g).all())
+                    and bool((per_layer > 0).all()),
+                    f"{arch_id} {name}: a layer got no gradient")
     log(f"train {arch_id}: {', '.join(names)} gradients finite and non-zero "
-        f"in all {cfg.n_layers} layers through the backward kernel")
+        f"in all {cfg.n_layers} layers through the backward kernel"
+        + (f"; {', '.join(moe_names)} in all {cfg.n_scan_layers} MoE layers"
+           if cfg.moe and cfg.n_scan_layers else ""))
     del grads, g
 
     profile_train_step(torch, arch_id,
@@ -5476,28 +5848,37 @@ def profile_train_step(torch, arch_id: str, run_step, steady_wall: float,
     kernel group (flash forward, flash backward, matrix products, the
     rest) and the idle share against the unprofiled median host wall;
     fails unless every backward of the bf16 step ran the tensor-core
-    kernels (``per_bwd`` launches each of dK/dV and dQ)."""
+    kernels (``per_bwd`` launches each of dK/dV and dQ). The profiler of a
+    process that has launched millions of kernels drops some from a
+    trace, so a trace missing any of them is taken again, up to 3
+    times."""
     import re
 
-    by_name = traced(torch, run_step)
-    require(bool(by_name), f"profile train {arch_id}: no device time")
-    groups = {"flash forward": 0.0, "flash backward": 0.0,
-              "matrix products": 0.0, "rest": 0.0}
-    n_bwd_wgmma = {"dkdv": 0, "dq": 0}
-    for name, (us, cnt) in by_name.items():
-        low = name.lower()
-        if "flash_fwd" in low:
-            groups["flash forward"] += us / 1e3
-        elif re.search(r"bwd_(prep|dkdv|dq|reduce)(_wgmma)?_kernel", low):
-            groups["flash backward"] += us / 1e3
-            hit = re.search(r"bwd_(dkdv|dq)_wgmma_kernel", low)
-            if hit:
-                n_bwd_wgmma[hit.group(1)] += cnt
-        elif any(w in low for w in ("gemm", "gemv", "nvjet", "sm90_",
-                                    "cutlass", "xmma", "cublas")):
-            groups["matrix products"] += us / 1e3
-        else:
-            groups["rest"] += us / 1e3
+    for _ in range(3):
+        by_name = traced(torch, run_step)
+        require(bool(by_name), f"profile train {arch_id}: no device time")
+        groups = {"flash forward": 0.0, "flash backward": 0.0,
+                  "matrix products": 0.0, "rest": 0.0}
+        n_bwd_wgmma = {"dkdv": 0, "dq": 0}
+        for name, (us, cnt) in by_name.items():
+            low = name.lower()
+            if "flash_fwd" in low:
+                groups["flash forward"] += us / 1e3
+            elif re.search(r"bwd_(prep|dkdv|dq|reduce)(_wgmma2?)?_kernel",
+                           low):
+                groups["flash backward"] += us / 1e3
+                hit = re.search(r"bwd_(dkdv|dq)_wgmma2?_kernel", low)
+                if hit:
+                    n_bwd_wgmma[hit.group(1)] += cnt
+            elif any(w in low for w in ("gemm", "gemv", "nvjet", "sm90_",
+                                        "cutlass", "xmma", "cublas")):
+                groups["matrix products"] += us / 1e3
+            else:
+                groups["rest"] += us / 1e3
+        if n_bwd_wgmma == {"dkdv": per_bwd, "dq": per_bwd}:
+            break
+        log(f"profiler: {n_bwd_wgmma} wgmma backward launches of "
+            f"{per_bwd} each in the {arch_id} step's trace; taking it again")
     busy = sum(groups.values())
     log(f"profile train {arch_id} step: device busy {busy:.1f} ms against a "
         f"host wall of {steady_wall:.1f} ms (unprofiled median), idle share "
@@ -5654,9 +6035,9 @@ def phase_timing(torch, device, ops, counts, n_steps):
 
     timer = Timer(torch, device)
     rows = []
-    per_step = {"ms": 0.0, "plain_ms": 0.0, "dense_ms": 0.0,
-                "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
-    for label, fmt, dense, x in spmm_cases(ops):
+    per_step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+                "flops": 0.0}
+    for label, fmt, x in spmm_cases(ops):
         y = torch.empty((fmt.n_rows, x.shape[1]), device=device)
         ms = timer.ms(lambda: spmm_ops.csr_launch(fmt, x, y))
         plain = timer.ms(lambda: spmm_ops.csr_spmm_plain(
@@ -5665,13 +6046,6 @@ def phase_timing(torch, device, ops, counts, n_steps):
                                       (fmt.n_rows, x.shape[0]),
                                       check_invariants=True)
         lib = timer.ms(lambda: torch.sparse.mm(csr, x))
-        # the first port's design on the same adjacency, off the path
-        rowptr = torch.searchsorted(
-            dense.rows, torch.arange(dense.n_dst_blocks + 1,
-                                     dtype=torch.int32, device=device),
-            out_int32=True)
-        dense_ms = timer.ms(lambda: spmm_ops.launch(
-            rowptr, dense.cols, dense.blocks, x, y, dense.n_dst_blocks))
         nnz = fmt.col.numel()
         # the least the function moves: entries (col + val), row pointers,
         # X read once, Y written once
@@ -5680,19 +6054,15 @@ def phase_timing(torch, device, ops, counts, n_steps):
         n_flops = 2.0 * nnz * x.shape[1]
         b_ms, b_by = bound_ms(n_bytes, n_flops)
         log(f"time csr_spmm {label}: kernel {ms:.4f} ms, plain {plain:.4f} "
-            f"ms, torch.sparse.mm {lib:.4f} ms, dense-block kernel "
-            f"{dense_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-            f"{n_bytes / 1e6:.3f} MB, nnz {nnz}, {n_flops:.4g} operations; "
-            f"the dense blocks weigh {dense.blocks.numel() * 4 / 1e6:.1f} MB)")
-        for k, v in (("ms", ms), ("plain_ms", plain), ("dense_ms", dense_ms),
-                     ("library_ms", lib), ("bytes", n_bytes),
-                     ("flops", n_flops)):
+            f"ms, torch.sparse.mm {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{n_bytes / 1e6:.3f} MB, nnz {nnz}, {n_flops:.4g} operations)")
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                     ("bytes", n_bytes), ("flops", n_flops)):
             per_step[k] += v
     spmm_bound, spmm_by = bound_ms(per_step["bytes"], per_step["flops"])
     log(f"time csr_spmm per step (3 calls): kernel {per_step['ms']:.4f} ms, "
         f"plain {per_step['plain_ms']:.4f} ms, torch.sparse.mm "
-        f"{per_step['library_ms']:.4f} ms, dense-block kernel "
-        f"{per_step['dense_ms']:.4f} ms, bound {spmm_bound:.4f} ms")
+        f"{per_step['library_ms']:.4f} ms, bound {spmm_bound:.4f} ms")
     rows.append({
         "name": "csr_spmm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/csr_spmm.cu",
@@ -5702,7 +6072,6 @@ def phase_timing(torch, device, ops, counts, n_steps):
         "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
         "bound_ms": spmm_bound, "bound_by": spmm_by,
         "library_ms": per_step["library_ms"],
-        "dense_ms": per_step["dense_ms"],
     })
 
     bags = ops["bags"]
@@ -5712,38 +6081,22 @@ def phase_timing(torch, device, ops, counts, n_steps):
         fmt = bags[label]
         out = torch.empty((fmt.n_bags, table.shape[1]), device=device)
         ms = timer.ms(lambda: bag_ops.bag_launch(fmt, table, out))
-        k_flushed, k_warm = timer.kernel_ms(
-            lambda: bag_ops.bag_launch(fmt, table, out))
         plain = timer.ms(lambda: bag_ops.bag_plain(fmt, table))
         lib = timer.ms(lambda: F.embedding_bag(
-            fmt.idx, table, fmt.offsets[:-1], mode="sum",
-            per_sample_weights=fmt.w, include_last_offset=False))
-        lib_flushed, lib_warm = timer.kernel_ms(lambda: F.embedding_bag(
             fmt.idx, table, fmt.offsets[:-1], mode="sum",
             per_sample_weights=fmt.w, include_last_offset=False))
         n_look, d = fmt.idx.numel(), table.shape[1]
         n_bytes = bag_bytes(torch, fmt, d)
         b_ms, b_by = bound_ms(n_bytes, 2.0 * n_look * d)
-        times[label] = dict(ms=ms, kernel_ms=k_flushed, kernel_warm_ms=k_warm,
+        prof = ops["bag_profile"][label]
+        times[label] = dict(ms=ms, kernel_ms=prof["kernel"][0],
+                            kernel_warm_ms=prof["kernel"][1],
                             plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                             bound_by=b_by)
         log(f"time embedding_bag {label} L={n_look} bags={fmt.n_bags}: "
-            f"kernel {ms:.4f} ms (events), {k_flushed:.4f} ms flushed / "
-            f"{k_warm:.4f} ms warm (profiler); plain {plain:.4f} ms; "
-            f"F.embedding_bag {lib:.4f} ms (events), {lib_flushed:.4f} / "
-            f"{lib_warm:.4f} ms (profiler); bound {b_ms:.4f} ms ({b_by}; "
-            f"{n_bytes / 1e6:.2f} MB)")
-    empty = bag_ops.BagFormat.from_numpy([], [], 1, None, device)
-    one = torch.zeros((1, table.shape[1]), device=device)
-    out = torch.empty_like(one)
-
-    def floor():
-        bag_ops.bag_launch(empty, one, out)
-
-    f_ms = timer.ms(floor)
-    f_flushed, f_warm = timer.kernel_ms(floor)
-    log(f"time embedding_bag floor (one empty bag): {f_ms:.4f} ms (events), "
-        f"{f_flushed:.4f} / {f_warm:.4f} ms (profiler)")
+            f"kernel {ms:.4f} ms (events); plain {plain:.4f} ms; "
+            f"F.embedding_bag {lib:.4f} ms (events); bound {b_ms:.4f} ms "
+            f"({b_by}; {n_bytes / 1e6:.2f} MB)")
     path = times["path"]
     rows.append({
         "name": "embedding_bag", "route": "cuda",
@@ -5754,8 +6107,7 @@ def phase_timing(torch, device, ops, counts, n_steps):
         **path, "padded_ms": times["padded"]["ms"],
     })
     log(f"launches per step: csr_spmm "
-        f"{counts['csr_spmm'] / n_steps:.3f}, block_spmm "
-        f"{counts['block_spmm'] / n_steps:.3f}, embedding_bag "
+        f"{counts['csr_spmm'] / n_steps:.3f}, embedding_bag "
         f"{counts['embedding_bag'] / n_steps:.3f}")
     return rows
 
@@ -5825,6 +6177,17 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = phase_card_and_build(torch)
+    # the phases that read the trainer's kernels from the profiler first:
+    # a process that has launched ~3M kernels (the policy training launches
+    # tens of millions) got no csr_spmm or embedding_bag kernel into a
+    # trace, where a fresh one traced every launch
+    phase_profile(torch, device)
+    phase_pipeline_profile(torch, device)
+    ops = main_path_operands(torch, device)
+    ops["errs"] = phase_kernels_vs_plain(torch, device, ops)
+    phase_bag_profile(torch, device, ops)
+    wide_err = phase_spmm_widths(torch, device, ops)
+    ops["errs"]["csr_spmm"] = max(ops["errs"]["csr_spmm"], wide_err)
     qnet, policy_pools = phase_policy(torch, device, smi)
     queue_qnet, queue_info = phase_queue(torch, device, smi, policy_pools)
     cluster_qnet, cluster_info = phase_cluster_env(torch, device, smi,
@@ -5832,10 +6195,6 @@ def main() -> int:
     run_deploy_process(torch, {"cluster": cluster_qnet, "queue": queue_qnet})
     policy_pools["queue"] = policy_pools["analytic"]
     policy_pools["cluster"] = policy_pools["analytic"]
-    ops = main_path_operands(torch, device)
-    ops["errs"] = phase_kernels_vs_plain(torch, device, ops)
-    wide_err = phase_spmm_widths(torch, device, ops)
-    ops["errs"]["csr_spmm"] = max(ops["errs"]["csr_spmm"], wide_err)
     flash_err, flash_operands = phase_flash_vs_plain(torch, device)
     counts, step_ms, n_steps = phase_main_path(torch, device, qnet)
     full_counts = phase_full_graph(torch, device)
@@ -5844,10 +6203,8 @@ def main() -> int:
     phase_budgeted_tier(torch, device)
     phase_card_vs_cpu(torch, device)
     phase_card_vs_cpu_fabric(torch, device)
-    phase_profile(torch, device)
     pipe_plans, pipe_builder_bags, pipe_rebuilds = phase_pipeline(
         torch, device, smi)
-    phase_pipeline_profile(torch, device)
     phase_pipeline_adaptive(torch, device, qnet)
     phase_pipeline_budgeted(torch, device)
     phase_cluster(torch, device, smi, qnet)
@@ -5857,7 +6214,9 @@ def main() -> int:
     phase_profile_decode(torch, device, cfg, params)
     del params
     torch.cuda.empty_cache()
-    new_lm = {}   # the later slices' archs: qwen3 and MLA's minicpm3
+    new_lm = {}   # the later slices' archs: qwen3, MLA's minicpm3, MoE's
+    # moonshot and deepseek-v2 (MLA at (192, 128)), one arch's parameters
+    # freed before the next arch's are drawn
     for arch in NEW_LM_ARCHS:
         t0 = time.perf_counter()
         counts_a, cfg_a, params_a, tokens_a = phase_serving(torch, device,
@@ -5866,6 +6225,8 @@ def main() -> int:
         new_lm[arch] = {"prefill": counts_a["flash_attention"]}
         del params_a, tokens_a
         torch.cuda.empty_cache()
+        if cfg_a.moe:
+            phase_moe_paths(torch, device, arch)
         log(f"serving phase {arch}: {time.perf_counter() - t0:.1f} s")
     bwd_row, bwd_err, bwd_operands = phase_lm_train(torch, device, smi)
     for arch in NEW_LM_ARCHS:
@@ -5891,7 +6252,7 @@ def main() -> int:
             torch, device, bwd_operands.pop(arch),
             train["flash_attention_bwd"], NEW_TRAIN_STEPS, bwd_err,
             name=f"flash_attention_bwd_{short}"))
-    log(f"timing rows of the qwen3 and minicpm3 instances: "
+    log(f"timing rows of the later slices' archs: "
         f"{time.perf_counter() - t0:.1f} s")
     rows.append(queue_window_timing_row(torch, device, queue_info))
     rows.append(cluster_window_timing_row(torch, device, cluster_info))

@@ -36,7 +36,6 @@ NVCC_FLAGS = (
 # returns cudaGetLastError() as an int.
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 ENTRIES = {
-    "block_spmm_f32": ("block_spmm", (_P, _P, _P, _P, _P, _I, _I, _P)),
     # rowptr, col, val, x, y, n_rows, f, ldx, ldy, vec, stream
     "csr_spmm_f32": ("csr_spmm", (_P,) * 5 + (_I,) * 5 + (_P,)),
     # idx, w, offsets, table, out, n_bags, d, n_lookups, max_len, stream

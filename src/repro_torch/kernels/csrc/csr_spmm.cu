@@ -1,7 +1,7 @@
 // CSR SpMM for the GNN aggregation, for Hopper (sm_90a).
 //
-// Replaces src/repro/kernels/segment_mm/kernel.py::block_spmm_kernel
-// (body _spmm_kernel), which computes Y = A @ X over dense 128 x 128
+// Replaces the Pallas kernel of src/repro/kernels/segment_mm/kernel.py:59
+// (pl.pallas_call at :78, body _spmm_kernel), which computes Y = A @ X over dense 128 x 128
 // adjacency blocks because the TPU's matrix unit wants dense tiles and the
 // TPU has no atomics. At the trainer's sizes those blocks are 0.2-0.4%
 // full, so here A travels as CSR (rowptr, col, val), and
@@ -44,11 +44,8 @@
 //
 // Summation order. Each output element is acc = fmaf(val[e], x, acc) over
 // the row's entries in ascending column order, from acc = +0, whatever the
-// slab, V or G. The dense kernel (block_spmm.cu) contracts acc += a * x to
-// the same FFMA over the same columns in the same order, and its terms
-// with a = 0 leave acc unchanged for finite X, so the two give identical
-// bits; two launches of this kernel do too. Empty and padded rows are
-// written as zeros.
+// slab, V or G, so two launches give identical bits. Empty and padded rows
+// are written as zeros.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -23,8 +23,9 @@
 // along the head dim and any other strides, so the model's tensors need
 // no transpose. The kernels are templated on the pair (D, D_v): (32, 32),
 // (64, 64), (128, 128), and MLA's (96, 64) (minicpm3: d_nope + d_rope =
-// 96 for q and k, d_v = 64 for v), where the reference's XLA
-// blockwise_attention takes a v head dim of its own. GQA: q head h
+// 96 for q and k, d_v = 64 for v) and (192, 128) (deepseek-v2: 128 + 64
+// and 128), where the reference's XLA blockwise_attention takes a v head
+// dim of its own. GQA: q head h
 // reads KV head h / (Hq / Hkv), in-kernel, with no repeated copies.
 // Causal CTAs stop at the last KV tile that meets the diagonal; the skipped
 // tiles would add exactly zero, since every row sees key 0 in the first
@@ -38,7 +39,8 @@
 // 0.139 ms. At minicpm3's (B=2, S=4096, H=40, D=96, D_v=64) they are
 // 2 (96 + 64) operations a (query, key) pair, 2.15e11 for the causal half:
 // 0.217 ms at 989 TFLOP/s bf16. At qwen3's (B=2, S=4096, Hq=16, Hkv=8,
-// D=128) 1.37e11: 0.139 ms.
+// D=128) 1.37e11: 0.139 ms. At deepseek-v2's (B=2, S=4096, H=128, D=192,
+// D_v=128) 2 (192 + 128) operations a pair, 1.37e12: 1.39 ms.
 //
 // The kernel is chosen by dtype, not as a fallback: tensor cores take
 // float32 only as TF32, which cannot meet the float32 contract (2e-5 /
@@ -50,7 +52,7 @@
 // wgmma.mma_async bf16 -> f32 (inline PTX):
 //   S = Q . K^T: A = the warpgroup's Q rows, B = the K tile [keys][D],
 //     both K-major in shared memory, m64n64k16 per 16 columns of D (six
-//     at D = 96).
+//     at D = 96, twelve at D = 192).
 //   O += P . V: A = P from registers. The f32 accumulator fragment of S
 //     (thread t holds rows 16 w + t/4 + {0, 8}, columns 8 n + 2 (t%4) +
 //     {0, 1}) rounded to bf16 pairs is the A fragment of m64nXk16 as it
@@ -61,9 +63,12 @@
 // Tiles live in shared memory in bf16 in the swizzled layout the wgmma
 // descriptors read (flash_wgmma.cuh: 64-column atoms with 128-byte swizzle
 // where 64 divides the dim, else 32-column atoms with 64-byte swizzle, so
-// D = 96 is three of those); Q and K in D's layout, V in D_v's. At (96,
-// 64) the shared ring (128 x 96 Q, 2 x 64 x 96 K, 2 x 64 x 64 V) is 65 KB,
-// so two CTAs still share an SM. K and V arrive by 16-byte cp.async
+// D = 96 is three of those; D = 192 is three 64-column atoms); Q and K in
+// D's layout, V in D_v's. At (96, 64) the shared ring (128 x 96 Q, 2 x 64
+// x 96 K, 2 x 64 x 64 V) is 65 KB, so two CTAs still share an SM; at
+// (192, 128) it is 129 KB (128 x 192 Q, 2 x 64 x 192 K, 2 x 64 x 128 V),
+// one CTA an SM, as at (128, 128), with (128, 128)'s registers: S is 64
+// keys wide whatever D, and O follows D_v. K and V arrive by 16-byte cp.async
 // copies (zero fill past Sk and Sq) into a ring of two stages: tile t+1
 // loads while tile t computes, one __syncthreads per tile. The online
 // softmax runs on the accumulator fragments: row max and row sum reduce
@@ -82,7 +87,9 @@
 //
 // float32 (flash_fwd_kernel): 64-row q tiles, 256 threads as 16 row groups
 // x 16 column groups; tiles staged in shared memory as float32 with rows
-// padded for conflict-free reads; both products as FMA on the CUDA cores.
+// padded for conflict-free reads (145 KB at (192, 128), so every instance
+// opts in to dynamic shared memory); both products as FMA on the CUDA
+// cores.
 //
 // Both kernels take an optional lse (B, Hq, Sq) float32: when it is not
 // null, each row's log-sum-exp m + log(l) (natural units, NEG_INF for a
@@ -546,7 +553,8 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // the backward; a null lse leaves the kernels' work and o as they are.
 // dtype: 0 = float32 (SIMT kernel), 1 = bfloat16 (wgmma kernel; 16-byte
 // aligned pointers and strides); (d, dv) in {(32, 32), (64, 64), (128,
-// 128), (96, 64)}: any other pair returns cudaErrorInvalidValue.
+// 128), (96, 64), (192, 128)}: any other pair returns
+// cudaErrorInvalidValue.
 // Returns cudaGetLastError() after the launch (or the attribute's error).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
@@ -574,5 +582,8 @@ extern "C" int flash_attention_fwd(
   if (d == 96 && dv == 64)
     return launch<96, 64>(dtype, q, k, v, o, lse, batch, sq, sk, hq, hkv, qs,
                           ks, vs, os, causal, st);
+  if (d == 192 && dv == 128)
+    return launch<192, 128>(dtype, q, k, v, o, lse, batch, sq, sk, hq, hkv,
+                            qs, ks, vs, os, causal, st);
   return kInvalid;
 }

@@ -81,17 +81,26 @@
 // dim and any (b, s, h) strides; lse and delta (B, Hq, Sq) float32. Rows
 // past Sq and keys past Sk are masked; keys that no query sees get dK =
 // dV = 0. Every kernel is templated on the pair (D, D_v): (32, 32), (64,
-// 64), (128, 128) and MLA's (96, 64) (minicpm3's q/k and v head dims).
-// Each tile keeps its own dim's layout (flash_wgmma.cuh: D = 96 is three
-// 32-column atoms with 64-byte swizzle): dV's product runs over D_v
-// columns, dK's and dQ's over D (an N = 96 product is three m64n32k16).
+// 64), (128, 128) and MLA's (96, 64) and (192, 128) (minicpm3's and
+// deepseek-v2's q/k and v head dims). Each tile keeps its own dim's layout
+// (flash_wgmma.cuh: D = 96 is three 32-column atoms with 64-byte swizzle,
+// D = 192 three 64-column atoms with 128-byte swizzle): dV's product runs
+// over D_v columns, dK's and dQ's over D (an N = 96 product is three
+// m64n32k16, N = 192 three m64n64k16). At (192, 128) one warpgroup cannot
+// hold dK's and dV's sums beside S^T and dP^T, so the dK/dV kernel runs
+// on two (bwd_dkdv_wgmma2_kernel: one holds dK, the other dV, P^T handed
+// over through shared memory), and so does dQ (bwd_dq_wgmma2_kernel: one
+// computes S, dP and dS, the other holds dQ; in one warpgroup it
+// spilled).
 //
 // Bound: operations. At the training shape (B=1, S=4096, Hq=32, Hkv=4,
 // D=64, bf16, causal) the gradient's five products (Q.K^T recomputed, dV,
 // dP, dQ, dK) over the causal half are 1.7e11 operations: 0.1738 ms at
 // the bf16 tensor-core peak (989 TFLOP/s). A (query, key) pair costs
 // 2 (3 D + 2 D_v) operations: at minicpm3's (B=1, S=4096, H=40, D=96,
-// D_v=64) 2.79e11, 0.282 ms; at qwen3's (Hq=16, Hkv=8, D=128) 1.74e11. This design does seven: S and
+// D_v=64) 2.79e11, 0.282 ms; at qwen3's (Hq=16, Hkv=8, D=128) 1.74e11; at
+// deepseek-v2's (B=1, H=128, D=192, D_v=128) 1.79e12, 1.81 ms. This
+// design does seven: S and
 // dP once in each of the two kernels, the price of keeping dQ free of
 // atomics (a dQ summed across the dK/dV CTAs would need them, and their
 // order changes from run to run), a floor of ~0.24 ms.
@@ -471,6 +480,14 @@ struct Cfg {
   static constexpr int DKDV_SMEM =
       1024 + QK + VT + STAGES * (QK + VT + STATS);
   static constexpr int DQ_SMEM = 1024 + QK + VT + STAGES * (QK + VT);
+  // dK/dV on two warpgroups: + the P^T hand-off, 16 words a thread
+  static constexpr int DKDV2_SMEM = DKDV_SMEM + 16 * THREADS * 4;
+  static constexpr int DQ2_SMEM = DQ_SMEM + 16 * THREADS * 4;
+  // the q/k head dim whose dK/dV and dQ take two warpgroups. At D <= 128
+  // one is faster: there the two-warpgroup kernels gave the same
+  // gradients bit for bit in 1.49x (64, 64) and 1.53x (128, 128) the
+  // time on an H100 (scripts/bwd_two_wg.py)
+  static constexpr bool TWO_WG = DQK > 128;
 };
 
 // acc (+)= A . B^T over D for two 64-row tiles read row-wise (K-major)
@@ -546,6 +563,42 @@ __device__ __forceinline__ void store_acc(T* base, long long stride,
       for (int n = 0; n < S::AW / 8; ++n)
         put2(dst + at * S::AW + 8 * n + c2, acc[at][4 * n + 2 * i] * mul,
              acc[at][4 * n + 2 * i + 1] * mul);
+  }
+}
+
+// P^T and dS^T of the pair (key tile k0, q tile q0), rounded to bf16 as
+// the A fragments of 4 k-steps, from the S^T and dP^T fragments (rows:
+// keys k0 + r0 (+ 8), columns: q rows 8 n + c2 (+ 1)) and the q tile's L
+// and delta in shared memory, indexed by column. Only a tile that meets
+// the diagonal, the ragged q tail or the ragged key tail is masked.
+__device__ __forceinline__ void pds_t_fragments(
+    uint32_t (&pa)[4][4], uint32_t (&dsa)[4][4], const float (&s)[32],
+    const float (&dp)[32], const float* sL, const float* sD, int k0, int q0,
+    int sq, int sk, int causal, int r0, int c2, float scale_log2) {
+  const bool edge = k0 + BK > sk || q0 + BQ > sq
+                    || (causal && q0 < k0 + BK - 1);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const float2 lc = *reinterpret_cast<const float2*>(sL + 8 * n + c2);
+    const float2 dc = *reinterpret_cast<const float2*>(sD + 8 * n + c2);
+    const float lb[2] = {lc.x * LOG2E, lc.y * LOG2E};
+    const float dl[2] = {dc.x, dc.y};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float p2[2], d2[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float p = ex2(fmaf(s[4 * n + 2 * i + j], scale_log2, -lb[j]));
+        if (edge) {
+          const int key = k0 + r0 + 8 * i, qp = q0 + 8 * n + c2 + j;
+          if (key >= sk || qp >= sq || (causal && key > qp)) p = 0.f;
+        }
+        p2[j] = p;
+        d2[j] = p * (dp[4 * n + 2 * i + j] - dl[j]);
+      }
+      pa[n / 2][2 * (n % 2) + i] = pack_bf16(p2[0], p2[1]);
+      dsa[n / 2][2 * (n % 2) + i] = pack_bf16(d2[0], d2[1]);
+    }
   }
 }
 
@@ -641,32 +694,9 @@ bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(dp);
 
     // P^T and dS^T on the fragments, L and delta by column
-    const bool edge = k0 + BK > sk || q0 + BQ > sq
-                      || (causal && q0 < k0 + BK - 1);
     uint32_t pa[4][4], dsa[4][4];  // as the A fragments of 4 k-steps
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const float2 lc = *reinterpret_cast<const float2*>(sL + 8 * n + c2);
-      const float2 dc = *reinterpret_cast<const float2*>(sD + 8 * n + c2);
-      const float lb[2] = {lc.x * LOG2E, lc.y * LOG2E};
-      const float dl[2] = {dc.x, dc.y};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float p2[2], d2[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float p = ex2(fmaf(s[4 * n + 2 * i + j], scale_log2, -lb[j]));
-          if (edge) {
-            const int key = k0 + r0 + 8 * i, qp = q0 + 8 * n + c2 + j;
-            if (key >= sk || qp >= sq || (causal && key > qp)) p = 0.f;
-          }
-          p2[j] = p;
-          d2[j] = p * (dp[4 * n + 2 * i + j] - dl[j]);
-        }
-        pa[n / 2][2 * (n % 2) + i] = pack_bf16(p2[0], p2[1]);
-        dsa[n / 2][2 * (n % 2) + i] = pack_bf16(d2[0], d2[1]);
-      }
-    }
+    pds_t_fragments(pa, dsa, s, dp, sL, sD, k0, q0, sq, sk, causal, r0, c2,
+                    scale_log2);
 
     // dV += P^T . dO and dK += dS^T . Q over the tile's q rows
     fence_acc<DV>(acc_v);
@@ -701,6 +731,185 @@ bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  acc_k, 1.f);
   store_acc<DV>(pk + n_rows * DQK + row * DV, (long long)hkv * DV, k0, sk,
                 r0, c2, acc_v, 1.f);
+}
+
+// named barrier 1 over both warpgroups: warpgroup 1 arrives once its P^T
+// fragments are in shared memory, warpgroup 0 waits for them
+__device__ __forceinline__ void handoff_arrive() {
+  asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void handoff_wait() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// dK/dV where one warpgroup cannot hold both sums: at (192, 128) dK is
+// 96 f32 registers a thread and dV 64, and with S^T's and dP^T's 64 the
+// one-warpgroup kernel would need ~230 live values and spill. So two
+// warpgroups share the key tile (256 threads, one CTA an SM): warpgroup 1
+// runs S^T, dP^T, P^T and dS^T as the one-warpgroup kernel does, holds dK
+// and runs dK += dS^T . Q; it hands P^T, as the bf16 A fragments it
+// already holds, to warpgroup 0 through shared memory (16 words a
+// thread, thread t to thread t of the other warpgroup: the fragment
+// layout is the same in both), and warpgroup 0 holds dV and runs dV +=
+// P^T . dO while warpgroup 1 runs dK's product. One accumulator array a
+// thread (dK's in warpgroup 1, dV's in the first atoms of warpgroup 0's),
+// so neither warpgroup keeps the other's sum live. The products, their
+// order and every rounding are the one-warpgroup kernel's. The block-wide
+// barrier at the top of each pair also orders warpgroup 0's reads of the
+// hand-off buffer before warpgroup 1's next writes.
+template <int DQK, int DV>
+__global__ void __launch_bounds__(2 * THREADS, 1)
+bwd_dkdv_wgmma2_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, float* __restrict__ part,
+                       int split, int sq, int sk, int hq, int hkv, Strides qs,
+                       Strides ks, Strides vs, Strides dos, Strides dks,
+                       Strides dvs, float scale, int causal) {
+  using C = Cfg<DQK, DV>;
+  constexpr int NT = 2 * THREADS;
+  static_assert(sizeof(Acc<DV>) <= sizeof(Acc<DQK>)
+                    && Swz<DV>::AW == Swz<DQK>::AW,
+                "dV's fragment fits in the first atoms of dK's");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023u) & ~1023u;
+  const uint32_t sV = sK + C::QK;
+  const uint32_t sQ0 = sV + C::VT;  // stage st: Q, then dO
+  const uint32_t sSt0 = sQ0 + STAGES * (C::QK + C::VT);  // stage: L, delta
+  const float* stats =
+      reinterpret_cast<const float*>(smem_raw + (sSt0 - raw));
+  uint32_t* hand = reinterpret_cast<uint32_t*>(
+      smem_raw + (sSt0 + STAGES * C::STATS - raw));  // [16][THREADS]
+
+  const int group = hq / hkv, heads = group / split;
+  const int bh = blockIdx.x / split, pi = blockIdx.x % split;
+  const int b = bh / hkv, hk = bh % hkv;
+  const int h0 = hk * group + pi * heads;  // this part's first q head
+  const int k0 = blockIdx.y * BK;  // key tile 0 meets the most q tiles
+  const int wg = threadIdx.x / THREADS, t = threadIdx.x % THREADS;
+  const int r0 = 16 * (t / 32) + (t % 32) / 4;  // keys k0 + r0 (+ 8)
+  const int c2 = 2 * (t % 4);                   // q rows 8 n + c2 (+ 1)
+  const int q_first = first_q_tile(k0, causal);
+  const int n_q = q_first < sq ? (sq - q_first + BQ - 1) / BQ : 0;
+  const int n_it = heads * n_q;  // (head, q tile) pairs, head-major
+
+  // stage it % 2 <- the Q and dO tiles, L and delta of pair it (all 256
+  // threads copy the tiles; threads 0-63 L, 64-127 delta)
+  auto load_pair = [&](int it) {
+    const int h = h0 + it / n_q, q0 = q_first + (it % n_q) * BQ;
+    const uint32_t st = sQ0 + (it % STAGES) * (C::QK + C::VT);
+    load_tile<DQK, BQ, NT>(st, q + b * qs.b + h * qs.h, qs.s, q0, sq,
+                           Tile<DQK>::ATOM);
+    load_tile<DV, BQ, NT>(st + C::QK, dout + b * dos.b + h * dos.h, dos.s,
+                          q0, sq, Tile<DV>::ATOM);
+    if (threadIdx.x < THREADS) {
+      const int r = t % BQ;
+      const float* src =
+          (t < BQ ? lse : delta) + ((long long)b * hq + h) * sq;
+      const bool in = q0 + r < sq;
+      cp_async4(sSt0 + (it % STAGES) * C::STATS + t * 4,
+                in ? src + q0 + r : src, in);
+    }
+  };
+
+  if (n_it > 0) {
+    load_tile<DQK, BK, NT>(sK, k + b * ks.b + hk * ks.h, ks.s, k0, sk,
+                           Tile<DQK>::ATOM);
+    load_tile<DV, BK, NT>(sV, v + b * vs.b + hk * vs.h, vs.s, k0, sk,
+                          Tile<DV>::ATOM);
+    load_pair(0);
+  }
+  cp_async_commit();
+
+  Acc<DQK> acc;  // warpgroup 1: dK; warpgroup 0: dV in its first atoms
+  zero_acc<DQK>(acc);
+  Acc<DV>& acc_v = reinterpret_cast<Acc<DV>&>(acc);
+  const float scale_log2 = scale * LOG2E;
+  float s[32], dp[32];  // warpgroup 1's S^T and dP^T fragments
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait_all();  // this thread's copies of pair it
+    fence_proxy_async();
+    __syncthreads();      // everyone's copies landed; pair it-1 is consumed
+    if (it + 1 < n_it) {  // the next pair loads while this one computes
+      load_pair(it + 1);
+      cp_async_commit();
+    }
+    const uint32_t sQ = sQ0 + (it % STAGES) * (C::QK + C::VT);
+    const uint32_t sdO = sQ + C::QK;
+    uint32_t pa[4][4];
+    if (wg == 1) {
+      const int q0 = q_first + (it % n_q) * BQ;
+      const float* sL = stats + (it % STAGES) * 2 * BQ;
+      const float* sD = sL + BQ;
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      tile_ss<DQK>(s, sK, sQ);
+      tile_ss<DV>(dp, sV, sdO);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+      uint32_t dsa[4][4];
+      pds_t_fragments(pa, dsa, s, dp, sL, sD, k0, q0, sq, sk, causal, r0,
+                      c2, scale_log2);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) hand[i * THREADS + t] = pa[i / 4][i % 4];
+      __threadfence_block();
+      handoff_arrive();
+      // dK += dS^T . Q over the tile's q rows
+      fence_acc<DQK>(acc);
+      fence_regs(dsa);
+      wgmma_fence();
+      tile_rs<DQK>(acc, dsa, sQ);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dsa);
+      fence_acc<DQK>(acc);
+    } else {
+      handoff_wait();
+#pragma unroll
+      for (int i = 0; i < 16; ++i) pa[i / 4][i % 4] = hand[i * THREADS + t];
+      // dV += P^T . dO over the tile's q rows
+      fence_acc<DV>(acc_v);
+      fence_regs(pa);
+      wgmma_fence();
+      tile_rs<DV>(acc_v, pa, sdO);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(pa);
+      fence_acc<DV>(acc_v);
+    }
+  }
+  cp_async_wait_all();
+
+  if (split == 1) {
+    if (wg == 1)
+      store_acc<DQK>(dk + b * dks.b + hk * dks.h, dks.s, k0, sk, r0, c2, acc,
+                     scale);
+    else
+      store_acc<DV>(dv + b * dvs.b + hk * dvs.h, dvs.s, k0, sk, r0, c2,
+                    acc_v, 1.f);
+    return;
+  }
+  // this part's float32 sums for bwd_reduce_kernel, laid out as the
+  // one-warpgroup kernel's
+  const long long n_rows = (long long)(gridDim.x / split) * sk;
+  const long long row = (long long)b * sk * hkv + hk;  // (b, key 0, hk)
+  float* pk = part + pi * n_rows * (DQK + DV);
+  if (wg == 1)
+    store_acc<DQK>(pk + row * DQK, (long long)hkv * DQK, k0, sk, r0, c2, acc,
+                   1.f);
+  else
+    store_acc<DV>(pk + n_rows * DQK + row * DV, (long long)hkv * DV, k0, sk,
+                  r0, c2, acc_v, 1.f);
 }
 
 // dK and dV from the dK/dV kernel's `split` float32 parts, summed in part
@@ -741,6 +950,34 @@ bwd_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
   bf16* dst = is_k ? dk + b * dks.b + key * dks.s + hk * dks.h
                    : dv + b * dvs.b + key * dvs.s + hk * dvs.h;
   *reinterpret_cast<uint4*>(dst + c) = out;
+}
+
+// dS of the pair (q tile q0, key tile k0), rounded to bf16 as the A
+// fragments of 4 k-steps, from the S and dP fragments (rows: q rows q0 +
+// r0 (+ 8), columns: keys 8 n + c2 (+ 1)) and the rows' L (log2 units) and
+// delta. Only a tile that meets the diagonal or a ragged tail is masked.
+__device__ __forceinline__ void ds_fragments(
+    uint32_t (&dsa)[4][4], const float (&s)[32], const float (&dp)[32],
+    const float (&lb)[2], const float (&dl)[2], int k0, int q0, int sq,
+    int sk, int causal, int r0, int c2, float scale_log2) {
+  const bool edge = k0 + BK > sk || q0 + BQ > sq
+                    || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float d2[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float p = ex2(fmaf(s[4 * n + 2 * i + j], scale_log2, -lb[i]));
+        if (edge) {
+          const int row = q0 + r0 + 8 * i, key = k0 + 8 * n + c2 + j;
+          if (key >= sk || row >= sq || (causal && key > row)) p = 0.f;
+        }
+        d2[j] = p * (dp[4 * n + 2 * i + j] - dl[i]);
+      }
+      dsa[n / 2][2 * (n % 2) + i] = pack_bf16(d2[0], d2[1]);
+    }
 }
 
 template <int DQK, int DV>
@@ -817,25 +1054,9 @@ bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(s);
     fence_regs(dp);
 
-    const bool edge = k0 + BK > sk || q0 + BQ > sq
-                      || (causal && k0 + BK - 1 > q0);
     uint32_t dsa[4][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float d2[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float p = ex2(fmaf(s[4 * n + 2 * i + j], scale_log2, -lb[i]));
-          if (edge) {
-            const int row = q0 + r0 + 8 * i, key = k0 + 8 * n + c2 + j;
-            if (key >= sk || row >= sq || (causal && key > row)) p = 0.f;
-          }
-          d2[j] = p * (dp[4 * n + 2 * i + j] - dl[i]);
-        }
-        dsa[n / 2][2 * (n % 2) + i] = pack_bf16(d2[0], d2[1]);
-      }
+    ds_fragments(dsa, s, dp, lb, dl, k0, q0, sq, sk, causal, r0, c2,
+                 scale_log2);
 
     // dQ += dS . K over the tile's keys
     fence_acc<DQK>(acc);
@@ -851,6 +1072,128 @@ bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   store_acc<DQK>(dq + b * dqs.b + h * dqs.h, dqs.s, q0, sq, r0, c2, acc,
                  scale);
+}
+
+// dQ where one warpgroup cannot hold dQ's sum beside S and dP without
+// spilling: at (192, 128) dQ is 96 f32 registers a thread, S's and dP's
+// 64 more (in one warpgroup ptxas spilled at its 255-register cap).
+// So two warpgroups share the q tile (256 threads, one CTA an SM):
+// warpgroup 1 runs S = Q . K^T and dP = dO . V^T and dS on the fragments,
+// as the one-warpgroup kernel does, and hands dS, as the bf16 A fragments
+// it holds, to warpgroup 0 through shared memory (16 words a thread,
+// thread t to thread t); warpgroup 0 holds dQ and runs dQ += dS . K. The
+// products, their order and every rounding are the one-warpgroup
+// kernel's. The block-wide barrier at the top of each KV tile also orders
+// warpgroup 0's reads of the hand-off buffer before warpgroup 1's next
+// writes.
+template <int DQK, int DV>
+__global__ void __launch_bounds__(2 * THREADS, 1)
+bwd_dq_wgmma2_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dq,
+                     int sq, int sk, int hq, int group, Strides qs,
+                     Strides ks, Strides vs, Strides dos, Strides dqs,
+                     float scale, int causal) {
+  using C = Cfg<DQK, DV>;
+  constexpr int NT = 2 * THREADS;
+  static_assert(Swz<DQK>::NA >= 2 && Swz<DQK>::AW == 64,
+                "S and dP fit in dQ's first two atoms");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;
+  const uint32_t sdO = sQ + C::QK;
+  const uint32_t sKV0 = sdO + C::VT;  // stage st: K, then V
+  uint32_t* hand = reinterpret_cast<uint32_t*>(
+      smem_raw + (sKV0 + STAGES * (C::QK + C::VT) - raw));  // [16][THREADS]
+
+  const int b = blockIdx.x / hq, h = blockIdx.x % hq, hk = h / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest first
+  const int wg = threadIdx.x / THREADS, t = threadIdx.x % THREADS;
+  const int r0 = 16 * (t / 32) + (t % 32) / 4;  // q rows q0 + r0 (+ 8)
+  const int c2 = 2 * (t % 4);                   // keys 8 n + c2 (+ 1)
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+  const int n_tiles = kv_tiles(q0, sq, sk, causal);
+
+  // stage st <- the K and V tiles of keys [k0, k0 + BK), by all threads
+  auto load_kv = [&](uint32_t st, int k0) {
+    load_tile<DQK, BK, NT>(st, kb, ks.s, k0, sk, Tile<DQK>::ATOM);
+    load_tile<DV, BK, NT>(st + C::QK, vb, vs.s, k0, sk, Tile<DV>::ATOM);
+  };
+  load_tile<DQK, BQ, NT>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq,
+                         Tile<DQK>::ATOM);
+  load_tile<DV, BQ, NT>(sdO, dout + b * dos.b + h * dos.h, dos.s, q0, sq,
+                        Tile<DV>::ATOM);
+  if (n_tiles > 0) load_kv(sKV0, 0);
+  cp_async_commit();
+
+  float lb[2], dl[2];  // L (log2 units) and delta of rows r0 + 8 i
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    const long long at = ((long long)b * hq + h) * sq + row;
+    lb[i] = row < sq ? lse[at] * LOG2E : 0.f;
+    dl[i] = row < sq ? delta[at] : 0.f;
+  }
+  // one register array a thread: warpgroup 0's dQ, or in warpgroup 1 the
+  // S and dP fragments (its first two atoms), so neither warpgroup keeps
+  // the other's values live
+  Acc<DQK> acc;
+  zero_acc<DQK>(acc);
+  float (&s)[32] = acc[0];
+  float (&dp)[32] = acc[1];
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();
+    if (it + 1 < n_tiles) {
+      load_kv(sKV0 + ((it + 1) % STAGES) * (C::QK + C::VT), (it + 1) * BK);
+      cp_async_commit();
+    }
+    const int k0 = it * BK;
+    const uint32_t sK = sKV0 + (it % STAGES) * (C::QK + C::VT);
+    const uint32_t sV = sK + C::QK;
+    uint32_t dsa[4][4];
+    if (wg == 1) {
+      // S = Q . K^T and dP = dO . V^T: rows are q rows, columns keys
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      tile_ss<DQK>(s, sQ, sK);
+      tile_ss<DV>(dp, sdO, sV);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+      ds_fragments(dsa, s, dp, lb, dl, k0, q0, sq, sk, causal, r0, c2,
+                   scale_log2);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) hand[i * THREADS + t] = dsa[i / 4][i % 4];
+      __threadfence_block();
+      handoff_arrive();
+    } else {
+      handoff_wait();
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dsa[i / 4][i % 4] = hand[i * THREADS + t];
+      // dQ += dS . K over the tile's keys
+      fence_acc<DQK>(acc);
+      fence_regs(dsa);
+      wgmma_fence();
+      tile_rs<DQK>(acc, dsa, sK);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dsa);
+      fence_acc<DQK>(acc);
+    }
+  }
+  cp_async_wait_all();
+
+  if (wg == 0)
+    store_acc<DQK>(dq + b * dqs.b + h * dqs.h, dqs.s, q0, sq, r0, c2, acc,
+                   scale);
 }
 
 }  // namespace tc
@@ -918,14 +1261,25 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
   const bf16* k = static_cast<const bf16*>(a.k);
   const bf16* v = static_cast<const bf16*>(a.v);
   const bf16* dout = static_cast<const bf16*>(a.dout);
-  cudaError_t err = allow_smem(bwd_dkdv_wgmma_kernel<DQK, DV>, C::DKDV_SMEM);
-  if (err == cudaSuccess)
-    err = allow_smem(bwd_dq_wgmma_kernel<DQK, DV>, C::DQ_SMEM);
+  // the dK/dV and dQ kernels: one warpgroup, or two where D is too wide
+  // (only the ones each pair runs are instantiated)
+  auto dkdv = [] {
+    if constexpr (C::TWO_WG) return bwd_dkdv_wgmma2_kernel<DQK, DV>;
+    else return bwd_dkdv_wgmma_kernel<DQK, DV>;
+  }();
+  auto dqk = [] {
+    if constexpr (C::TWO_WG) return bwd_dq_wgmma2_kernel<DQK, DV>;
+    else return bwd_dq_wgmma_kernel<DQK, DV>;
+  }();
+  const int threads = C::TWO_WG ? 2 * THREADS : THREADS;
+  const int dkdv_smem = C::TWO_WG ? C::DKDV2_SMEM : C::DKDV_SMEM;
+  const int dq_smem = C::TWO_WG ? C::DQ2_SMEM : C::DQ_SMEM;
+  cudaError_t err = allow_smem(dkdv, dkdv_smem);
+  if (err == cudaSuccess) err = allow_smem(dqk, dq_smem);
   if (err == cudaSuccess) err = launch_prep<bf16, DV>(a, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 kv_grid(a.batch * a.hkv * a.split, (a.sk + BK - 1) / BK);
-  bwd_dkdv_wgmma_kernel<DQK, DV><<<kv_grid, THREADS, C::DKDV_SMEM,
-                                   stream>>>(
+  dkdv<<<kv_grid, threads, dkdv_smem, stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), a.part, a.split, a.sq, a.sk, a.hq, a.hkv,
       a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs, scale, a.causal);
@@ -942,7 +1296,7 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 q_grid(a.batch * a.hq, (a.sq + BQ - 1) / BQ);
-  bwd_dq_wgmma_kernel<DQK, DV><<<q_grid, THREADS, C::DQ_SMEM, stream>>>(
+  dqk<<<q_grid, threads, dq_smem, stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.dq), a.sq, a.sk,
       a.hq, a.hq / a.hkv, a.qs, a.ks, a.vs, a.dos, a.dqs, scale, a.causal);
   return static_cast<int>(cudaGetLastError());
@@ -974,8 +1328,8 @@ int launch(int dtype, const Args& a, cudaStream_t stream) {
 // float32); part: float32 scratch of split * batch * sk * hkv * (d + dv)
 // when split > 1, else unused. dtype: 0 = float32 (SIMT kernels), 1 =
 // bfloat16 (wgmma kernels; 16-byte aligned pointers and strides); (d, dv)
-// in {(32, 32), (64, 64), (128, 128), (96, 64)}: any other pair returns
-// cudaErrorInvalidValue. Returns cudaGetLastError() after the launches (or
+// in {(32, 32), (64, 64), (128, 128), (96, 64), (192, 128)}: any other
+// pair returns cudaErrorInvalidValue. Returns cudaGetLastError() after the launches (or
 // the attribute's error).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
@@ -1004,5 +1358,6 @@ extern "C" int flash_attention_bwd(
   if (d == 64 && d_v == 64) return launch<64, 64>(dtype, a, st);
   if (d == 128 && d_v == 128) return launch<128, 128>(dtype, a, st);
   if (d == 96 && d_v == 64) return launch<96, 64>(dtype, a, st);
+  if (d == 192 && d_v == 128) return launch<192, 128>(dtype, a, st);
   return kInvalid;
 }

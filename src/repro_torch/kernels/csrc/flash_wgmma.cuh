@@ -5,8 +5,9 @@
 // descriptors read: a tile of ROWS rows of D columns is NA column atoms of
 // AW columns each, atom a at a * ROWS * ROWB bytes, row r of an atom at
 // r * ROWB. Atoms are 64 columns (128 bytes, 128-byte swizzle) where 64
-// divides D (one at D = 64, two at D = 128), else 32 columns (64 bytes,
-// 64-byte swizzle: one at D = 32, three at D = 96, MLA's q/k head dim).
+// divides D (one at D = 64, two at D = 128, three at D = 192, deepseek's
+// MLA q/k head dim), else 32 columns (64 bytes, 64-byte swizzle: one at
+// D = 32, three at D = 96, minicpm3's MLA q/k head dim).
 // Every tile starts on the 1024-byte swizzle repeat, and every atom on its
 // mode's repeat (512 bytes at 64-byte swizzle). Tiles arrive by 16-byte
 // cp.async copies, zero-filled past the sequence's end. A kernel whose q/k
@@ -19,7 +20,8 @@
 //   wgmma_rs_tb (m64n32k16, m64n64k16): A from registers, B from shared
 //     memory through the transpose bit (MN-major): B's K dimension runs
 //     along the tile's rows, so C += A . B of a tile read column-wise, one
-//     instruction a column atom (N = 96 is three m64n32k16).
+//     instruction a column atom (N = 96 is three m64n32k16, N = 192 three
+//     m64n64k16).
 // The f32 accumulator fragment of a product (thread t of the warpgroup
 // holds rows 16 w + t/4 + {0, 8}, columns 8 n + 2 (t%4) + {0, 1}, w the
 // warp) rounded to bf16 pairs is the A fragment of m64nXk16 as it stands:
@@ -50,7 +52,8 @@ struct Swz {
   static constexpr int ROWB = 2 * AW;               // bytes per atom row
   static constexpr int SWZ = ROWB == 128 ? 1 : 2;   // descriptor: 128B, 64B
   static constexpr int GROUP = 8 * ROWB;            // 8 rows: the SBO
-  static_assert(D % 32 == 0 && D <= 128, "D in {32, 64, 96, 128}");
+  static_assert(D % 32 == 0 && (D <= 128 || D == 192),
+                "D in {32, 64, 96, 128, 192}");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -13,7 +13,8 @@ body ``_flash_kernel``) for CUDA tensors, and take
   without its transposes and KV-head repeats: the kernel takes the
   ``(B, S, H, D)`` strides and maps the heads itself. v may have a head
   dim ``D_v`` other than q's and k's ``D`` (MLA: ``D = d_nope + d_rope``
-  = 96, ``D_v`` = 64), as the reference's XLA ``blockwise_attention``
+  = 96, ``D_v`` = 64 at minicpm3's widths, 192 and 128 at deepseek-v2's),
+  as the reference's XLA ``blockwise_attention``
   takes it; the output then has ``D_v`` columns. The CUDA kernels are
   compiled for the ``(D, D_v)`` pairs in ``HEAD_DIMS``.
 
@@ -63,7 +64,8 @@ takes it), from ``L`` and ``delta = rowsum(dO * O)`` in float32, and
 round ``P`` and ``dS`` to the inputs' dtype before the products that take
 them (bf16 on the tensor cores; a no-op at float32). The bf16 backward
 runs on ``wgmma`` (one warpgroup a CTA, 64-row tiles: dK/dV by key tile,
-dQ by q tile, no atomics); float32 on the CUDA cores, chosen by dtype.
+dQ by q tile, no atomics; at (192, 128) dK/dV on two warpgroups, one for
+each sum); float32 on the CUDA cores, chosen by dtype.
 :func:`flash_attention` returns through the Function whenever grad is
 enabled and an input requires it; otherwise (prefill, decode) it runs the
 forward alone, without ``L``.
@@ -79,7 +81,7 @@ F32_TILE = 64                   # the float32 (SIMT) kernel's tiles
 BWD_TILE = 64                   # the backward kernels' q and key tiles
 DKDV_CTAS_PER_SM = 2            # see dkdv_split
 # the CUDA kernels' template instances: (D of q and k, D_v of v)
-HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (96, 64))
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (96, 64), (192, 128))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the C entry's dtype codes
 NEG_INF = -1e30
 

@@ -1,11 +1,7 @@
 from repro_torch.kernels.segment_mm.ops import (  # noqa: F401
-    BlockFormat,
-    BlockSpmm,
     CsrFormat,
     Spmm,
     TILE,
-    block_spmm,
-    block_spmm_plain,
     csr_spmm,
     csr_spmm_plain,
     to_block_sparse,

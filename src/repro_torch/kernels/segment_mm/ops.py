@@ -3,13 +3,12 @@ wrappers, their plain versions and their autograd.
 
 Port of ``repro/kernels/segment_mm/ops.py``. ``A`` is the padded adjacency
 ``(n_dst_pad, n_src_pad)`` with the weights of duplicate edges summed.
-Two formats carry it:
 
-- **CSR, the trainer's path.** :func:`to_csr` builds it in numpy, unique
+- **CSR, the trainer's format.** :func:`to_csr` builds it in numpy, unique
   ``(dst, src)`` entries with columns strictly ascending in each row;
   :func:`csr_spmm` wraps the hand-written CUDA kernel
-  ``csrc/csr_spmm.cu``, which replaces
-  ``repro/kernels/segment_mm/kernel.py::block_spmm_kernel``;
+  ``csrc/csr_spmm.cu``, which replaces the Pallas kernel of
+  ``repro/kernels/segment_mm/kernel.py`` (``pl.pallas_call`` at ``:78``);
   :class:`Spmm` is its autograd (``dX = A^T dY`` over
   :func:`transpose_csr`). It takes any width F >= 1 in one launch:
   :func:`csr_plan` cuts a row into column slabs of at most 128 (float4
@@ -19,17 +18,14 @@ Two formats carry it:
   microsecond: at these sizes a launch's latency, not the bound, sets
   the time. Design (note at the top of ``csrc/csr_spmm.cu``): a group of
   lanes owns a row's slab, no atomics, entries summed in ascending column
-  order, so two launches are bit-identical and agree bit for bit with the
-  dense-block kernel.
-- **Dense 128 x 128 blocks, the witness.** :func:`to_block_sparse` is
-  the reference's numpy conversion, copied; :func:`block_spmm` wraps
-  ``csrc/block_spmm.cu``, the first port of the TPU kernel, which
-  executes the dense block products of a 0.2-0.4%-full adjacency. It is
-  off the trainer's path and kept to hold the CSR kernel against.
+  order, so two launches are bit-identical.
+- **Dense 128 x 128 blocks, the reference's format.** :func:`to_block_sparse`
+  is the reference's numpy conversion, copied, and
+  :func:`transpose_block_sparse` its transpose: the tests hold the CSR
+  against them. No kernel of the port takes them.
 
-Each wrapper launches its kernel for CUDA tensors and takes its plain
-PyTorch version (``csr_spmm_plain``, ``block_spmm_plain``) only for CPU
-tensors.
+The wrapper launches its kernel for CUDA tensors and takes its plain
+PyTorch version (``csr_spmm_plain``) only for CPU tensors.
 """
 from __future__ import annotations
 
@@ -40,7 +36,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-TILE = 128  # the CUDA kernel's TN = TM
+TILE = 128  # the trainer's row and column padding (the reference's tile)
 
 
 def to_block_sparse(
@@ -110,144 +106,6 @@ def transpose_block_sparse(rows: np.ndarray, cols: np.ndarray,
         np.ascontiguousarray(blocks[order].transpose(0, 2, 1)),
         int(n_src_blocks),
     )
-
-
-@dataclasses.dataclass(frozen=True)
-class BlockFormat:
-    """One block-sparse operand on a device: row-sorted blocks."""
-
-    rows: torch.Tensor     # (nb,) int32, sorted ascending
-    cols: torch.Tensor     # (nb,) int32
-    blocks: torch.Tensor   # (nb, tn, tm) float32
-    n_dst_blocks: int
-
-    @classmethod
-    def from_numpy(cls, rows, cols, blocks, n_dst_blocks, device):
-        return cls(
-            torch.as_tensor(rows, dtype=torch.int32).to(device),
-            torch.as_tensor(cols, dtype=torch.int32).to(device),
-            torch.as_tensor(blocks, dtype=torch.float32).to(device),
-            int(n_dst_blocks),
-        )
-
-
-def block_spmm_plain(rows, cols, blocks, x, n_dst_blocks: int):
-    """Plain PyTorch version (port of ``block_spmm_xla``): per-block dense
-    matmul, summed into destination row-blocks with ``index_add_``."""
-    tn, tm = blocks.shape[1], blocks.shape[2]
-    xb = x.reshape(-1, tm, x.shape[1])
-    prod = torch.bmm(blocks, xb[cols.long()])
-    y = torch.zeros(
-        (n_dst_blocks, tn, x.shape[1]), dtype=x.dtype, device=x.device
-    )
-    y.index_add_(0, rows.long(), prod)
-    return y.reshape(n_dst_blocks * tn, x.shape[1])
-
-
-def _check(rows, cols, blocks, x, n_dst_blocks: int) -> None:
-    if not (rows.device == cols.device == blocks.device == x.device):
-        raise ValueError("block_spmm: all operands must be on one device")
-    if rows.dtype != torch.int32 or cols.dtype != torch.int32:
-        raise TypeError("block_spmm: rows and cols must be int32")
-    if blocks.dtype != torch.float32 or x.dtype != torch.float32:
-        raise TypeError("block_spmm: blocks and x must be float32")
-    if blocks.dim() != 3 or x.dim() != 2:
-        raise ValueError("block_spmm: blocks must be (nb, tn, tm), x (M, F)")
-    nb = blocks.shape[0]
-    if rows.shape != (nb,) or cols.shape != (nb,):
-        raise ValueError("block_spmm: rows and cols must be (nb,)")
-    if x.shape[0] % blocks.shape[2] != 0:
-        raise ValueError("block_spmm: x rows must be a multiple of tm")
-    if n_dst_blocks < 0:
-        raise ValueError("block_spmm: n_dst_blocks must be >= 0")
-
-
-def block_spmm(rows, cols, blocks, x, n_dst_blocks: int) -> torch.Tensor:
-    """Y (n_dst_blocks * tn, F) = block-sparse A @ X.
-
-    CUDA tensors launch ``csrc/block_spmm.cu`` (128 x 128 blocks, F a
-    multiple of 4, contiguous operands); CPU tensors take
-    :func:`block_spmm_plain`. Indices are checked against the operand
-    shapes before a launch.
-    """
-    _check(rows, cols, blocks, x, n_dst_blocks)
-    if x.device.type == "cpu":
-        return block_spmm_plain(rows, cols, blocks, x, n_dst_blocks)
-    if x.device.type != "cuda":
-        raise ValueError(f"block_spmm: unsupported device {x.device}")
-    if tuple(blocks.shape[1:]) != (TILE, TILE):
-        raise ValueError(f"block_spmm: CUDA kernel takes {TILE}x{TILE} blocks")
-    f = x.shape[1]
-    if f % 4 != 0:
-        raise ValueError("block_spmm: CUDA kernel takes F % 4 == 0")
-    for name, t in (("rows", rows), ("cols", cols), ("blocks", blocks),
-                    ("x", x)):
-        if not t.is_contiguous():
-            raise ValueError(f"block_spmm: {name} must be contiguous")
-    for name, t in (("blocks", blocks), ("x", x)):
-        if t.data_ptr() % 16 != 0:
-            raise ValueError(f"block_spmm: {name} must be 16-byte aligned")
-    nb = rows.shape[0]
-    if nb:
-        lo_hi = torch.stack([
-            cols.min(), cols.max(), rows.min(), rows.max(),
-            (rows[1:] >= rows[:-1]).all().to(torch.int32),
-        ]).tolist()
-        if not (0 <= lo_hi[0] and lo_hi[1] < x.shape[0] // TILE):
-            raise IndexError("block_spmm: cols out of range of x")
-        if not (0 <= lo_hi[2] and lo_hi[3] < n_dst_blocks):
-            raise IndexError("block_spmm: rows out of range")
-        if not lo_hi[4]:
-            raise ValueError("block_spmm: rows must be sorted ascending")
-    rowptr = torch.searchsorted(
-        rows, torch.arange(n_dst_blocks + 1, dtype=torch.int32,
-                           device=rows.device), out_int32=True,
-    )
-    y = torch.empty((n_dst_blocks * TILE, f), dtype=x.dtype, device=x.device)
-    launch(rowptr, cols, blocks, x, y, n_dst_blocks)
-    return y
-
-
-def launch(rowptr, cols, blocks, x, y, n_dst_blocks: int) -> None:
-    """Launch the kernel on checked operands (counts one launch)."""
-    fn = _build.entry("block_spmm_f32")
-    err = fn(
-        rowptr.data_ptr(), cols.data_ptr(), blocks.data_ptr(), x.data_ptr(),
-        y.data_ptr(), int(n_dst_blocks), int(x.shape[1]),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.count_launch(block_spmm)
-    _build.check("block_spmm_f32", err)
-
-
-block_spmm.launches = 0
-block_spmm.launches_by_thread = {}
-
-
-class BlockSpmm(torch.autograd.Function):
-    """Y = A @ X with dX = A^T @ dY, both through :func:`block_spmm`.
-
-    ``fwd`` is A's :class:`BlockFormat`; ``bwd`` is A^T's (None when X
-    needs no gradient, as for the data fed to the first layer)."""
-
-    @staticmethod
-    def forward(ctx, x, fwd: BlockFormat, bwd: BlockFormat | None):
-        ctx.bwd = bwd
-        return block_spmm(fwd.rows, fwd.cols, fwd.blocks, x, fwd.n_dst_blocks)
-
-    @staticmethod
-    def backward(ctx, dy):
-        if not ctx.needs_input_grad[0]:
-            return None, None, None
-        bwd = ctx.bwd
-        if bwd is None:
-            raise RuntimeError(
-                "BlockSpmm: X needs a gradient but no transposed format "
-                "was given"
-            )
-        dx = block_spmm(bwd.rows, bwd.cols, bwd.blocks, dy.contiguous(),
-                        bwd.n_dst_blocks)
-        return dx, None, None
 
 
 # ------------------------------------------------------------------- CSR

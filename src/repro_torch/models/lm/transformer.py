@@ -1,5 +1,5 @@
-"""Decoder-only transformer: the GQA and MLA archs with dense SwiGLU
-layers, for training and serving.
+"""Decoder-only transformer: the GQA and MLA archs with dense SwiGLU or
+DeepSeekMoE layers, for training and serving.
 
 Port of ``repro/models/lm/transformer.py``: ``LMConfig`` (same fields and
 defaults), ``init``, ``forward`` (with its ``mode``), ``logits_of``,
@@ -12,7 +12,13 @@ compressed latent to per-head K and V for prefill and training (q/k head
 dim ``d_nope + d_rope``, v head dim ``d_v``: the flash kernels' (96, 64)
 instance at minicpm3's widths) and decodes by the absorbed-matrix path
 against a latent cache ``{"c": (L, B, Smax, kv_lora), "r": (L, B, Smax,
-d_rope)}`` (DeepSeek-V2 Sec. 2.1). With ``cfg.remat`` and ``mode="train"`` each
+d_rope)}`` (DeepSeek-V2 Sec. 2.1); deepseek-v2's widths take the (192, 128)
+instance. MoE (``cfg.moe``: moonshot, deepseek-v2) replaces the dense FFN
+of every stacked layer with ``moe.moe_ffn`` (top-k routed experts) plus
+``cfg.n_shared`` shared experts, after ``cfg.first_k_dense`` dense layers
+(``params["dense_layer_{i}"]``, unstacked, as the reference keeps them);
+a step with a cache routes with no capacity drop (``no_drop``), prefill
+and training at ``cfg.capacity_factor``. With ``cfg.remat`` and ``mode="train"`` each
 layer is rematerialised (``torch.utils.checkpoint``, non-reentrant: only
 the layer's input is kept, its activations are recomputed in the
 backward, as ``jax.checkpoint`` with ``nothing_saveable``), and
@@ -27,9 +33,7 @@ What differs from the reference:
 - the cache keeps the reference's dicts (GQA ``{"k", "v"}: (L, B, Smax,
   Hkv, D)``, MLA ``{"c", "r"}``), but ``decode_step`` writes it in place;
 - the stacked layer parameters are split once with ``unbind``, so their
-  gradient is one stack of the layers' gradients;
-- ``moe=True`` and the MoE archs' ``first_k_dense`` layers raise
-  ``NotImplementedError`` (ROADMAP.md queue 1 item 4).
+  gradient is one stack of the layers' gradients.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve
 from repro_torch.models import param as P
 from repro_torch.models.lm import attention as attn
+from repro_torch.models.lm import moe as moe_lib
 from repro_torch.models.lm.layers import apply_rope, rms_norm, swiglu
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -98,9 +103,6 @@ class LMConfig:
 def _check_supported(cfg: LMConfig) -> None:
     if cfg.attn_type not in ("gqa", "mla"):
         raise ValueError(cfg.attn_type)
-    if cfg.moe or cfg.first_k_dense:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP.md queue 1 item 4)")
 
 
 # --------------------------------------------------------------------- init
@@ -139,14 +141,29 @@ def _attention_shapes(cfg: LMConfig) -> dict:
     return shapes
 
 
-def _layer_shapes(cfg: LMConfig) -> dict:
-    """name -> (per-layer shape, init), in ``_init_layer``'s order."""
+def _layer_shapes(cfg: LMConfig, use_moe: bool) -> dict:
+    """name -> (per-layer shape, init), in ``_init_layer``'s order: a
+    dense SwiGLU layer at ``d_ff``, or (``use_moe``) the router, the
+    expert stacks and the shared experts. The expert stacks' fan-in is
+    their first dim, E, as the reference's ``ParamBuilder`` takes it."""
     d = cfg.d_model
     shapes = {
         "ln_attn": ((d,), "ones"),
         "ln_ffn": ((d,), "ones"),
         **_attention_shapes(cfg),
     }
+    if use_moe:
+        e, f = cfg.n_experts, cfg.d_ff_expert
+        shapes["router"] = ((d, e), "normal")
+        shapes["w_gate"] = ((e, d, f), "normal")
+        shapes["w_up"] = ((e, d, f), "normal")
+        shapes["w_down"] = ((e, f, d), "normal")
+        if cfg.n_shared > 0:
+            d_sh = cfg.n_shared * f
+            shapes["ws_gate"] = ((d, d_sh), "normal")
+            shapes["ws_up"] = ((d, d_sh), "normal")
+            shapes["ws_down"] = ((d_sh, d), "normal")
+        return shapes
     shapes["w_gate"] = ((d, cfg.d_ff), "normal")
     shapes["w_up"] = ((d, cfg.d_ff), "normal")
     shapes["w_down"] = ((cfg.d_ff, d), "normal")
@@ -166,11 +183,18 @@ def init(cfg: LMConfig, seed: int = 0, device="cuda") -> dict:
         "embed": P.param((v, d), gen, "embedding", dev, dt),
         "lm_head": P.param((d, v), gen, "normal", dev, dt),
         "final_norm": P.param((d,), gen, "ones", dev, dt),
-        "layers": {
-            name: P.param(shape, gen, how, dev, dt, layers=cfg.n_layers)
-            for name, (shape, how) in _layer_shapes(cfg).items()
-        },
     }
+    for i in range(cfg.first_k_dense):
+        params[f"dense_layer_{i}"] = {
+            name: P.param(shape, gen, how, dev, dt)
+            for name, (shape, how) in _layer_shapes(cfg, False).items()
+        }
+    if cfg.n_scan_layers > 0:
+        params["layers"] = {
+            name: P.param(shape, gen, how, dev, dt,
+                          layers=cfg.n_scan_layers)
+            for name, (shape, how) in _layer_shapes(cfg, cfg.moe).items()
+        }
     return params
 
 
@@ -259,12 +283,23 @@ def _inv_sqrt(d: int) -> torch.Tensor:
 
 
 # -------------------------------------------------------------------- layers
-def _layer_apply(p, cfg: LMConfig, h, positions, cache_kv, cache_len):
+def _layer_apply(p, cfg: LMConfig, use_moe: bool, h, positions, cache_kv,
+                 cache_len):
     attn_fn = _mla_attention if cfg.attn_type == "mla" else _gqa_attention
     h = h + attn_fn(p, cfg, rms_norm(h, p["ln_attn"]), positions, cache_kv,
                     cache_len)
     x = rms_norm(h, p["ln_ffn"])
-    return h + swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    if not use_moe:
+        return h + swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    b, s, d = x.shape
+    flat = x.reshape(b * s, d)
+    y = moe_lib.moe_ffn(flat, p["router"], p["w_gate"], p["w_up"],
+                        p["w_down"], cfg.top_k, cfg.capacity_factor,
+                        no_drop=cache_kv is not None)
+    if cfg.n_shared > 0:
+        y = y + moe_lib.shared_expert_ffn(flat, p["ws_gate"], p["ws_up"],
+                                          p["ws_down"])
+    return h + y.reshape(b, s, d)
 
 
 # ------------------------------------------------------------------- forward
@@ -273,7 +308,9 @@ def forward(params, cfg: LMConfig, tokens, positions=None, cache=None,
     """tokens: (B, S). cache: the ``init_cache`` dict or None; with a cache
     the step's K/V (MLA: latent and rotary key) are written into it in
     place at ``cache_len``; a layer reads the dict's entries in the order
-    of their sorted keys, as the reference does.
+    of their sorted keys, as the reference does. The ``first_k_dense``
+    dense layers run first (cache rows ``0 .. first_k_dense - 1``), then
+    the stacked layers (MoE where ``cfg.moe``; the rows after them).
     ``mode``: ``"train"`` rematerialises each layer when ``cfg.remat``;
     ``"prefill"`` and ``"decode"`` never do. Returns hidden (B, S, D)."""
     _check_supported(cfg)
@@ -281,17 +318,23 @@ def forward(params, cfg: LMConfig, tokens, positions=None, cache=None,
     if positions is None:
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     h = params["embed"][tokens].to(cfg.torch_dtype())
-    layers = {name: t.unbind(0) for name, t in params["layers"].items()}
     remat = cfg.remat and mode == "train"
     keys = sorted(cache) if cache is not None else ()
-    for i in range(cfg.n_layers):
-        lp = {name: t[i] for name, t in layers.items()}
-        lc = None if cache is None else tuple(cache[k][i] for k in keys)
+
+    def layer(lp, use_moe, h, row):
+        lc = None if cache is None else tuple(cache[k][row] for k in keys)
         if remat:
-            h = checkpoint(_layer_apply, lp, cfg, h, positions, lc,
-                           cache_len, use_reentrant=False)
-        else:
-            h = _layer_apply(lp, cfg, h, positions, lc, cache_len)
+            return checkpoint(_layer_apply, lp, cfg, use_moe, h, positions,
+                              lc, cache_len, use_reentrant=False)
+        return _layer_apply(lp, cfg, use_moe, h, positions, lc, cache_len)
+
+    for i in range(cfg.first_k_dense):
+        h = layer(params[f"dense_layer_{i}"], False, h, i)
+    if cfg.n_scan_layers > 0:
+        layers = {name: t.unbind(0) for name, t in params["layers"].items()}
+        for j in range(cfg.n_scan_layers):
+            lp = {name: t[j] for name, t in layers.items()}
+            h = layer(lp, cfg.moe, h, cfg.first_k_dense + j)
     return rms_norm(h, params["final_norm"])
 
 

@@ -8,7 +8,10 @@ parameters of ``shape`` along a leading axis, each scaled by its own
 (unstacked) fan_in. Abstract mode is dry-run tooling and is not ported.
 
 Draws come from an explicit ``torch.Generator`` on the generator's own
-device, in float32, and are then cast and moved to ``device``. The SAGE
+device, in float32, and are then scaled, cast and moved to ``device``; a
+stacked leaf is drawn a layer at a time into its destination, so its
+float32 temporary is one layer's (moonshot's stacked experts are 8.7e9
+values: 35 GB as one float32 draw). The SAGE
 model draws from a CPU generator (so its numbers do not depend on the
 card); the LM draws from a generator on the card, since drawing 1.1B
 values on the CPU takes seconds. JAX's PRNG streams cannot be reproduced
@@ -27,12 +30,21 @@ def normal(shape: tuple[int, ...], generator: torch.Generator,
            dtype: torch.dtype = torch.float32,
            scale: float | None = None, layers: int = 0) -> torch.Tensor:
     """normal(0, scale), scale = 1/sqrt(fan_in) with fan_in = shape[0]
-    unless given; ``layers`` > 0 stacks that many along a leading axis."""
+    unless given; ``layers`` > 0 stacks that many along a leading axis,
+    drawn one after another."""
     if scale is None:
         scale = 1.0 / math.sqrt(max(shape[0], 1))
-    full = ((layers,) if layers else ()) + tuple(shape)
-    return (torch.randn(full, generator=generator, device=generator.device)
-            * scale).to(device=device, dtype=dtype)
+
+    def draw():
+        return (torch.randn(tuple(shape), generator=generator,
+                            device=generator.device) * scale)
+
+    if not layers:
+        return draw().to(device=device, dtype=dtype)
+    out = torch.empty((layers,) + tuple(shape), device=device, dtype=dtype)
+    for i in range(layers):
+        out[i] = draw()
+    return out
 
 
 def param(shape: tuple[int, ...], generator: torch.Generator,

@@ -112,11 +112,11 @@ def test_build_keys_libraries_by_source_hash():
 
     paths = {stem: _build._lib_path(stem)
              for stem, _ in _build.ENTRIES.values()}
-    assert paths["block_spmm"].parent.parent == _build.BUILD_DIR
-    assert paths["block_spmm"].parent != paths["embedding_bag"].parent
+    assert paths["flash_attention"].parent.parent == _build.BUILD_DIR
+    assert paths["flash_attention"].parent != paths["embedding_bag"].parent
     assert paths["csr_spmm"].parent.parent == _build.BUILD_DIR
     assert paths["csr_spmm"].parent not in {
-        paths["block_spmm"].parent, paths["embedding_bag"].parent}
+        paths["flash_attention"].parent, paths["embedding_bag"].parent}
     assert all((_build.CSRC / f"{s}.cu").is_file() for s in paths)
 
 

@@ -7,8 +7,7 @@ format (``to_block_sparse``, bit for bit once densified), its XLA twin
 ``block_spmm_xla``, the ``spmm_ref`` scatter oracle and the Pallas
 ``segment_mm`` kernel in interpret mode, on the same seeded inputs as
 ``tests/test_torch_kernels.py``. The CUDA kernel is held against the
-plain version, and bit for bit against the dense-block kernel, on the
-card by ``chip_smoke.py``.
+plain version on the card by ``chip_smoke.py``.
 """
 import jax
 import jax.numpy as jnp

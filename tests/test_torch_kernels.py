@@ -4,9 +4,14 @@ On the CPU each wrapper takes its plain PyTorch version, so these tests
 hold the plain versions (and the formats and wrappers around them) against
 the reference: ``block_spmm_xla``, the ``spmm_ref`` scatter oracle, the
 Pallas kernels in interpret mode (as ``tests/test_kernels.py`` runs them),
-and the reference device tier. The CUDA kernels themselves are held
-against the same plain versions on the card by ``chip_smoke.py``.
+and the reference device tier. The SpMM runs the trainer's CSR
+(``to_csr`` at the reference's padded shape, ``csr_spmm``, ``Spmm``); the
+reference's block format (``to_block_sparse``) is held bit for bit. The
+CUDA kernels themselves are held against the same plain versions on the
+card by ``chip_smoke.py``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,11 +27,12 @@ from repro.store import DevicePayloadTier as RefTier
 from repro_torch.core.windowed_cache import DoubleBufferedCache
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.segment_mm import (
-    BlockFormat,
-    BlockSpmm,
-    block_spmm,
+    CsrFormat,
+    Spmm,
+    csr_spmm,
     to_block_sparse,
-    transpose_block_sparse,
+    to_csr,
+    transpose_csr,
 )
 from repro_torch.kernels.segment_mm.ref import spmm_ref
 from repro_torch.store import DevicePayloadTier
@@ -77,10 +83,8 @@ class TestSegmentMM:
             src, dst, n_dst, n_src, t, t, w
         )
         xp = _pad_rows(x, n_src_pad)
-        got = block_spmm(
-            torch.as_tensor(rows), torch.as_tensor(cols),
-            torch.as_tensor(blocks), torch.as_tensor(xp), ndb,
-        ).numpy()
+        got = csr_spmm(_csr(src, dst, w, ndb * t, n_src_pad),
+                       torch.as_tensor(xp)).numpy()
         twin = np.asarray(block_spmm_xla(
             jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(blocks),
             jnp.asarray(xp), ndb, tn=t, tm=t,
@@ -105,31 +109,25 @@ class TestSegmentMM:
             src, dst, jnp.asarray(x), n_dst, edge_weight=w, tn=t, tm=t,
             tf=64, interpret=True,
         ))
-        rows, cols, blocks, ndb, n_src_pad = to_block_sparse(
-            src, dst, n_dst, n_src, t, t, w
-        )
-        got = block_spmm(
-            torch.as_tensor(rows), torch.as_tensor(cols),
-            torch.as_tensor(blocks), torch.as_tensor(_pad_rows(x, n_src_pad)),
-            ndb,
-        ).numpy()[:n_dst]
+        n_dst_pad, n_src_pad = -(-n_dst // t) * t, -(-n_src // t) * t
+        got = csr_spmm(_csr(src, dst, w, n_dst_pad, n_src_pad),
+                       torch.as_tensor(_pad_rows(x, n_src_pad))
+                       ).numpy()[:n_dst]
         np.testing.assert_allclose(got, pallas, **TOL)
 
     @pytest.mark.parametrize("case", SPMM_CASES)
     def test_transposed_backward_matches_autograd_of_oracle(self, case):
         n_src, n_dst, n_edges, f, t, weighted = case
         src, dst, x, w = _graph(n_src, n_dst, n_edges, f, weighted)
-        rows, cols, blocks, ndb, n_src_pad = to_block_sparse(
-            src, dst, n_dst, n_src, t, t, w
-        )
-        fwd = BlockFormat.from_numpy(rows, cols, blocks, ndb, "cpu")
-        bwd = BlockFormat.from_numpy(
-            *transpose_block_sparse(rows, cols, blocks, n_src_pad // t), "cpu"
-        )
+        n_dst_pad, n_src_pad = -(-n_dst // t) * t, -(-n_src // t) * t
+        fwd = _csr(src, dst, w, n_dst_pad, n_src_pad)
+        bwd = CsrFormat.from_numpy(
+            *transpose_csr(*to_csr(src, dst, n_dst_pad, n_src_pad, w),
+                           n_src_pad), n_dst_pad, "cpu")
         rng = np.random.default_rng(n_edges)
-        dy = rng.standard_normal((ndb * t, f)).astype(np.float32)
+        dy = rng.standard_normal((n_dst_pad, f)).astype(np.float32)
         xt = torch.as_tensor(_pad_rows(x, n_src_pad)).requires_grad_(True)
-        y = BlockSpmm.apply(xt, fwd, bwd)
+        y = Spmm.apply(xt, fwd, bwd)
         (dx,) = torch.autograd.grad(y, xt, grad_outputs=torch.as_tensor(dy))
         # the reference's autodiff of its scatter oracle
         _, vjp = jax.vjp(
@@ -153,26 +151,31 @@ class TestSegmentMM:
 
     def test_no_transposed_format_means_no_input_gradient(self):
         src, dst, x, w = _graph(64, 64, 200, 8, False)
-        fmt = BlockFormat.from_numpy(
-            *to_block_sparse(src, dst, 64, 64, 32, 32, w)[:4], "cpu"
-        )
+        fmt = _csr(src, dst, w, 64, 64)
         xt = torch.as_tensor(_pad_rows(x, 64)).requires_grad_(True)
-        y = BlockSpmm.apply(xt, fmt, None)
+        y = Spmm.apply(xt, fmt, None)
         with pytest.raises(RuntimeError, match="transposed format"):
             y.sum().backward()
 
     def test_wrapper_rejects_bad_operands(self):
-        rows = torch.zeros(1, dtype=torch.int32)
-        blocks = torch.zeros((1, 32, 32))
+        fmt = CsrFormat.from_numpy([0, 1], [0], [1.0], 32, "cpu")
         x = torch.zeros((32, 4))
         with pytest.raises(TypeError):
-            block_spmm(rows.long(), rows, blocks, x, 1)
+            csr_spmm(dataclasses.replace(fmt, col=fmt.col.long()), x)
         with pytest.raises(TypeError):
-            block_spmm(rows, rows, blocks.double(), x, 1)
+            csr_spmm(fmt, x.double())
         with pytest.raises(ValueError):
-            block_spmm(rows, rows, blocks, torch.zeros((30, 4)), 1)
+            csr_spmm(fmt, torch.zeros((30, 4)))
         with pytest.raises(ValueError):
-            block_spmm(rows, rows, blocks.to("meta"), x.to("meta"), 1)
+            csr_spmm(dataclasses.replace(
+                fmt, **{k: getattr(fmt, k).to("meta")
+                        for k in ("rowptr", "col", "val")}), x.to("meta"))
+
+
+def _csr(src, dst, w, n_rows, n_cols):
+    """The edge list's CSR at (n_rows, n_cols) on the CPU."""
+    return CsrFormat.from_numpy(*to_csr(src, dst, n_rows, n_cols, w),
+                                n_cols, "cpu")
 
 
 class TestEmbeddingBag:

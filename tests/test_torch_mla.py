@@ -8,9 +8,10 @@ the reference's parameters carried across by
 ``attn_block_k`` on both sides sends a prompt through the flash path (the
 port's plain version on the CPU, the reference's XLA blockwise scan); at
 MLA's smoke widths its q/k head dim is ``d_nope + d_rope`` = 24 and its v
-head dim ``d_v`` = 16, as minicpm3-4b's are 96 and 64. The CUDA kernels'
-(96, 64) instances are held against the same plain versions on the card by
-``chip_smoke.py``.
+head dim ``d_v`` = 16, as minicpm3-4b's are 96 and 64. The plain flash
+forward and backward also run at (192, 128), deepseek-v2's pair. The CUDA
+kernels' (96, 64) and (192, 128) instances are held against the same plain
+versions on the card by ``chip_smoke.py``.
 
 Tolerances (float32 unless stated):
 - attention, plain forward against the reference's ``blockwise_attention``
@@ -126,8 +127,10 @@ def _attn(seed, hq, hkv, d, dv, s=64, sk=None):
                        (2, s, hq, dv))]
 
 
-DV_CASES = [(24, 16, 4, 4), (24, 16, 4, 2), (96, 64, 2, 2), (96, 64, 4, 1)]
-DV_IDS = ["24-16-mha", "24-16-gqa", "96-64-mha", "96-64-gqa"]
+DV_CASES = [(24, 16, 4, 4), (24, 16, 4, 2), (96, 64, 2, 2), (96, 64, 4, 1),
+            (192, 128, 2, 2), (192, 128, 4, 1)]
+DV_IDS = ["24-16-mha", "24-16-gqa", "96-64-mha", "96-64-gqa", "192-128-mha",
+          "192-128-gqa"]
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
@@ -230,7 +233,7 @@ def _zeros(d, dv, dtype=torch.bfloat16):
             torch.zeros(1, 8, 2, dv, dtype=dtype))
 
 
-@pytest.mark.parametrize("d, dv", [(96, 64), (64, 64), (32, 32), (128, 128)])
+@pytest.mark.parametrize("d, dv", flash_ops.HEAD_DIMS)
 def test_kernel_checks_take_the_compiled_pairs(d, dv):
     """The pairs the CUDA kernels are compiled for pass the wrappers'
     checks (forward and backward), on CUDA-shaped metadata; the backward
@@ -244,7 +247,7 @@ def test_kernel_checks_take_the_compiled_pairs(d, dv):
 
 
 @pytest.mark.parametrize("d, dv", [(96, 96), (64, 96), (96, 32), (64, 32),
-                                   (24, 16), (128, 64), (192, 128)])
+                                   (24, 16), (128, 64), (192, 192)])
 def test_kernel_checks_refuse_other_pairs(d, dv):
     q, k, v, o, do, dq, dk, dv_t = _zeros(d, dv)
     with pytest.raises(ValueError, match="compiled for D"):
@@ -510,11 +513,3 @@ def test_launchers_run_the_smoke_config(arch_id, capsys, monkeypatch,
     lines = capsys.readouterr().out.splitlines()
     assert re.fullmatch(r"step 5: loss -?\d+\.\d{4} \(checkpointed\)",
                         lines[0])
-
-
-def test_moe_layers_still_raise():
-    for kw in (dict(moe=True, n_experts=8, top_k=2, d_ff_expert=32),
-               dict(first_k_dense=1)):
-        pcfg, _ = _cfgs("minicpm3", **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ptf.init(pcfg, device="cpu")
