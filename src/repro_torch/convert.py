@@ -1,12 +1,14 @@
 """Carry weights between the reference's numpy trees and the port.
 
 The reference stores SAGE parameters as ``{"layer_i": {"w_self",
-"w_neigh", "b"}}``, the qnet as ``{"l1": {"w", "b"}, ...}`` and the LM
+"w_neigh", "b"}}``, the qnet as ``{"l1": {"w", "b"}, ...}``, the LM
 as ``{"embed", "lm_head", "final_norm", "layers": {...}}`` with the layers
-stacked along a leading axis; the port keeps all three layouts, as dicts of
-tensors. JAX's PRNG cannot be reproduced in torch, so parity tests
-initialise in the reference and carry the arrays across with these
-functions.
+stacked along a leading axis, the GNN zoo (PNA, GatedGCN, NequIP, MACE) as
+nested ``ParamBuilder`` dicts (``{"layer_i": {..., "lin_self": {"0", "1",
+"2"}}}``) and FM as ``{"table", "linear", "bias"}``; the port keeps every
+layout, as dicts of tensors. JAX's PRNG cannot be reproduced in torch, so
+parity tests initialise in the reference and carry the arrays across with
+these functions.
 """
 from __future__ import annotations
 
@@ -78,3 +80,25 @@ def lm_params_to_jax(params: dict) -> dict:
         else sub.detach().float().cpu().numpy()
         for name, sub in params.items()
     }
+
+
+def gnn_params_from_jax(np_tree: dict, device="cpu") -> dict:
+    """Reference PNA, GatedGCN, NequIP or MACE parameters (nested numpy
+    dicts) -> the port's tensors."""
+    return _to_torch(np_tree, device)
+
+
+def gnn_params_to_jax(params: dict) -> dict:
+    """The port's GNN-zoo parameters -> numpy arrays in the reference
+    layout."""
+    return _to_numpy(params)
+
+
+def fm_params_from_jax(np_tree: dict, device="cpu") -> dict:
+    """Reference FM parameters (numpy arrays) -> the port's tensors."""
+    return _to_torch(np_tree, device)
+
+
+def fm_params_to_jax(params: dict) -> dict:
+    """The port's FM parameters -> numpy arrays in the reference layout."""
+    return _to_numpy(params)

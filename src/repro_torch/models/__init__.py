@@ -1,1 +1,2 @@
-"""Model zoo: the paper's GraphSAGE (other families are not ported yet)."""
+"""Model zoo: the paper's GraphSAGE, the GNN zoo (PNA, GatedGCN, NequIP,
+MACE), the LM family and the FM recommender."""

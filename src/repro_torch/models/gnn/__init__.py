@@ -1,1 +1,2 @@
-"""GNN models: GraphSAGE (paper)."""
+"""GNN models: GraphSAGE (paper), PNA, GatedGCN, NequIP and MACE (with the
+irreps algebra)."""

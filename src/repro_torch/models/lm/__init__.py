@@ -1,2 +1,1 @@
-"""LM transformer family: GQA attention with a dense SwiGLU FFN (MLA and
-MoE are not ported yet)."""
+"""LM transformer family: GQA or MLA attention, a dense SwiGLU FFN or MoE."""

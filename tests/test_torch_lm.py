@@ -160,9 +160,11 @@ def test_registry():
     arch = preg.get_arch("tinyllama-1.1b")
     assert arch.family == "lm" and arch.shapes == rtiny.ARCH.shapes
     assert arch.model_module == "repro_torch.models.lm.transformer"
-    assert set(preg._MODULES) | set(preg._NOT_PORTED) == set(rreg._MODULES)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        preg.get_arch("pna")
+    assert preg._MODULES == {k: v.replace("repro.", "repro_torch.", 1)
+                             for k, v in rreg._MODULES.items()}
+    for arch_id in ("pna", "mace", "gatedgcn", "nequip", "fm"):
+        assert preg.get_arch(arch_id).model_module.startswith(
+            "repro_torch.models.")
     assert preg.get_arch("qwen3-1.7b").arch_id == "qwen3-1.7b"
     assert preg.get_arch("minicpm3-4b").arch_id == "minicpm3-4b"
     with pytest.raises(KeyError):

@@ -39,6 +39,7 @@ import torch
 
 from repro.configs import minicpm3_4b as rmini
 from repro.configs import qwen3_1p7b as rqwen
+from repro.configs import registry as rreg
 from repro.models.lm import attention as rattn
 from repro.models.lm import transformer as rtf
 from repro_torch import convert
@@ -107,7 +108,12 @@ def test_registry_returns_the_new_archs(arch_id, arch):
     for field in ("family", "shapes", "rule_overrides", "notes"):
         assert getattr(got, field) == getattr(ref.ARCH, field), field
     assert got.model_module == "repro_torch.models.lm.transformer"
-    assert arch_id in preg.ARCHS and arch_id not in preg._NOT_PORTED
+    assert arch_id in preg.ARCHS
+    assert preg._MODULES == {k: v.replace("repro.", "repro_torch.", 1)
+                             for k, v in rreg._MODULES.items()}
+    for other in ("pna", "mace", "gatedgcn", "nequip", "fm"):
+        assert preg.get_arch(other).model_module.startswith(
+            "repro_torch.models.")
 
 
 def test_full_configs_take_the_kernels_compiled_head_dims():

@@ -38,6 +38,7 @@ import torch
 
 from repro.configs import deepseek_v2_236b as rdeep
 from repro.configs import moonshot_v1_16b_a3b as rmoon
+from repro.configs import registry as rreg
 from repro.models.lm import moe as rmoe
 from repro.models.lm import transformer as rtf
 from repro.train import checkpoint as rck
@@ -107,7 +108,12 @@ def test_registry_returns_the_moe_archs(arch):
     for field in ("family", "shapes", "rule_overrides", "notes"):
         assert getattr(got, field) == getattr(ref.ARCH, field), field
     assert got.model_module == "repro_torch.models.lm.transformer"
-    assert IDS[arch] in preg.ARCHS and IDS[arch] not in preg._NOT_PORTED
+    assert IDS[arch] in preg.ARCHS
+    assert preg._MODULES == {k: v.replace("repro.", "repro_torch.", 1)
+                             for k, v in rreg._MODULES.items()}
+    for other in ("pna", "mace", "gatedgcn", "nequip", "fm"):
+        assert preg.get_arch(other).model_module.startswith(
+            "repro_torch.models.")
 
 
 def test_full_configs_take_the_kernels_compiled_head_dims():
