@@ -370,6 +370,24 @@ Phases, each of which ends the run with a non-zero exit on failure:
    against CPU, ``TOL_FM``; retrieval also against ``scores`` over
    (query ‖ candidate) rows), each timed and profiled. No hand-written
    kernel is on these paths: every launch count must stay unchanged.
+   Then the dry-run (``phase_dryrun``): ``repro_torch.launch.dryrun``'s
+   record (``launch.count``: FLOPs by dtype, bytes, the live-bytes peak,
+   the roofline terms at the card's peaks, per-device argument bytes
+   under both production rule sets) of each GNN and FM cell above and
+   the four ``greendygnn-sage`` cells, at full config on the ``meta``
+   device (the LM archs' reference cells, minutes on meta: ``python -m
+   repro_torch.launch.dryrun --all``);
+   then ``greendygnn-sage`` on the card at each shape whose counted peak
+   fits ``MEM_FRAC`` of the card and whose CPU check fits
+   ``CPU_CHECK_MAX_S``, as ``run_gnn_cell`` runs the zoo (the rest in
+   ``scripts/gnn_cells.py``). Every cell the card runs (the GNN and FM
+   cells, the sage cells, each LM arch's prefill, a decode step and its
+   ``train_4k`` step) runs one more, untimed step under the counter
+   (``hold_count``): its FLOPs and bytes must equal the count of the same
+   step on ``meta`` tensors of the same shapes, and its kernel charges
+   the launches ``_build.count_launch`` counted; the counted peak is
+   logged beside ``max_memory_allocated`` and the phase's estimate, and
+   the roofline bound beside the measured step time.
 7. Time each kernel, its plain version and the equivalent library call
    with CUDA events (median of 25 launches, L2 flushed before each and
    each queued behind a spin kernel so the host's enqueue time is not
@@ -399,7 +417,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
    minicpm3, moonshot, deepseek) time the forward at those archs'
    prefill shapes (launches: a prefill's), ``flash_attention_bwd_<arch>``
    the backward at their training shapes (launches: the training run's),
-   SDPA's beside each.
+   SDPA's beside each. The ``step_gate`` row (``csrc/step_gate.cu``,
+   which holds the stream while the trainer's measured step is enqueued,
+   so its CUDA events time device work only) times an open gate against
+   its plain version, with its launches on the main path (one a measured
+   step); ``phase_step_gate`` checks it first: an open gate delivers its
+   token, a closed one times out, and a gated event pair around two
+   short kernels and a 50 ms host stall times the kernels, not the stall.
    TF32 is off throughout: float32 results are compared in full float32.
    Every bound is read from ``repro_torch.launch.roofline``'s peaks for
    the card's name (a card missing from its table fails the run).
@@ -457,10 +481,12 @@ NEW_TRAIN_STEPS = 3
 MEM_FRAC = 0.85
 # the policy phase: card against CPU within float32 reassociation and
 # last-bit pow/sin differences; training on 32 envs, a few thousand
-# iterations an env; a same-seed pair of short runs; two profiled runs
+# iterations an env (2,000 since the counter's holds were added, for the
+# script's time: at 4,000 a slow host took 1,231 s of its 1,200); a
+# same-seed pair of short runs; two profiled runs
 TOL_POLICY = dict(rtol=1e-5, atol=1e-6)
 POLICY_ENVS = 32
-POLICY_ITERS = 4000
+POLICY_ITERS = 2000
 POLICY_SHORT = 200
 POLICY_PROFILED = (20, 60)
 POLICY_HELD_OUT = 4
@@ -1322,14 +1348,17 @@ def phase_flash_vs_plain(torch, device):
 
 
 def device_time_by_name(prof) -> dict:
-    """{kernel or copy name: [device us, count]} from a profiler run."""
+    """{kernel or copy name: [device us, count]} from a profiler run. The
+    measured step's gate (``step_gate_kernel``) is left out: it waits
+    while the host enqueues the step, and does no work."""
     import collections
 
     from torch.autograd import DeviceType
 
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA \
+                and not e.name.startswith("step_gate_kernel"):
             by_name[e.name][0] += e.time_range.elapsed_us()
             by_name[e.name][1] += 1
     return by_name
@@ -2616,6 +2645,102 @@ def deploy_main(torch, device, tmp) -> int:
     return 0
 
 
+# ------------------------------------------------------- the step gate
+GATE_STALL_S = 0.05     # the host stall the gated event pair must not time
+
+
+def phase_step_gate(torch, device) -> float:
+    """``csrc/step_gate.cu`` against its plain version, and what it is
+    for. An open gate (the flag already holding the token) writes the
+    token, a closed one with a 2 ms timeout writes minus the token, as
+    ``step_gate_plain`` gives both; ``StepGate.check`` raises on the
+    second. Then an event pair around two short kernels with a
+    ``GATE_STALL_S`` host stall between them: without the gate it times
+    the stall, behind a closed gate opened after the end event it must
+    time the kernels only. Returns the largest |kernel - plain|."""
+    from repro_torch.kernels.step_gate import ops as gate_ops
+
+    words = torch.zeros(2, dtype=torch.int32, pin_memory=True)
+    view = words.numpy()
+    errs = []
+    for token, flag, timeout_s in ((7, 7, 1.0), (8, 0, 0.002)):
+        view[:] = (flag, 0)
+        gate_ops.step_gate(words, token, device, timeout_s)
+        torch.cuda.synchronize()
+        got = int(view[gate_ops.STATUS])
+        view[:] = (flag, 0)
+        gate_ops.step_gate_plain(words, token)
+        want = int(view[gate_ops.STATUS])
+        errs.append(abs(got - want))
+        require(got == want == (token if flag == token else -token),
+                f"step_gate token {token}, flag {flag}: kernel {got}, "
+                f"plain {want}")
+    gate = gate_ops.StepGate(device, timeout_s=0.002)
+    gate.close()
+    torch.cuda.synchronize()
+    try:
+        gate.check()
+        raise SmokeError("StepGate.check passed a gate that timed out")
+    except RuntimeError as e:
+        log(f"step_gate: a gate left closed timed out and check raised: {e}")
+
+    def bracket(gated: bool) -> float:
+        g = gate_ops.StepGate(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        if gated:
+            g.close()
+        start.record()
+        torch.cuda._sleep(100_000)
+        time.sleep(GATE_STALL_S)
+        torch.cuda._sleep(100_000)
+        end.record()
+        if gated:
+            g.open()
+        end.synchronize()
+        if gated:
+            g.check()
+        return start.elapsed_time(end)
+
+    plain_ms, gated_ms = bracket(False), bracket(True)
+    log(f"step_gate: two short kernels and a {GATE_STALL_S * 1e3:.0f} ms "
+        f"host stall between them: events {plain_ms:.3f} ms ungated, "
+        f"{gated_ms:.3f} ms behind the gate; kernel against plain "
+        f"max |diff| {max(errs)}")
+    require(plain_ms >= GATE_STALL_S * 1e3,
+            f"the ungated events did not time the stall ({plain_ms} ms)")
+    require(gated_ms < GATE_STALL_S * 1e3 / 5,
+            f"the gated events timed the host stall ({gated_ms} ms)")
+    return float(max(errs))
+
+
+def step_gate_row(torch, device, launches: int, err: float) -> dict:
+    """An open gate (a launch and one read of the host's flag) against its
+    plain version on the same words; bound: the 8 bytes it moves."""
+    from repro_torch.kernels.step_gate import ops as gate_ops
+
+    timer = Timer(torch, device)
+    words = torch.zeros(2, dtype=torch.int32, pin_memory=True)
+    words.numpy()[gate_ops.FLAG] = 1
+    ms = timer.ms(lambda: gate_ops.step_gate(words, 1, device))
+    plain = timer.ms(lambda: gate_ops.step_gate_plain(words, 1))
+    b_ms, b_by = bound_ms(8, 0)
+    log(f"time step_gate (open): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {b_ms:.7f} ms ({b_by}; 8 bytes); {launches} launches on "
+        f"the main path; {smi_line()}")
+    return {
+        "name": "step_gate", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/step_gate.cu",
+        "replaces": "src/repro/train/compute.py:305 (no kernel: the "
+                    "reference times its measured step as one compiled "
+                    "executable)",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
 # ------------------------------------------------------------- phase 3
 def phase_main_path(torch, device, qnet):
     """The GreenDyGNN trainer's main path, its controller driven by
@@ -2625,6 +2750,7 @@ def phase_main_path(torch, device, qnet):
     from repro_torch.core import dqn
     from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.segment_mm import csr_spmm
+    from repro_torch.kernels.step_gate import step_gate
     from repro_torch.store import MemoryBudget
     from repro_torch.train import gnn_trainer as gt
 
@@ -2643,12 +2769,14 @@ def phase_main_path(torch, device, qnet):
     with plans_swapped() as plans:
         csr_spmm.launches = 0
         embedding_bag.launches = 0
+        step_gate.launches = 0
         t0 = time.perf_counter()
         res = gt.run(cfg, bundle)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {"csr_spmm": csr_spmm.launches,
-                  "embedding_bag": embedding_bag.launches}
+                  "embedding_bag": embedding_bag.launches,
+                  "step_gate": step_gate.launches}
     kept = persisted_builds(plans)
     rep = res.compute_report
     n_steps = cfg.n_epochs * cfg.steps_per_epoch
@@ -2672,6 +2800,10 @@ def phase_main_path(torch, device, qnet):
             f"{steps_with_hits} steps with hits + {kept} rebuilds with "
             "persisted rows")
     require(rep["n_steps"] == n_steps, "measured steps missing")
+    # one gate a measured step; the untimed first runs are not gated
+    require(counts["step_gate"] == n_steps,
+            f"step_gate launches {counts['step_gate']} != {n_steps} "
+            "measured steps")
     require(rep["parity_max_diff"] is not None
             and rep["parity_max_diff"] < 2e-3,
             f"parity_max_diff {rep['parity_max_diff']}")
@@ -4901,6 +5033,17 @@ def phase_serving(torch, device, arch_id: str = "tinyllama-1.1b"):
                       res.prompt_logits, None, bound=TOL_MOE_DEEP,
                       dense=False)
     torch.cuda.empty_cache()
+    hold_count(torch, f"prefill {arch_id} B={PREFILL_B} S={PREFILL_S}",
+               lambda p, t: tf.prefill(p, cfg, t), (params, tokens),
+               estimate=serve_peak_estimate(cfg, rows))
+    cache = tf.init_cache(cfg, len(prompts), SERVE_PROMPT + SERVE_GEN,
+                          device=device)
+    hold_count(torch, f"decode {arch_id} B={len(prompts)} at {SERVE_PROMPT}",
+               lambda p, tok, c: tf.decode_step(p, cfg, tok, c,
+                                                SERVE_PROMPT),
+               (params, prompts[:, -1:].to(device), cache))
+    del cache
+    torch.cuda.empty_cache()
     return counts, cfg, params, tokens
 
 
@@ -5650,6 +5793,9 @@ def phase_lm_train(torch, device, smi):
     profile_train_step(torch, "tinyllama-1.1b",
                        lambda: step(params, state, *batch(TRAIN_STEPS)),
                        steady_wall, per_bwd)
+    hold_count(torch, "train tinyllama-1.1b", step,
+               (params, state, *batch(TRAIN_STEPS + 1)), step_ms=steady,
+               estimate=train_peak_estimate(cfg))
     del params, state
     torch.cuda.empty_cache()
 
@@ -5670,13 +5816,14 @@ def lm_param_counts(cfg) -> tuple[int, float, int]:
     from repro_torch.models.lm import transformer as tf
 
     def layer(use_moe):  # (parameters, matrices a token runs, largest)
-        shapes = tf._layer_shapes(cfg, use_moe)
-        n_all = sum(math.prod(sh) for sh, _ in shapes.values())
+        shapes = {name: sh for name, (sh, _, _)
+                  in tf._layer_shapes(cfg, use_moe).items()}
+        n_all = sum(math.prod(sh) for sh in shapes.values())
         n_mat = sum(math.prod(sh) * (cfg.top_k / cfg.n_experts
                                      if use_moe and name in EXPERT_STACKS
                                      else 1.0)
-                    for name, (sh, _) in shapes.items() if len(sh) > 1)
-        return n_all, n_mat, max(math.prod(sh) for sh, _ in shapes.values())
+                    for name, sh in shapes.items() if len(sh) > 1)
+        return n_all, n_mat, max(math.prod(sh) for sh in shapes.values())
 
     d, v = cfg.d_model, cfg.padded_vocab
     dense, stacked = layer(False), layer(cfg.moe)
@@ -5866,6 +6013,10 @@ def phase_lm_train_arch(torch, device, smi, arch_id: str) -> dict:
     profile_train_step(torch, arch_id,
                        lambda: step(params, state, *batch(NEW_TRAIN_STEPS)),
                        steady_wall, per_bwd)
+    hold_count(torch, f"train {arch_id}" + (f" ({cut} layers)" if cut
+                                            else ""),
+               step, (params, state, *batch(NEW_TRAIN_STEPS + 1)),
+               step_ms=steady, estimate=train_peak_estimate(cfg))
     del params, state
     torch.cuda.empty_cache()
     log(f"LM training phase {arch_id}: {time.perf_counter() - t_phase:.1f} s")
@@ -6382,10 +6533,145 @@ def kernel_counts() -> dict:
     )
     from repro_torch.kernels.queue_window import queue_window
     from repro_torch.kernels.segment_mm import csr_spmm
+    from repro_torch.kernels.step_gate import step_gate
 
     return {w.__name__: w.launches
             for w in (csr_spmm, embedding_bag, flash_attention,
-                      flash_attention_bwd, queue_window, cluster_window)}
+                      flash_attention_bwd, queue_window, cluster_window,
+                      step_gate)}
+
+
+# ------------------------------------------------ the counter, held on card
+# a cell the card runs takes one more, untimed step under launch.count's
+# counter, held against the same step counted on meta tensors
+HELD = []        # every hold_count's summary, for the end's log
+RECORDS = {}     # (arch, shape) -> launch.dryrun record of a held cell
+# seconds hold_count spent: its counted steps on the card and on meta, and
+# the steps it timed itself
+COUNT_S = {"card": 0.0, "meta": 0.0, "timed_step": 0.0}
+
+
+def hold_count(torch, label: str, fn, args, *, meta_cell=None,
+               step_ms: float | None = None,
+               estimate: float | None = None) -> dict:
+    """One untimed ``fn(*args)`` on the card under ``launch.count``'s
+    counter, and the same step on ``meta``: ``meta_cell``'s step and
+    arguments (a ``launch.cell`` cell built on ``meta``, whose dry-run
+    record goes to ``RECORDS``), else ``fn`` on ``meta`` tensors of the
+    arguments' shapes. Their FLOPs by dtype and bytes must be equal, and
+    the card run's kernel charges equal to the launches
+    ``_build.count_launch`` counted during it. Logs
+    ``max_memory_allocated`` of the counted step beside the counted peaks
+    and ``estimate``, and the roofline bound (the card's peaks) beside
+    ``step_ms`` (timed here, one uncounted step, if not given). Returns
+    the card run's summary with the bound."""
+    from repro_torch.launch import count, dryrun, roofline
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    if step_ms is None:
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end)
+        del out
+        COUNT_S["timed_step"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    held_before = torch.cuda.memory_allocated(device)
+    before = kernel_counts()
+    on_card = count.Counter()
+    card, out = count.count_call(fn, *args, counter=on_card)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    launched = {k: v - before[k] for k, v in kernel_counts().items()
+                if v != before[k]}
+    del out
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    meta_fn, meta_args = ((meta_cell["step_fn"], meta_cell["args"])
+                          if meta_cell else (fn, count.to_meta(args)))
+    # meta's launches are sized by this card's SMs, as the card's are
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    on_meta = count.Counter(sms=sms)
+    meta, meta_out = count.count_call(meta_fn, *meta_args, counter=on_meta)
+    first_use = on_card.differences(on_meta)
+    if first_use:
+        # a model that keeps constants on each device (irreps' CG
+        # tensors) copies them there on its first step: the card's came
+        # with the cell's earlier steps, meta's with this one; count a
+        # second meta step, its constants cached as the card's are
+        log(f"count {label}: meta's first step differs in "
+            f"{ {op: (c, m) for op, (c, m) in first_use.items()} } "
+            "(card [calls, FLOPs, bytes], meta); counting a second meta "
+            "step, the device's constants cached")
+        on_meta = count.Counter(sms=sms)
+        meta, meta_out = count.count_call(meta_fn, *meta_args,
+                                          counter=on_meta)
+    t_meta = time.perf_counter() - t0
+    COUNT_S["card"] += t_card
+    COUNT_S["meta"] += t_meta
+    if meta_cell:
+        RECORDS[meta_cell["cell_id"]] = dryrun.record(
+            *meta_cell["cell_id"], meta_cell, meta,
+            dryrun.storage_bytes(meta_out), t_meta)
+    del meta_out
+    peaks = roofline.device_peaks(device)
+    terms = roofline.roofline_terms(card["flops_by_dtype"], card["bytes"],
+                                    None, peaks)
+    bound = terms["bound_s"] * 1e3
+    charges = {k: v["calls"] for k, v in card["kernels"].items()}
+    est = "" if estimate is None else (
+        f", the phase's estimate {estimate / 2**30:.3f} GiB")
+    log(f"count {label}: {card['flops']:.6g} FLOPs "
+        f"{card['flops_by_dtype']}, {card['bytes']:.6g} bytes, "
+        f"{card['n_ops']} ops, kernel charges {charges} (launched "
+        f"{launched}); meta {meta['flops']:.6g} FLOPs, {meta['bytes']:.6g} "
+        f"bytes, {meta['n_ops']} ops; peak: max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB, counted "
+        f"{card['peak_live_bytes'] / 2**30:.3f} GiB on the card and "
+        f"{meta['peak_live_bytes'] / 2**30:.3f} GiB on meta; above what "
+        f"was allocated before the step ({held_before / 2**30:.3f} GiB, "
+        f"the arguments {card['tracked_bytes'] / 2**30:.3f} GiB of it): "
+        f"allocated {(peak - held_before) / 2**30:.3f} GiB, counted "
+        f"{(card['peak_live_bytes'] - card['tracked_bytes']) / 2**30:.3f} "
+        f"GiB{est}; "
+        f"roofline bound {bound:.4f} ms ({terms['dominant']}: compute "
+        f"{terms['compute_s'] * 1e3:.4f} ms, memory "
+        f"{terms['memory_s'] * 1e3:.4f} ms) against the measured step "
+        f"{step_ms:.4f} ms: bound / step {bound / step_ms:.3f}; counted "
+        f"in {t_card:.1f} s on the card, {t_meta:.1f} s on meta; "
+        f"{smi_line()}")
+    if bound > step_ms:
+        log(f"count {label}: the bound exceeds the measured step: the "
+            "count's bytes overstate what the step moves")
+    diff = on_card.differences(on_meta)
+    if diff:
+        for op, (c, m) in list(diff.items())[:20]:
+            log(f"count {label}: {op} card [calls, FLOPs, bytes] {c}, "
+                f"meta {m}")
+    require(card["flops_by_dtype"] == meta["flops_by_dtype"]
+            and card["bytes"] == meta["bytes"],
+            f"count {label}: the card's count ({card['flops_by_dtype']}, "
+            f"{card['bytes']} bytes) differs from meta's "
+            f"({meta['flops_by_dtype']}, {meta['bytes']} bytes) in "
+            f"{len(diff)} ops")
+    require(card["kernels"] == meta["kernels"],
+            f"count {label}: kernel charges {card['kernels']} on the card, "
+            f"{meta['kernels']} on meta")
+    require(charges == launched,
+            f"count {label}: kernel charges {charges}, launches {launched}")
+    out = {"label": label, **card, "bound_ms": bound, "step_ms": step_ms,
+           "max_memory_allocated": peak, "allocated_before": held_before,
+           "meta_peak_live_bytes": meta["peak_live_bytes"],
+           "estimate": estimate}
+    HELD.append(out)
+    return out
 
 
 def card_vs_cpu_step(torch, label, loss_fn, params, inputs,
@@ -6544,15 +6830,36 @@ def tree_cpu(tree):
     return tree_map(lambda t: t.detach().float().cpu(), tree)
 
 
+def meta_cell_of(arch_id: str, shape: str) -> dict:
+    """The (``arch_id``, ``shape``) cell of ``launch.cell`` at full config
+    on ``meta``, with its ``cell_id``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import cell as lc
+
+    return {**lc.build_cell(get_arch(arch_id), shape, "meta"),
+            "cell_id": (arch_id, shape)}
+
+
 def gnn_estimate(arch_id: str, shape: str):
     """``gnn_peak_estimate`` of the (``arch_id``, ``shape``) cell at the
-    arch's full config, and the cell's sizes."""
+    arch's full config, and the cell's sizes. GraphSAGE has no such
+    formula: its estimate is the peak ``launch.count`` counts for the
+    step on ``meta`` and ``GNN_WORKSPACE``, its activations that peak
+    less the arguments."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.shapes import GNN_SHAPES
     from repro_torch.launch import cell as lc
 
     arch = get_arch(arch_id)
     n, e, d_feat, chunk = lc._gnn_graph_arrays(arch, GNN_SHAPES[shape])
+    if arch_id not in GNN_SAVED and arch_id not in lc.GEOMETRIC:
+        from repro_torch.launch import dryrun
+
+        rec = dryrun.run_cell(arch_id, shape, "meta", save=False)
+        mem = rec["memory"]
+        return ((mem["peak_live_bytes"] + GNN_WORKSPACE,
+                 mem["peak_live_bytes"] - mem["argument_bytes_per_device"]),
+                {"n_nodes": n, "n_edges": e, "edge_chunk": chunk})
     cfg = (dataclasses.replace(arch.make_config(), edge_chunk=chunk)
            if arch_id in lc.GEOMETRIC else arch.make_config(d_in=d_feat))
     meta = {"n_nodes": n, "n_edges": e, "edge_chunk": chunk}
@@ -6585,6 +6892,10 @@ def run_gnn_cell(torch, device, smi, arch_id: str, shape: str) -> float:
     log(f"{label}: {cell['meta']}; peak {res['peak'] / 2**30:.3f} GiB "
         f"measured against {est / 2**30:.3f} GiB estimated; build "
         f"{t_build:.1f} s; {smi}")
+    hold_count(torch, label, cell["step_fn"],
+               (res["params"], res["state"], *res["inputs"]),
+               meta_cell=meta_cell_of(arch_id, shape),
+               step_ms=res["ms"], estimate=est)
     profile_cell(torch, f"{label} step",
                  lambda: cell["step_fn"](res["params"], res["state"],
                                          *res["inputs"]),
@@ -6670,6 +6981,9 @@ def phase_fm(torch, device, smi) -> None:
             res = train_cell_steps(torch, device, label, cell, base)
             log(f"{label}: table {cfg.total_rows} x {cfg.embed_dim}; "
                 f"{smi}")
+            hold_count(torch, label, cell["step_fn"],
+                       (res["params"], res["state"], *res["inputs"]),
+                       meta_cell=meta_cell_of("fm", shape), step_ms=res["ms"])
             profile_cell(torch, f"{label} step",
                          lambda: cell["step_fn"](res["params"],
                                                  res["state"],
@@ -6710,6 +7024,9 @@ def phase_fm(torch, device, smi) -> None:
                 profile_cell(torch, f"{label} call",
                              lambda: cell["step_fn"](params, *inputs),
                              statistics.median(wall[1:]))
+                hold_count(torch, label, cell["step_fn"], (params, *inputs),
+                           meta_cell=meta_cell_of("fm", shape),
+                           step_ms=statistics.median(ev[1:]))
         del cell, params, inputs, cpu_params
         torch.cuda.empty_cache()
         log(f"{label}: {time.perf_counter() - t0:.1f} s")
@@ -6717,6 +7034,96 @@ def phase_fm(torch, device, smi) -> None:
             f"the FM cells launched a hand-written kernel: {before} -> "
             f"{kernel_counts()}")
     log(f"FM phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ------------------------------------------------------ the dry-run phase
+SAGE_SHAPES = ("molecule", "full_graph_sm", "minibatch_lg", "ogb_products")
+
+
+def dryrun_cells() -> list:
+    """The cells counted on meta at full config here: every GNN and FM
+    cell the card runs (here or in ``scripts/gnn_cells.py``) and the sage
+    cells. The LM steps the card runs are counted on meta at the card's
+    own configs by ``hold_count``; the LM archs' reference cells at full
+    config take minutes on meta (``python -m repro_torch.launch.dryrun
+    --all``)."""
+    from repro_torch.configs.shapes import FM_SHAPES
+
+    return (list(GNN_CELLS + GNN_IF_FITS)
+            + [("greendygnn-sage", s) for s in SAGE_SHAPES]
+            + [("fm", s) for s in FM_SHAPES])
+
+
+def phase_dryrun(torch, device, smi) -> None:
+    """``repro_torch.launch.dryrun``'s record of each of ``dryrun_cells``
+    at full config on ``meta``: FLOPs by dtype, bytes, the live-bytes
+    peak, the roofline terms at the card's peaks, the per-device argument
+    bytes under both production rule sets. Then ``greendygnn-sage`` on
+    the card (``run_gnn_cell``: card against CPU, AdamW steps, the counter
+    held) at each of ``SAGE_SHAPES`` whose counted peak fits ``MEM_FRAC``
+    of the card and whose CPU check, scaled from the largest sage cell
+    run by the step's counted bytes, fits ``CPU_CHECK_MAX_S``
+    (``scripts/gnn_cells.py`` runs the rest). No hand-written kernel is on
+    these paths."""
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    before = kernel_counts()
+    records = {}
+    for arch_id, shape in dryrun_cells():
+        rec = RECORDS.get((arch_id, shape)) or dryrun.run_cell(
+            arch_id, shape, "meta", save=False)
+        r, mem = rec["roofline"], rec["memory"]
+        calls = {k: v["calls"] for k, v in rec["counted"]["kernels"].items()}
+        sh = rec["sharded"]
+        records[(arch_id, shape)] = rec
+        log(f"dryrun {arch_id} {shape} (meta, full config): "
+            f"{r['flops_per_device']:.6g} FLOPs {r['flops_by_dtype']}, "
+            f"{r['bytes_per_device']:.6g} bytes, {rec['counted']['n_ops']} "
+            f"ops, kernels "
+            f"{calls}; peak {mem['peak_live_bytes'] / 2**30:.3f} GiB "
+            f"(arguments "
+            f"{mem['argument_bytes_per_device'] / 2**30:.3f}); bound "
+            f"{r['bound_s'] * 1e3:.4f} ms ({r['dominant']}, compute share "
+            f"{r['roofline_fraction']:.3f}) at the {r['card']} peaks; "
+            f"arguments a device: single pod "
+            f"{sh['single']['argument_bytes_per_device'] / 2**20:.2f} MiB, "
+            f"multi pod {sh['multi']['argument_bytes_per_device'] / 2**20:.2f}"
+            f" MiB (divisible {sh['single']['divisible']}/"
+            f"{sh['multi']['divisible']})"
+            + (f"; model FLOPs {rec['model_flops_global']:.6g}, useful "
+               f"share {rec['useful_flops_ratio']}"
+               if rec["model_flops_global"] else "")
+            + f"; counted in {rec['count_s']:.1f} s")
+        require(r["bytes_per_device"] > 0 and math.isfinite(r["bound_s"])
+                and mem["peak_live_bytes"] >= mem["argument_bytes_per_device"]
+                and sh["multi"]["argument_bytes_per_device"] > 0,
+                f"dryrun {arch_id} {shape}: {r}, {mem}")
+    log(f"dryrun: {len(records)} cells on meta ("
+        f"{sum(c in RECORDS for c in records)} counted by their cells' "
+        f"held steps) in {time.perf_counter() - t_phase:.1f} s")
+    budget = MEM_FRAC * torch.cuda.get_device_properties(device).total_memory
+    ran = []       # (counted bytes, CPU check s) of the sage cells run
+    for shape in SAGE_SHAPES:
+        (est, _), meta = gnn_estimate("greendygnn-sage", shape)
+        moved = records[("greendygnn-sage", shape)]["counted"]["bytes"]
+        cpu_s = (max(ran)[1] * moved / max(ran)[0]) if ran else 0.0
+        go = est <= budget and cpu_s <= CPU_CHECK_MAX_S
+        log(f"gnn greendygnn-sage {shape}: {meta}, counted peak "
+            f"{(est - GNN_WORKSPACE) / 2**30:.3f} GiB (+ "
+            f"{GNN_WORKSPACE / 1e9:.1f} GB of workspace) against {MEM_FRAC} "
+            f"of the card ({budget / 2**30:.2f} GiB), its CPU check at "
+            f"~{cpu_s:.1f} s against {CPU_CHECK_MAX_S:.0f} s: "
+            + ("run" if go else "not run" + (
+                " (scripts/gnn_cells.py runs it)" if est <= budget else "")))
+        if go:
+            ran.append((moved, run_gnn_cell(torch, device, smi,
+                                            "greendygnn-sage", shape)))
+    require(len(ran) >= 2, f"only {len(ran)} greendygnn-sage cells ran")
+    require(kernel_counts() == before,
+            f"the dry-run phase launched a hand-written kernel: {before} -> "
+            f"{kernel_counts()}")
+    log(f"dryrun phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -6755,6 +7162,7 @@ def main() -> int:
     # training's millions of launches (a late trace held no kernel)
     phase_gnn_archs(torch, device, smi)
     phase_fm(torch, device, smi)
+    phase_dryrun(torch, device, smi)
     # the LM phases read their flash launches from the profiler too: a
     # prefill trace taken after the policy training held 47 of the 48
     # flash kernels the wrapper counted, in each of three tries
@@ -6788,6 +7196,9 @@ def main() -> int:
     policy_pools["queue"] = policy_pools["analytic"]
     policy_pools["cluster"] = policy_pools["analytic"]
     flash_err, flash_operands = phase_flash_vs_plain(torch, device)
+    t0 = time.perf_counter()
+    gate_err = phase_step_gate(torch, device)
+    log(f"step gate phase: {time.perf_counter() - t0:.1f} s")
     counts, step_ms, n_steps = phase_main_path(torch, device, qnet)
     full_counts = phase_full_graph(torch, device)
     phase_congestion(torch, device, smi, {"table": qnet,
@@ -6826,7 +7237,16 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     rows.append(queue_window_timing_row(torch, device, queue_info))
     rows.append(cluster_window_timing_row(torch, device, cluster_info))
+    rows.append(step_gate_row(torch, device, counts["step_gate"], gate_err))
     phase_policy_profile(torch, device, policy_pools)
+    log("counter held on the card: " + json.dumps([
+        {k: h[k] for k in ("label", "flops", "bytes", "peak_live_bytes",
+                           "tracked_bytes", "max_memory_allocated",
+                           "allocated_before", "bound_ms", "step_ms")}
+        for h in HELD]))
+    log(f"counter holds: {len(HELD)} steps, counted in "
+        f"{COUNT_S['card']:.1f} s on the card and {COUNT_S['meta']:.1f} s "
+        f"on meta, {COUNT_S['timed_step']:.1f} s of steps timed for them")
     log(f"median measured step: {step_ms:.4f} ms; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -11,11 +11,16 @@ With no arguments it runs every ``chip_smoke.GNN_IF_FITS`` cross whose
 ``gnn_peak_estimate`` fits ``MEM_FRAC`` of the card, whatever its CPU
 check takes (``chip_smoke.py`` runs only those under
 ``CPU_CHECK_MAX_S``, and leaves NequIP and MACE at ``minibatch_lg`` to
-this script; about 200 s on an H100, 138 s of it MACE's CPU check). Each cell is
+this script; about 200 s on an H100, 138 s of it MACE's CPU check), and
+``greendygnn-sage`` cells named as ``greendygnn-sage:SHAPE`` (whose
+estimate is the peak ``launch.count`` counts on ``meta``;
+``chip_smoke.py`` runs those whose CPU check fits its budget). Each cell is
 ``chip_smoke.run_gnn_cell``: the first loss and gradients on the card
 against the same step on the CPU, 5 AdamW steps that must lower the loss,
-the peak memory against the estimate, one profiled step. A cell whose
-estimate does not fit is refused. The card's name and power limit come
+the peak memory against the estimate, one step under the counter held
+against the same step counted on ``meta`` (``chip_smoke.hold_count``),
+one profiled step. A cell whose estimate does not fit is
+refused. The card's name and power limit come
 first; the last line is one JSON object of each cell's estimate, CPU
 check seconds and wall seconds. Exits non-zero without a card or when a
 check fails.

@@ -11,6 +11,14 @@ rebuilt on first use and an unchanged one is reused.
 Nothing is built at import time: the first kernel launch (or an explicit
 :func:`build_all`) builds. Without ``nvcc`` the build raises; there is no
 fallback.
+
+Each wrapper also charges the work of every launch (:func:`count_launch`;
+on ``meta``, :func:`charge` in place of the launch) to the counters active
+on the launching thread: the modes on its dispatch-mode stack that take
+charges (``launch.count.Counter``). Autograd's worker threads inherit
+that stack from the thread that runs the backward, so a backward's
+kernels are charged to the step's counter, and a kernel another thread
+launches (the pipeline's builder) is not.
 """
 from __future__ import annotations
 
@@ -24,6 +32,9 @@ import subprocess
 import tempfile
 import threading
 import time
+
+import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -55,6 +66,8 @@ ENTRIES = {
     # scal, ints, own, state, unif, pscal, pown, acc, acc_own, state_out,
     # pstate_out, pback_out, n, P, n_epochs, steps_per_epoch, stream
     "cluster_window_f32": ("cluster_window", (_P,) * 12 + (_I,) * 4 + (_P,)),
+    # flag, status (pinned host words), token, timeout_ns, stream
+    "step_gate_wait": ("step_gate", (_P, _P, _I, _L, _P)),
 }
 # Flags a source takes beyond NVCC_FLAGS: the envs' window scans keep every
 # product and sum apart (no FMA contraction), as their plain versions'
@@ -167,14 +180,51 @@ def check(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def count_launch(wrapper) -> None:
+def _counters() -> list:
+    """The counters active on this thread, innermost last."""
+    if not torch._C._len_torch_dispatch_stack():
+        return []
+    return [m for m in _get_current_dispatch_mode_stack()
+            if hasattr(m, "take_charge")]
+
+
+def charge(wrapper, flops: float, n_bytes: float,
+           dtype: torch.dtype = torch.float32) -> None:
+    """Charge one launch of ``wrapper``'s kernel to each counter active
+    on this thread: ``flops`` matrix-class operations on ``dtype``
+    operands and ``n_bytes`` moved. A no-op when none is."""
+    for c in _counters():
+        c.take_charge(wrapper.__name__, float(flops), float(n_bytes),
+                      str(dtype).removeprefix("torch."))
+
+
+def counter_sms() -> int | None:
+    """The SM count of the card the innermost active counter prices
+    (``Counter(sms=...)``), or None: what a wrapper on ``meta`` sizes a
+    launch's grid by."""
+    for c in reversed(_counters()):
+        if c.sms is not None:
+            return c.sms
+    return None
+
+
+def tensor_bytes(*tensors: torch.Tensor) -> float:
+    """The bytes of ``tensors``' elements, each read or written once."""
+    return float(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def count_launch(wrapper, flops: float | None = None, n_bytes: float = 0.0,
+                 dtype: torch.dtype = torch.float32) -> None:
     """Add one to ``wrapper.launches``, and to the launching thread's entry
     in ``wrapper.launches_by_thread`` (by thread name), under a lock: the
     pipeline's builder thread launches kernels beside the trainer's
     thread, and ``+= 1`` on an attribute is a read, an add and a write
-    that a thread switch can split."""
+    that a thread switch can split. With ``flops`` given, also
+    :func:`charge` the launch's work."""
     name = threading.current_thread().name
     with _launch_lock:
         wrapper.launches += 1
         by_thread = wrapper.launches_by_thread
         by_thread[name] = by_thread.get(name, 0) + 1
+    if flops is not None:
+        charge(wrapper, flops, n_bytes, dtype)

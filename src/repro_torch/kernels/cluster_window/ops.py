@@ -125,7 +125,7 @@ def cluster_window(cfg, params, sc, vol, fabric: FabricState, peers: Peers,
         return cluster_window_plain(cfg, params, sc, vol, fabric, peers,
                                     peer_state, uniforms, window, eff_window,
                                     step_pos)
-    if uniforms.device.type != "cuda":
+    if uniforms.device.type not in ("cuda", "meta"):
         raise ValueError(f"cluster_window: unsupported device "
                          f"{uniforms.device}")
     check_kernel_operands(uniforms)
@@ -162,7 +162,16 @@ def launch(scal, ints, own, state, uniforms, pscal, pown, acc, acc_own,
            state_out, pstate_out, pback_out, n_epochs: int,
            steps_per_epoch: int) -> None:
     """Launch the kernel on packed, checked operands (counts one
-    launch)."""
+    launch). Every launch charges the bytes of its operands and outputs
+    to the active counters (``_build.count_launch``; no matrix-class
+    FLOPs: the window's steps are scalar recurrences); on ``meta`` the
+    charge stands in for the launch."""
+    work = (0.0, _build.tensor_bytes(
+        scal, ints, own, state, uniforms, pscal, pown, acc, acc_own,
+        state_out, pstate_out, pback_out))
+    if uniforms.device.type == "meta":
+        _build.charge(cluster_window, *work)
+        return
     fn = _build.entry("cluster_window_f32")
     n, p = state.shape[0], state.shape[2]
     err = fn(scal.data_ptr(), ints.data_ptr(), own.data_ptr(),
@@ -171,7 +180,7 @@ def launch(scal, ints, own, state, uniforms, pscal, pown, acc, acc_own,
              state_out.data_ptr(), pstate_out.data_ptr(),
              pback_out.data_ptr(), n, p, n_epochs, steps_per_epoch,
              torch.cuda.current_stream(uniforms.device).cuda_stream)
-    _build.count_launch(cluster_window)
+    _build.count_launch(cluster_window, *work)
     _build.check("cluster_window_f32", err)
 
 

@@ -14,7 +14,9 @@ stably sorted by bag, their weights and the bag offsets, built and range
 checked once in numpy (:meth:`BagFormat.from_numpy`) and moved to the
 device in one copy, so a launch reads nothing back from the device.
 :func:`bag_sum` launches the kernel for a CUDA table and takes
-:func:`bag_plain` for a CPU one. The tensor wrapper :func:`embedding_bag`
+:func:`bag_plain` for a CPU one; for a ``meta`` table it returns the
+output's shape and charges the counter (``launch.count``) what a launch
+would do. The tensor wrapper :func:`embedding_bag`
 sorts on the device instead, for callers that hold tensors.
 
 Bound: bytes (one table row read per lookup, one row written per bag).
@@ -140,12 +142,22 @@ def bag_sum(fmt: BagFormat, table) -> torch.Tensor:
     return out
 
 
+def bag_work_bytes(n_lookups: int, n_bags: int, d: int) -> float:
+    """Bytes of one launch, the bound's formula: a table row, an index
+    and a weight read a lookup, the offsets read and a row written a bag.
+    No matrix-class FLOPs: a bag sum is a gather and an elementwise sum
+    (``launch.count`` counts such work in bytes)."""
+    return 4.0 * (n_lookups * (d + 2) + n_bags + 1 + n_bags * d)
+
+
 def bag_launch(fmt: BagFormat, table, out) -> None:
     """Launch the kernel into ``out`` (counts one launch). Checks device,
     dtype, shape and contiguity on the host; reads nothing on the
-    device."""
+    device. Every launch charges :func:`bag_work_bytes` to the active
+    counters (``_build.count_launch``); on ``meta`` the charge stands in
+    for the launch."""
     _check_table(fmt, table)
-    if table.device.type != "cuda":
+    if table.device.type not in ("cuda", "meta"):
         raise ValueError(f"embedding_bag: kernel needs CUDA, got "
                          f"{table.device}")
     if out.dtype != torch.float32 or out.device != table.device \
@@ -158,6 +170,11 @@ def bag_launch(fmt: BagFormat, table, out) -> None:
             raise ValueError(f"embedding_bag: {name} must be contiguous")
     if fmt.n_bags == 0 or table.shape[1] == 0:
         return  # nothing to launch
+    work = (0.0, bag_work_bytes(fmt.idx.shape[0], fmt.n_bags,
+                                table.shape[1]))
+    if table.device.type == "meta":
+        _build.charge(embedding_bag, *work)
+        return
     fn = _build.entry("embedding_bag_f32")
     err = fn(
         fmt.idx.data_ptr(), fmt.w.data_ptr(), fmt.offsets.data_ptr(),
@@ -165,7 +182,7 @@ def bag_launch(fmt: BagFormat, table, out) -> None:
         int(table.shape[1]), int(fmt.idx.shape[0]), int(fmt.max_len),
         torch.cuda.current_stream(table.device).cuda_stream,
     )
-    _build.count_launch(embedding_bag)
+    _build.count_launch(embedding_bag, *work)
     _build.check("embedding_bag_f32", err)
 
 
@@ -204,11 +221,14 @@ def embedding_bag(table, indices, segment_ids, n_bags: int,
     if weights.shape != indices.shape or weights.dtype != table.dtype \
             or weights.device != table.device:
         raise ValueError("embedding_bag: weights must be (L,) like table")
-    if table.device.type not in ("cpu", "cuda"):
+    if table.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"embedding_bag: unsupported device {table.device}")
     idx, w, offsets = sort_bags(indices, segment_ids, n_bags, weights)
     n_rows = max_len = 0
-    if indices.shape[0]:
+    if table.device.type == "meta":
+        # shapes only: nothing to range-check, the longest bag unknown
+        n_rows, max_len = table.shape[0], indices.shape[0]
+    elif indices.shape[0]:
         lo, hi, s_lo, s_hi = torch.stack([
             indices.min(), indices.max(), segment_ids.min(),
             segment_ids.max(),

@@ -7,6 +7,10 @@ replaces ``repro/kernels/flash_attention/kernel.py::flash_attention_kernel``,
 body ``_flash_kernel``) for CUDA tensors, and take
 :func:`flash_attention_plain` only for CPU tensors:
 
+- on the ``meta`` device the wrappers return their outputs' shapes and
+  charge the counter (``launch.count``) the launch's FLOPs and bytes
+  (:func:`fwd_work`, :func:`bwd_work`); they never run the plain version
+  there, which materialises the scores and would count them;
 - :func:`flash_attention_kernel` on ``(BH, S, D)``, as the TPU kernel;
 - :func:`flash_attention` on ``(B, S, H, D)`` with GQA (``Hq = g * Hkv``,
   q head ``h`` reads KV head ``h // g``), as the reference wrapper, but
@@ -235,7 +239,7 @@ def _forward(q, k, v, causal: bool, block_q: int, block_k: int,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, block_q, block_k,
                                      return_lse=with_lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     check_kernel_operands(q, k, v)
     o = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
@@ -333,7 +337,7 @@ def flash_attention_bwd(q, k, v, o, do, causal: bool = True, lse=None):
                          "(B, Sq, Hq) and v's D_v")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, causal, lse=lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
     if lse is None:
@@ -359,12 +363,54 @@ def flash_attention_kernel(q, k, v, causal: bool = True, block_q: int = 128,
     return out[:, :, 0]
 
 
+def causal_pairs(sq: int, sk: int, causal: bool) -> int:
+    """The (query, key) pairs attention computes: all Sq x Sk, or, causal,
+    those with key j <= query i (the kernels skip the tiles above the
+    diagonal and mask within the diagonal's)."""
+    if not causal:
+        return sq * sk
+    if sq <= sk:
+        return sq * (sq + 1) // 2
+    return sk * (sk + 1) // 2 + (sq - sk) * sk
+
+
+def fwd_work(q, k, v, causal: bool, with_lse: bool) -> tuple[float, float]:
+    """(FLOPs, bytes) of one forward launch, the bound's formula: 2 D for
+    q . k and 2 D_v for p . v a (query, key) pair and q head; q, k, v
+    read and o (and ``lse``) written once."""
+    b, sq, hq, d = q.shape
+    dv = v.shape[-1]
+    pairs = causal_pairs(sq, k.shape[1], causal)
+    n_bytes = (q.numel() + k.numel() + v.numel() + b * sq * hq * dv
+               ) * q.element_size() + (4 * b * hq * sq if with_lse else 0)
+    return 2.0 * (d + dv) * b * hq * pairs, float(n_bytes)
+
+
+def bwd_work(q, k, v, causal: bool) -> tuple[float, float]:
+    """(FLOPs, bytes) of one backward launch, the bound's formula: 2 (3 D
+    + 2 D_v) a (query, key) pair and q head (S recomputed, dP, dQ, dK,
+    dV); q, k, v, o, dO and ``lse`` read, dQ, dK and dV written once."""
+    b, sq, hq, d = q.shape
+    dv = v.shape[-1]
+    pairs = causal_pairs(sq, k.shape[1], causal)
+    es = q.element_size()
+    n_bytes = (2 * (q.numel() + k.numel() + v.numel())
+               + 2 * b * sq * hq * dv) * es + 4 * b * hq * sq
+    return 2.0 * (3 * d + 2 * dv) * b * hq * pairs, float(n_bytes)
+
+
 def launch(q, k, v, o, causal: bool, lse=None) -> None:
     """Launch the kernel on checked (B, S, H, D) operands (counts one
     launch); with ``lse``, a float32 (B, Hq, Sq) tensor, the same launch
-    also writes each row's log-sum-exp there."""
-    fn = _build.entry("flash_attention_fwd")
+    also writes each row's log-sum-exp there. Every launch charges
+    :func:`fwd_work` to the active counters (``_build.count_launch``); on
+    ``meta`` the charge stands in for the launch."""
     b, sq, hq, d = q.shape
+    work = (*fwd_work(q, k, v, causal, lse is not None), q.dtype)
+    if q.device.type == "meta":
+        _build.charge(flash_attention, *work)
+        return
+    fn = _build.entry("flash_attention_fwd")
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
@@ -372,7 +418,7 @@ def launch(q, k, v, o, causal: bool, lse=None) -> None:
         *bsh_strides(q), *bsh_strides(k), *bsh_strides(v), *bsh_strides(o),
         int(causal), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.count_launch(flash_attention)
+    _build.count_launch(flash_attention, *work)
     _build.check("flash_attention_fwd", err)
 
 
@@ -432,12 +478,19 @@ def dkdv_split(q, k) -> int:
     launch's critical path; parts run in CTAs of their own, and
     ``bwd_reduce_kernel`` sums their float32 dK and dV in part order.
     Parts double while the grid holds fewer than ``DKDV_CTAS_PER_SM``
-    CTAs an SM."""
+    CTAs an SM. On ``meta`` the SMs are those of the card the active
+    counter prices (``_build.counter_sms``); with none, 1 part."""
     if q.dtype != torch.bfloat16:
         return 1
     g = q.shape[2] // k.shape[2]
     n_ctas = q.shape[0] * k.shape[2] * -(-k.shape[1] // BWD_TILE)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    if q.device.type == "meta":
+        sms = _build.counter_sms()
+        if sms is None:
+            return 1
+    else:
+        sms = torch.cuda.get_device_properties(
+            q.device).multi_processor_count
     split = 1
     while (g % (2 * split) == 0
            and n_ctas * split < DKDV_CTAS_PER_SM * sms):
@@ -450,9 +503,11 @@ def launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal: bool) -> None:
     dK/dV, the parts' sum where :func:`dkdv_split` cuts the heads, dQ)
     on (B, S, H, D) operands and the forward's ``lse``, counting one
     launch, after :func:`check_bwd_operands` and a check that they lie
-    on a CUDA device."""
+    on a CUDA device. Every launch charges :func:`bwd_work` to the active
+    counters (``_build.count_launch``); on ``meta`` the charge stands in
+    for the launch (and the scratch is allocated as on the card)."""
     check_bwd_operands(q, k, v, o, do, lse, dq, dk, dv)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError("flash_attention_bwd: the kernel takes float32 or "
                          "bfloat16 CUDA tensors")
     b, sq, hq, d = q.shape
@@ -464,6 +519,10 @@ def launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal: bool) -> None:
                         dtype=torch.float32, device=q.device)
             if split > 1 else None)
     tensors = (q, k, v, o, do, dq, dk, dv)
+    work = (*bwd_work(q, k, v, causal), q.dtype)
+    if q.device.type == "meta":
+        _build.charge(flash_attention_bwd, *work)
+        return
     fn = _build.entry("flash_attention_bwd")
     strides = [st for t in tensors for st in bsh_strides(t)]
     err = fn(
@@ -472,7 +531,7 @@ def launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal: bool) -> None:
         d_v, b, sq, sk, hq, hkv, split, *strides, int(causal),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.count_launch(flash_attention_bwd)
+    _build.count_launch(flash_attention_bwd, *work)
     _build.check("flash_attention_bwd", err)
 
 

@@ -160,7 +160,7 @@ def queue_window(cfg, params, sc, vol: Volumes, fabric: FabricState,
     if uniforms.device.type == "cpu":
         return queue_window_plain(cfg, params, sc, vol, fabric, uniforms,
                                   window, eff_window, step_pos)
-    if uniforms.device.type != "cuda":
+    if uniforms.device.type not in ("cuda", "meta"):
         raise ValueError(f"queue_window: unsupported device "
                          f"{uniforms.device}")
     check_kernel_operands(uniforms)
@@ -188,7 +188,15 @@ def unpack(acc, acc_own, state_out):
 def launch(scal, ints, own, state, uniforms, acc, acc_own, state_out,
            n_epochs: int, steps_per_epoch: int) -> None:
     """Launch the kernel on packed, checked operands (counts one
-    launch)."""
+    launch). Every launch charges the bytes of its operands and outputs
+    to the active counters (``_build.count_launch``; no matrix-class
+    FLOPs: the window's steps are scalar recurrences); on ``meta`` the
+    charge stands in for the launch."""
+    work = (0.0, _build.tensor_bytes(
+        scal, ints, own, state, uniforms, acc, acc_own, state_out))
+    if uniforms.device.type == "meta":
+        _build.charge(queue_window, *work)
+        return
     fn = _build.entry("queue_window_f32")
     n, p = state.shape[0], state.shape[2]
     err = fn(scal.data_ptr(), ints.data_ptr(), own.data_ptr(),
@@ -196,7 +204,7 @@ def launch(scal, ints, own, state, uniforms, acc, acc_own, state_out,
              acc_own.data_ptr(), state_out.data_ptr(), n, p, n_epochs,
              steps_per_epoch,
              torch.cuda.current_stream(uniforms.device).cuda_stream)
-    _build.count_launch(queue_window)
+    _build.count_launch(queue_window, *work)
     _build.check("queue_window_f32", err)
 
 

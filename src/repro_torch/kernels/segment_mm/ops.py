@@ -25,7 +25,9 @@ Port of ``repro/kernels/segment_mm/ops.py``. ``A`` is the padded adjacency
   against them. No kernel of the port takes them.
 
 The wrapper launches its kernel for CUDA tensors and takes its plain
-PyTorch version (``csr_spmm_plain``) only for CPU tensors.
+PyTorch version (``csr_spmm_plain``) only for CPU tensors. On the
+``meta`` device it returns Y's shape and charges the counter
+(``launch.count``) what a launch would do, and launches nothing.
 """
 from __future__ import annotations
 
@@ -320,7 +322,7 @@ def csr_spmm(fmt: CsrFormat, x) -> torch.Tensor:
     _check_csr_operands(fmt, x)
     if x.device.type == "cpu":
         return csr_spmm_plain(fmt.rowptr, fmt.col, fmt.val, x)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"csr_spmm: unsupported device {x.device}")
     check_kernel_operands(fmt, x)
     f = x.shape[1]
@@ -330,15 +332,31 @@ def csr_spmm(fmt: CsrFormat, x) -> torch.Tensor:
     return y[:, :f]
 
 
+def csr_work(fmt: CsrFormat, x_rows: int, f: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch, the bound's formula: a multiply and
+    an add an entry and a column; the row pointers, the entries (8 B
+    each), X's rows and Y's rows read or written once."""
+    nnz = fmt.col.shape[0]
+    return (2.0 * nnz * f,
+            4.0 * (fmt.n_rows + 1) + 8.0 * nnz + 4.0 * f * (x_rows
+                                                           + fmt.n_rows))
+
+
 def csr_launch(fmt: CsrFormat, x, y) -> None:
     """Launch the CSR kernel on checked operands (counts one launch): the
     float4 instance when both X's and Y's rows take it, else the scalar
-    one."""
+    one. Every launch charges :func:`csr_work` to the active counters
+    (``_build.count_launch``); on ``meta`` the charge stands in for the
+    launch."""
     f = x.shape[1]
     if tuple(y.shape) != (fmt.n_rows, f) or not _unit_columns(y, f):
         raise ValueError("csr_spmm: y must be (n_rows, F) rows at unit "
                          "column stride")
     vec = _rows_ok(x, f) and _rows_ok(y, f)
+    work = csr_work(fmt, x.shape[0], f)
+    if x.device.type == "meta":
+        _build.charge(csr_spmm, *work)
+        return
     fn = _build.entry("csr_spmm_f32")
     err = fn(
         fmt.rowptr.data_ptr(), fmt.col.data_ptr(), fmt.val.data_ptr(),
@@ -346,7 +364,7 @@ def csr_launch(fmt: CsrFormat, x, y) -> None:
         _ld(x, f), _ld(y, f), int(vec),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.count_launch(csr_spmm)
+    _build.count_launch(csr_spmm, *work)
     _build.check("csr_spmm_f32", err)
 
 

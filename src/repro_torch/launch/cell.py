@@ -1,11 +1,16 @@
-"""Cell builders for the GNN zoo and FM on one device.
+"""Cell builders: (architecture x input shape) -> one step on one device.
 
-Port of the GNN and FM part of ``repro/launch/cell.py``, with no mesh and
-no sharding: ``build_gnn_cell`` and ``build_fm_cell`` return the
-reference's step (the loss, its gradients, the reference's AdamW, clipping
-where it clips) and, where the reference has abstract stand-ins, real
+Port of ``repro/launch/cell.py`` without a device mesh: ``build_cell``
+dispatches to ``build_lm_cell`` (``train``: the loss and gradients of
+``cfg.grad_accum`` microbatches and the reference's AdamW, through
+``launch.train.make_train_step``; ``prefill``; ``decode``, one token
+against a cache of the shape's length), ``build_gnn_cell`` (PNA,
+GatedGCN and GraphSAGE node classification, NequIP and MACE energies)
+and ``build_fm_cell`` (FM train, serve, retrieval). Each returns the
+reference's step and, where the reference has abstract stand-ins, real
 inputs drawn from ``seed``:
 
+  * LM tokens and targets uniform over the vocabulary;
   * graph shapes: ``graph.synthetic.power_law_graph`` at the shape's nodes
     and features (positions for NequIP and MACE, whose species are drawn
     uniform), its edges padded to the cell's count with masked edges;
@@ -15,11 +20,20 @@ inputs drawn from ``seed``:
   * FM: ids uniform over each field's vocabulary, 0/1 labels, candidate
     rows uniform over the table.
 
+On ``device="meta"`` nothing is drawn or allocated: the parameters, the
+optimizer state and the inputs are empty meta tensors of the cell's
+shapes and dtypes (``ogb_products``' 61.9M edges cost nothing), the
+step runs shapes only, and the kernel wrappers charge the counter
+(``launch.count``). That is the port's dry-run (``launch.dryrun``).
+
 The returned dict holds ``step_fn``, its ``args`` (parameters, optimizer
-state and inputs, on ``device``), ``cfg``, ``kind`` and ``meta``; a train
-cell also holds ``loss_fn(params, *inputs)``. ``device`` defaults to the
-card and raises without one. The LM cell and the FLOP counting are not
-ported yet.
+state and inputs, on ``device``), ``arg_axes`` (each argument's logical
+axes, a tree of tuples beside ``args``: what ``distributed.sharding``
+turns into per-device sizes under a mesh's rules, :func:`cell_rules`),
+``cfg``, ``kind`` and ``meta``; a GNN or FM train cell also holds
+``loss_fn(params, *inputs)``. ``device`` defaults to the card and raises
+without one. Node and candidate counts are not padded to a mesh's device
+count, as the reference pads them; edges are padded to 512.
 """
 from __future__ import annotations
 
@@ -30,10 +44,11 @@ import torch
 
 from repro_torch import optim
 from repro_torch.configs.registry import ArchDef
-from repro_torch.configs.shapes import FM_SHAPES, GNN_SHAPES
+from repro_torch.configs.shapes import FM_SHAPES, GNN_SHAPES, LM_SHAPES
 from repro_torch.device import resolve
+from repro_torch.distributed import sharding as shlib
 from repro_torch.graph import synthetic
-from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
+from repro_torch.optim.optimizers import OptState, tree_leaves, tree_unflatten
 
 GEOMETRIC = ("nequip", "mace")
 EDGE_PAD = 512                 # edges padded to a multiple of this
@@ -44,6 +59,105 @@ MOLECULE_SPECIES = 32          # the molecule shape's species (full configs')
 
 def _pad_to(n: int, mult: int) -> int:
     return -(-n // mult) * mult
+
+
+def cell_rules(arch: ArchDef, shape_name: str, mesh) -> dict:
+    """The reference's rules of a cell under ``mesh``: the default rules
+    (single- or multi-pod), ``cache_seq`` replicated unless the arch says
+    otherwise, the arch's overrides; at ``long_500k`` (batch 1) the batch
+    is not sharded and the half-million-token cache is spread over the
+    data axes (and the model axis where attention heads leave it)."""
+    multi = "pod" in mesh.axis_names
+    rules = shlib.default_rules(multi)
+    rules.setdefault("cache_seq", None)
+    rules.update(arch.rule_overrides)
+    if shape_name == "long_500k":
+        rules["batch"] = None
+        base = rules.get("cache_seq")
+        extra = ("pod", "data") if multi else ("data",)
+        rules["cache_seq"] = extra + ((base,) if isinstance(base, str)
+                                      else ())
+    return rules
+
+
+def _device(device) -> torch.device:
+    """``resolve``'s device, or ``meta`` (shapes only)."""
+    if torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve(device)
+
+
+def _opt_axes(axes):
+    """The logical axes of an ``OptState`` over parameters with
+    ``axes``: the step is a host int, the moments are the parameters'."""
+    return OptState(step=None, mu=axes, nu=axes)
+
+
+def _inputs_on(specs: dict, arrays, dev) -> list:
+    """The cell's inputs on ``dev``: the numpy ``arrays`` copied, or on
+    ``meta`` empty tensors of the ``specs``' shapes and dtypes."""
+    if dev.type == "meta":
+        return [torch.empty(shape, dtype=dtype, device=dev)
+                for shape, dtype, _ in specs.values()]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in arrays().values()]
+
+
+# ===================================================================== LM
+def build_lm_cell(arch: ArchDef, shape_name: str, device="cuda",
+                  seed: int = 0) -> dict:
+    """The reference's LM cell at ``arch``'s config: ``train`` (the
+    ``make_train_step`` of ``cfg.grad_accum`` microbatches under
+    ``adamw(warmup_cosine_schedule(3e-4, 2000, 100_000), weight_decay=0.1,
+    max_grad_norm=1.0)``), ``prefill`` (last-position logits) or
+    ``decode`` (one token (B, 1) against a bf16 cache of the shape's
+    length, written at its last slot)."""
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.lm import transformer as tf
+
+    dev = _device(device)
+    cfg = arch.make_config()
+    shape = LM_SHAPES[shape_name]
+    b, s = shape.global_batch, shape.seq_len
+    params, axes = tf.init(cfg, seed=seed, device=dev, with_axes=True)
+    tok_axes = ("batch", "seq")
+    gen = torch.Generator().manual_seed(seed + 1)
+
+    def tokens(rows: int, cols: int):
+        if dev.type == "meta":
+            return torch.empty((rows, cols), dtype=torch.int64, device=dev)
+        return torch.randint(0, cfg.vocab, (rows, cols),
+                             generator=gen).to(dev)
+
+    cell = {"cfg": cfg, "meta": {"batch": b, "seq_len": s}}
+    if shape.kind == "train":
+        opt = optim.adamw(optim.warmup_cosine_schedule(3e-4, 2000, 100_000),
+                          weight_decay=0.1, max_grad_norm=1.0)
+        accum = max(cfg.grad_accum, 1)
+        cell["meta"]["grad_accum"] = accum
+        return {**cell, "step_fn": make_train_step(cfg, opt, accum),
+                "kind": "train_step",
+                "args": (params, opt.init(params), tokens(b, s),
+                         tokens(b, s)),
+                "arg_axes": (axes, _opt_axes(axes), tok_axes, tok_axes)}
+    if shape.kind == "prefill":
+        def step_fn(p, toks):
+            return tf.prefill(p, cfg, toks)
+
+        return {**cell, "step_fn": step_fn, "kind": "serve_step",
+                "args": (params, tokens(b, s)),
+                "arg_axes": (axes, tok_axes)}
+    cache = tf.init_cache(cfg, b, s, dtype=torch.bfloat16, device=dev)
+
+    def step_fn(p, token, cache, cache_len):
+        return tf.decode_step(p, cfg, token, cache, cache_len)
+
+    return {**cell, "step_fn": step_fn, "kind": "serve_step",
+            "args": (params, tokens(b, 1), cache, s - 1),
+            "arg_axes": (axes, tok_axes, tf.cache_specs(cfg), None)}
+
+
+# ===================================================================== GNN
 
 
 def _gnn_graph_arrays(arch: ArchDef, shape) -> tuple[int, int, int, int]:
@@ -81,6 +195,28 @@ def _pad_edges(edge_index: np.ndarray, n_edges: int
     mask = np.zeros(n_edges, bool)
     mask[:e] = True
     return ei, mask
+
+
+def gnn_input_specs(arch: ArchDef, shape_name: str, cfg) -> dict:
+    """name -> (shape, dtype, logical axes) of the cell's inputs, in
+    :func:`gnn_inputs`' order, with the reference's axes."""
+    shape = GNN_SHAPES[shape_name]
+    n, e, d_feat, _ = _gnn_graph_arrays(arch, shape)
+    i64, f32 = torch.int64, torch.float32
+    edges = {"edge_index": ((2, e), i64, (None, "edges")),
+             "edge_mask": ((e,), torch.bool, ("edges",))}
+    if arch.arch_id in GEOMETRIC:
+        n_graphs = shape.batch_graphs if shape.kind == "molecule" else 1
+        return {"species": ((n,), i64, ("nodes",)),
+                "positions": ((n, 3), f32, ("nodes", None)),
+                **edges,
+                "graph_id": ((n,), i64, ("nodes",)),
+                # a single graph's energy cannot be sharded
+                "targets": ((n_graphs,), f32,
+                            ("graph_batch",) if n_graphs > 1 else (None,))}
+    return {"x": ((n, d_feat), f32, ("nodes", None)), **edges,
+            "labels": ((n,), i64, ("nodes",)),
+            "label_mask": ((n,), f32, ("nodes",))}
 
 
 def gnn_inputs(arch: ArchDef, shape_name: str, cfg, seed: int = 0) -> dict:
@@ -158,22 +294,33 @@ def _train_step(loss_fn, opt):
 
 
 def _model(arch_id: str):
-    from repro_torch.models.gnn import gatedgcn, mace, nequip, pna
+    from repro_torch.models.gnn import gatedgcn, mace, nequip, pna, sage
 
     return {"pna": pna, "gatedgcn": gatedgcn, "nequip": nequip,
-            "mace": mace}[arch_id]
+            "mace": mace, "greendygnn-sage": sage}[arch_id]
+
+
+def _init(model, cfg, seed: int, dev) -> tuple[dict, dict]:
+    """``(params, axes)`` of a GNN model on ``dev``. GraphSAGE's ``init``
+    is the trainer's (a CPU generator, no axes): its axes are
+    ``sage.param_axes``."""
+    if model.__name__.endswith(".sage"):
+        return (model.init(cfg, torch.Generator().manual_seed(seed),
+                           device=dev), model.param_axes(cfg))
+    return model.init(cfg, seed=seed, device=dev)
 
 
 def build_gnn_cell(arch: ArchDef, shape_name: str, device="cuda",
                    seed: int = 0) -> dict:
     """The reference's GNN train step at ``arch``'s config: node
-    classification with cross-entropy (PNA, GatedGCN) or per-graph
-    energies with MSE (NequIP, MACE), ``adamw(3e-3, max_grad_norm=1.0)``;
-    parameters drawn from ``seed`` and the inputs of :func:`gnn_inputs`
-    on ``device``."""
+    classification with cross-entropy (PNA, GatedGCN, GraphSAGE through
+    ``sage.apply_full``) or per-graph energies with MSE (NequIP, MACE),
+    ``adamw(3e-3, max_grad_norm=1.0)``; parameters drawn from ``seed``
+    and the inputs of :func:`gnn_inputs` on ``device`` (on ``meta``,
+    empty tensors of :func:`gnn_input_specs`)."""
     from repro_torch.models.gnn import common
 
-    dev = resolve(device)
+    dev = _device(device)
     shape = GNN_SHAPES[shape_name]
     n_nodes, n_edges, d_feat, edge_chunk = _gnn_graph_arrays(arch, shape)
     model = _model(arch.arch_id)
@@ -189,25 +336,43 @@ def build_gnn_cell(arch: ArchDef, shape_name: str, device="cuda",
             return torch.mean((e - targets) ** 2)
     else:
         cfg = arch.make_config(d_in=d_feat)
-        if arch.arch_id == "pna":
-            def apply_fn(p, x, ei, em):
-                return model.apply_full(p, cfg, x, ei, em)
-        else:
+        if arch.arch_id == "gatedgcn":
             def apply_fn(p, x, ei, em):
                 return model.apply_full(p, cfg, x, ei, edge_mask=em)
+        else:       # pna, greendygnn-sage
+            def apply_fn(p, x, ei, em):
+                return model.apply_full(p, cfg, x, ei, em)
 
         def loss_fn(p, x, edge_index, edge_mask, labels, label_mask):
             logits = apply_fn(p, x, edge_index, edge_mask)
             return common.cross_entropy(logits, labels, label_mask)
 
-    params, _ = model.init(cfg, seed=seed, device=dev)
-    inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-              for a in gnn_inputs(arch, shape_name, cfg, seed).values()]
+    params, axes = _init(model, cfg, seed, dev)
+    specs = gnn_input_specs(arch, shape_name, cfg)
+    inputs = _inputs_on(specs, lambda: gnn_inputs(arch, shape_name, cfg,
+                                                  seed), dev)
     return {"step_fn": _train_step(loss_fn, opt), "loss_fn": loss_fn,
             "args": (params, opt.init(params), *inputs), "cfg": cfg,
+            "arg_axes": (axes, _opt_axes(axes),
+                         *(a for _, _, a in specs.values())),
             "kind": "train_step",
             "meta": {"n_nodes": n_nodes, "n_edges": n_edges,
                      "edge_chunk": edge_chunk}}
+
+
+def fm_input_specs(cfg, shape_name: str) -> dict:
+    """name -> (shape, dtype, logical axes) of the cell's inputs, in
+    :func:`fm_inputs`' order, with the reference's axes."""
+    shape = FM_SHAPES[shape_name]
+    i64 = torch.int64
+    if shape.kind == "retrieval":
+        return {"query_ids": ((cfg.n_fields - 1,), i64, (None,)),
+                "candidate_rows": ((shape.n_candidates,), i64,
+                                   ("candidates",))}
+    ids = {"ids": ((shape.batch, cfg.n_fields), i64, ("batch", None))}
+    if shape.kind == "serve":
+        return ids
+    return {**ids, "labels": ((shape.batch,), torch.float32, ("batch",))}
 
 
 def fm_inputs(cfg, shape_name: str, seed: int = 0) -> dict:
@@ -236,16 +401,18 @@ def build_fm_cell(arch: ArchDef, shape_name: str, device="cuda",
     (``adamw(1e-3)`` on ``bce_loss``), a serve step (``scores``) or a
     retrieval step (``retrieval_scores`` of one query against the
     candidates); parameters drawn from ``seed`` and the inputs of
-    :func:`fm_inputs` on ``device``."""
+    :func:`fm_inputs` on ``device`` (on ``meta``, empty tensors of
+    :func:`fm_input_specs`)."""
     from repro_torch.models.recsys import fm as model
 
-    dev = resolve(device)
+    dev = _device(device)
     cfg = arch.make_config()
     shape = FM_SHAPES[shape_name]
-    params, _ = model.init(cfg, seed=seed, device=dev)
+    params, axes = model.init(cfg, seed=seed, device=dev)
     offsets = torch.from_numpy(model.offsets(cfg)).to(dev)
-    inputs = [torch.from_numpy(a).to(dev)
-              for a in fm_inputs(cfg, shape_name, seed).values()]
+    specs = fm_input_specs(cfg, shape_name)
+    inputs = _inputs_on(specs, lambda: fm_inputs(cfg, shape_name, seed), dev)
+    in_axes = tuple(a for _, _, a in specs.values())
     cell = {"cfg": cfg, "meta": {"total_rows": cfg.total_rows}}
     if shape.kind == "train":
         opt = optim.adamw(1e-3)
@@ -255,7 +422,8 @@ def build_fm_cell(arch: ArchDef, shape_name: str, device="cuda",
 
         return {**cell, "step_fn": _train_step(loss_fn, opt),
                 "loss_fn": loss_fn, "kind": "train_step",
-                "args": (params, opt.init(params), *inputs)}
+                "args": (params, opt.init(params), *inputs),
+                "arg_axes": (axes, _opt_axes(axes), *in_axes)}
     if shape.kind == "serve":
         def step_fn(p, ids):
             return model.scores(p, cfg, ids, offsets)
@@ -265,5 +433,17 @@ def build_fm_cell(arch: ArchDef, shape_name: str, device="cuda",
                                           candidate_rows)
         cell["meta"]["n_candidates"] = shape.n_candidates
     return {**cell, "step_fn": step_fn, "kind": "serve_step",
-            "args": (params, *inputs)}
+            "args": (params, *inputs), "arg_axes": (axes, *in_axes)}
+
+
+def build_cell(arch: ArchDef, shape_name: str, device="cuda",
+               seed: int = 0) -> dict:
+    """The cell of ``arch`` at ``shape_name``, by the arch's family."""
+    if arch.family == "lm":
+        return build_lm_cell(arch, shape_name, device, seed)
+    if arch.family == "gnn":
+        return build_gnn_cell(arch, shape_name, device, seed)
+    if arch.family == "recsys":
+        return build_fm_cell(arch, shape_name, device, seed)
+    raise ValueError(arch.family)
 

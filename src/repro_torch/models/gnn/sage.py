@@ -45,6 +45,15 @@ def init(cfg: SageConfig, generator: torch.Generator,
     return params
 
 
+def param_axes(cfg: SageConfig) -> dict:
+    """The logical axes of every leaf, as the reference's ``init(...,
+    abstract=True)`` records them."""
+    return {f"layer_{i}": {"w_self": ("gnn_in", "gnn_hidden"),
+                           "w_neigh": ("gnn_in", "gnn_hidden"),
+                           "b": ("gnn_hidden",)}
+            for i in range(cfg.n_layers)}
+
+
 def _sage_layer(lp, h_src, h_dst_self, edge_src, edge_dst, n_dst, edge_mask):
     agg = common.scatter_mean(h_src[edge_src.long()], edge_dst, n_dst,
                               edge_mask)

@@ -2,8 +2,10 @@
 DeepSeekMoE layers, for training and serving.
 
 Port of ``repro/models/lm/transformer.py``: ``LMConfig`` (same fields and
-defaults), ``init``, ``forward`` (with its ``mode``), ``logits_of``,
-``lm_loss``, ``init_cache``, ``prefill`` and ``decode_step``. Sequences of
+defaults), ``init`` (with the leaves' logical axes, ``param_axes``, and
+on the ``meta`` device shapes only), ``forward`` (with its ``mode``),
+``logits_of``, ``lm_loss``, ``init_cache``, ``cache_specs``, ``prefill``
+and ``decode_step``. Sequences of
 ``S >= blockwise_threshold`` run attention through the flash-attention
 kernel (``attention.blockwise_attention``), whose gradient is the
 backward kernel; shorter ones through the plain dense path; decode steps
@@ -107,95 +109,135 @@ def _check_supported(cfg: LMConfig) -> None:
 
 # --------------------------------------------------------------------- init
 def _attention_shapes(cfg: LMConfig) -> dict:
-    """name -> (per-layer shape, init) of the attention's parameters, in
-    the reference's ``_init_attention`` order."""
+    """name -> (per-layer shape, init, logical axes) of the attention's
+    parameters, in the reference's ``_init_attention`` order and with its
+    axes."""
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     if cfg.attn_type == "gqa":
         shapes = {
-            "wq": ((d, h, dh), "normal"),
-            "wk": ((d, hkv, dh), "normal"),
-            "wv": ((d, hkv, dh), "normal"),
-            "wo": ((h, dh, d), "normal"),
+            "wq": ((d, h, dh), "normal", ("embed_rows", "heads", "head_dim")),
+            "wk": ((d, hkv, dh), "normal",
+                   ("embed_rows", "kv_heads", "head_dim")),
+            "wv": ((d, hkv, dh), "normal",
+                   ("embed_rows", "kv_heads", "head_dim")),
+            "wo": ((h, dh, d), "normal", ("heads", "head_dim", "embed_rows")),
         }
         if cfg.qk_norm:
-            shapes["q_norm"] = ((dh,), "ones")
-            shapes["k_norm"] = ((dh,), "ones")
+            shapes["q_norm"] = ((dh,), "ones", ("head_dim",))
+            shapes["k_norm"] = ((dh,), "ones", ("head_dim",))
         return shapes
     d_qk = cfg.d_nope + cfg.d_rope
     if cfg.q_lora > 0:
         shapes = {
-            "w_dq": ((d, cfg.q_lora), "normal"),
-            "q_norm": ((cfg.q_lora,), "ones"),
-            "w_uq": ((cfg.q_lora, h, d_qk), "normal"),
+            "w_dq": ((d, cfg.q_lora), "normal", ("embed_rows", "q_lora")),
+            "q_norm": ((cfg.q_lora,), "ones", ("q_lora",)),
+            "w_uq": ((cfg.q_lora, h, d_qk), "normal",
+                     ("q_lora", "heads", "head_dim")),
         }
     else:
-        shapes = {"w_q": ((d, h, d_qk), "normal")}
+        shapes = {"w_q": ((d, h, d_qk), "normal",
+                          ("embed_rows", "heads", "head_dim"))}
     shapes.update({
-        "w_dkv": ((d, cfg.kv_lora), "normal"),
-        "kv_norm": ((cfg.kv_lora,), "ones"),
-        "w_uk": ((cfg.kv_lora, h, cfg.d_nope), "normal"),
-        "w_uv": ((cfg.kv_lora, h, cfg.d_v), "normal"),
-        "w_kr": ((d, cfg.d_rope), "normal"),
-        "wo": ((h, cfg.d_v, d), "normal"),
+        "w_dkv": ((d, cfg.kv_lora), "normal", ("embed_rows", "kv_lora")),
+        "kv_norm": ((cfg.kv_lora,), "ones", ("kv_lora",)),
+        "w_uk": ((cfg.kv_lora, h, cfg.d_nope), "normal",
+                 ("kv_lora", "heads", "head_dim")),
+        "w_uv": ((cfg.kv_lora, h, cfg.d_v), "normal",
+                 ("kv_lora", "heads", "head_dim")),
+        "w_kr": ((d, cfg.d_rope), "normal", ("embed_rows", "head_dim")),
+        "wo": ((h, cfg.d_v, d), "normal", ("heads", "head_dim", "embed_rows")),
     })
     return shapes
 
 
 def _layer_shapes(cfg: LMConfig, use_moe: bool) -> dict:
-    """name -> (per-layer shape, init), in ``_init_layer``'s order: a
-    dense SwiGLU layer at ``d_ff``, or (``use_moe``) the router, the
-    expert stacks and the shared experts. The expert stacks' fan-in is
-    their first dim, E, as the reference's ``ParamBuilder`` takes it."""
+    """name -> (per-layer shape, init, logical axes), in
+    ``_init_layer``'s order: a dense SwiGLU layer at ``d_ff``, or
+    (``use_moe``) the router, the expert stacks and the shared experts.
+    The expert stacks' fan-in is their first dim, E, as the reference's
+    ``ParamBuilder`` takes it."""
     d = cfg.d_model
     shapes = {
-        "ln_attn": ((d,), "ones"),
-        "ln_ffn": ((d,), "ones"),
+        "ln_attn": ((d,), "ones", ("embed",)),
+        "ln_ffn": ((d,), "ones", ("embed",)),
         **_attention_shapes(cfg),
     }
     if use_moe:
         e, f = cfg.n_experts, cfg.d_ff_expert
-        shapes["router"] = ((d, e), "normal")
-        shapes["w_gate"] = ((e, d, f), "normal")
-        shapes["w_up"] = ((e, d, f), "normal")
-        shapes["w_down"] = ((e, f, d), "normal")
+        shapes["router"] = ((d, e), "normal", ("embed", "experts"))
+        shapes["w_gate"] = ((e, d, f), "normal",
+                            ("experts", "embed_rows", "mlp"))
+        shapes["w_up"] = ((e, d, f), "normal",
+                          ("experts", "embed_rows", "mlp"))
+        shapes["w_down"] = ((e, f, d), "normal",
+                            ("experts", "mlp", "embed_rows"))
         if cfg.n_shared > 0:
             d_sh = cfg.n_shared * f
-            shapes["ws_gate"] = ((d, d_sh), "normal")
-            shapes["ws_up"] = ((d, d_sh), "normal")
-            shapes["ws_down"] = ((d_sh, d), "normal")
+            shapes["ws_gate"] = ((d, d_sh), "normal", ("embed_rows", "mlp"))
+            shapes["ws_up"] = ((d, d_sh), "normal", ("embed_rows", "mlp"))
+            shapes["ws_down"] = ((d_sh, d), "normal", ("mlp", "embed_rows"))
         return shapes
-    shapes["w_gate"] = ((d, cfg.d_ff), "normal")
-    shapes["w_up"] = ((d, cfg.d_ff), "normal")
-    shapes["w_down"] = ((cfg.d_ff, d), "normal")
+    shapes["w_gate"] = ((d, cfg.d_ff), "normal", ("embed_rows", "mlp"))
+    shapes["w_up"] = ((d, cfg.d_ff), "normal", ("embed_rows", "mlp"))
+    shapes["w_down"] = ((cfg.d_ff, d), "normal", ("mlp", "embed_rows"))
     return shapes
 
 
-def init(cfg: LMConfig, seed: int = 0, device="cuda") -> dict:
+def param_axes(cfg: LMConfig) -> dict:
+    """The logical axes of every leaf, as the reference's ``init(key,
+    cfg, abstract=True)`` returns them: the stacked layers' leaves carry
+    ``vmap_init``'s leading ``"layers"`` axis."""
+    _check_supported(cfg)
+    axes = {"embed": ("vocab", "embed_rows"),
+            "lm_head": ("embed_rows", "vocab"),
+            "final_norm": ("embed",)}
+    for i in range(cfg.first_k_dense):
+        axes[f"dense_layer_{i}"] = {
+            name: a for name, (_, _, a) in _layer_shapes(cfg, False).items()}
+    if cfg.n_scan_layers > 0:
+        axes["layers"] = {
+            name: ("layers",) + a
+            for name, (_, _, a) in _layer_shapes(cfg, cfg.moe).items()}
+    return axes
+
+
+def init(cfg: LMConfig, seed: int = 0, device="cuda",
+         with_axes: bool = False):
     """Parameters in the reference's layout, drawn on ``device`` from a
     generator seeded with ``seed`` (the reference's values cannot be drawn
-    in torch; carry them across with ``convert.lm_params_from_jax``)."""
+    in torch; carry them across with ``convert.lm_params_from_jax``). On
+    ``"meta"`` nothing is drawn or allocated: the leaves carry their
+    shapes and dtypes only. With ``with_axes``, returns ``(params,
+    param_axes(cfg))``, as the reference's ``init`` returns its pair."""
     _check_supported(cfg)
-    dev = resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    meta = torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve(device)
+    gen = None if meta else torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.torch_dtype()
+
+    def leaf(shape, how, layers=0):
+        if meta:
+            full = ((layers,) if layers else ()) + tuple(shape)
+            return torch.empty(full, dtype=dt, device=dev)
+        return P.param(shape, gen, how, dev, dt, layers=layers)
+
     v, d = cfg.padded_vocab, cfg.d_model
     params = {
-        "embed": P.param((v, d), gen, "embedding", dev, dt),
-        "lm_head": P.param((d, v), gen, "normal", dev, dt),
-        "final_norm": P.param((d,), gen, "ones", dev, dt),
+        "embed": leaf((v, d), "embedding"),
+        "lm_head": leaf((d, v), "normal"),
+        "final_norm": leaf((d,), "ones"),
     }
     for i in range(cfg.first_k_dense):
         params[f"dense_layer_{i}"] = {
-            name: P.param(shape, gen, how, dev, dt)
-            for name, (shape, how) in _layer_shapes(cfg, False).items()
+            name: leaf(shape, how)
+            for name, (shape, how, _) in _layer_shapes(cfg, False).items()
         }
     if cfg.n_scan_layers > 0:
         params["layers"] = {
-            name: P.param(shape, gen, how, dev, dt,
-                          layers=cfg.n_scan_layers)
-            for name, (shape, how) in _layer_shapes(cfg, cfg.moe).items()
+            name: leaf(shape, how, layers=cfg.n_scan_layers)
+            for name, (shape, how, _) in _layer_shapes(cfg, cfg.moe).items()
         }
-    return params
+    return (params, param_axes(cfg)) if with_axes else params
 
 
 # ----------------------------------------------------------------- attention
@@ -378,9 +420,12 @@ def lm_loss(params, cfg: LMConfig, tokens, targets):
 # ------------------------------------------------------------------- serving
 def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> dict:
+    """The KV cache, zeros (on ``"meta"``: shapes only, nothing
+    allocated)."""
     _check_supported(cfg)
     dtype = dtype or cfg.torch_dtype()
-    dev = resolve(device)
+    dev = (torch.device("meta") if torch.device(device).type == "meta"
+           else resolve(device))
     lead = (cfg.n_layers, batch, max_len)
     if cfg.attn_type == "mla":
         return {"c": torch.zeros(lead + (cfg.kv_lora,), dtype=dtype,
@@ -390,6 +435,19 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
     shape = lead + (cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def cache_specs(cfg: LMConfig) -> dict:
+    """Logical axes of the cache's leaves (for sharding specs). The
+    sequence axis has its own logical name, ``"cache_seq"``: an arch whose
+    KV-head count does not divide the model axis shards the cache along
+    it instead (the reference's ``cache_specs``)."""
+    _check_supported(cfg)
+    if cfg.attn_type == "mla":
+        return {"c": ("layers", "batch", "cache_seq", "kv_lora"),
+                "r": ("layers", "batch", "cache_seq", "head_dim")}
+    return {"k": ("layers", "batch", "cache_seq", "kv_heads", "head_dim"),
+            "v": ("layers", "batch", "cache_seq", "kv_heads", "head_dim")}
 
 
 @torch.no_grad()

@@ -5,7 +5,8 @@ Port of the initialisers ``repro/models/param.py::ParamBuilder`` uses:
 ``"zeros"``, ``"ones"`` and ``"embedding"`` (normal(0, 0.02)), and
 ``vmap_init``'s stacked ``"layers"`` layout: ``layers=L`` draws L
 parameters of ``shape`` along a leading axis, each scaled by its own
-(unstacked) fan_in. Abstract mode is dry-run tooling and is not ported.
+(unstacked) fan_in. The reference's abstract mode (``ShapeDtypeStruct``
+leaves for its dry-run) is the ``meta`` device here (below).
 
 Draws come from an explicit ``torch.Generator`` on the generator's own
 device, in float32, and are then scaled, cast and moved to ``device``; a

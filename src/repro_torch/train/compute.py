@@ -28,8 +28,19 @@ every row. The input's rows lie ``d_in`` rounded up to 4 floats apart (a
 view of the first ``d_in`` columns), so that the SpMM kernel reads them as
 float4 at any width (``full_graph_sm``'s 1,433 included); the pad columns
 are never read into a result. The step is timed with CUDA events on the card and
-``time.perf_counter`` on the CPU. On the first step ``check_parity``
-holds the CSR path against the plain scatter path
+``time.perf_counter`` on the CPU. On the card the step is enqueued behind
+a closed :class:`~repro_torch.kernels.step_gate.StepGate` (a kernel that
+holds the stream until the host opens it), which is opened only once the
+end event is enqueued: the events time the step's device work, not a host
+stall while its ~100 launches are enqueued (the reference times one
+compiled executable, in which no Python runs). Nothing inside the step
+may wait on the stream while the gate is closed: a wait stalls until the
+gate's timeout (10 s) and the step then raises. The allocator is the
+hazard no line of the step shows: under memory pressure it frees its
+cached blocks with ``cudaFree``, which synchronizes the device; the
+untimed run of each new shape below caches the step's blocks first,
+which makes that rare but cannot rule it out. On the first step
+``check_parity`` holds the CSR path against the plain scatter path
 (``sage.apply_blocks``), tolerance 2e-3. A step whose shape signature
 (the padded input's shape and each layer's padded sizes, the
 reference's) is new first runs once whole, untimed, on clones of the
@@ -59,6 +70,7 @@ from repro_torch.kernels.segment_mm import (
     to_csr,
     transpose_csr,
 )
+from repro_torch.kernels.step_gate import StepGate
 from repro_torch.models.gnn import common, sage
 from repro_torch.optim import optimizers as optim
 from repro_torch.train import grad_compression as gc
@@ -145,6 +157,7 @@ class ComputeEngine:
         self.compile_s = 0.0
         self.n_compiles = 0
         self.agg_impl = "csr" if self.device.type == "cuda" else "plain"
+        self._gate: StepGate | None = None   # made on the first timed step
 
     def load_params(self, tree: dict) -> None:
         """Replace the parameters with numpy arrays in the reference's
@@ -325,12 +338,22 @@ class ComputeEngine:
             self._warm_up(x_pad, layers)
             self._warmed.add(sig)
         if self.device.type == "cuda":
+            # the step is enqueued behind a closed gate and the gate opened
+            # once its end event is enqueued: the events time device work
+            # only, not a host stall between two of its launches
+            if self._gate is None:
+                self._gate = StepGate(self.device)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            loss = self._step_fn(x_pad, layers)
-            end.record()
+            self._gate.close()
+            try:
+                start.record()
+                loss = self._step_fn(x_pad, layers)
+                end.record()
+            finally:
+                self._gate.open()
             end.synchronize()
+            self._gate.check()
             dt = start.elapsed_time(end) / 1e3
         else:
             t0 = time.perf_counter()

@@ -33,6 +33,7 @@ from repro_torch.kernels.segment_mm.ops import (
     csr_plan,
 )
 from test_torch_kernels import SPMM_CASES, TOL, _graph, _pad_rows
+from _elsewhere import elsewhere
 from _jax_release import release_jax_executables  # noqa: F401
 
 
@@ -237,10 +238,10 @@ class TestWrapper:
             csr_spmm(fmt, torch.zeros((3, 8)))
         with pytest.raises(ValueError):  # operands on two devices
             csr_spmm(fmt, x.to("meta"))
-        meta = CsrFormat(*(t.to("meta") for t in (fmt.rowptr, fmt.col,
-                                                  fmt.val)), 4)
+        other = CsrFormat(*(elsewhere(t) for t in (fmt.rowptr, fmt.col,
+                                                   fmt.val)), 4)
         with pytest.raises(ValueError, match="unsupported device"):
-            csr_spmm(meta, x.to("meta"))
+            csr_spmm(other, elsewhere(x))
 
     def test_kernel_operand_checks(self):
         """What a CUDA launch takes and refuses, checked on CPU tensors:

@@ -31,6 +31,7 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.lm.attention import dense_attention
+from _elsewhere import elsewhere
 from _jax_release import release_jax_executables  # noqa: F401
 
 F32 = dict(atol=2e-5, rtol=1e-4)
@@ -191,7 +192,7 @@ def test_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError):         # (BH, S, D) wrapper: rank
         flash_attention_kernel(q, k, v)
     with pytest.raises(ValueError):         # unsupported device
-        flash_attention(q.to("meta"), k.to("meta"), v.to("meta"),
+        flash_attention(elsewhere(q), elsewhere(k), elsewhere(v),
                         block_q=64, block_k=64)
     # what the CUDA kernel needs beyond that: a compiled D, unit stride
     for d in (8, 16, 48, 256):

@@ -36,6 +36,7 @@ from repro_torch.kernels.segment_mm import (
 )
 from repro_torch.kernels.segment_mm.ref import spmm_ref
 from repro_torch.store import DevicePayloadTier
+from _elsewhere import elsewhere
 from _jax_release import release_jax_executables  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -168,8 +169,8 @@ class TestSegmentMM:
             csr_spmm(fmt, torch.zeros((30, 4)))
         with pytest.raises(ValueError):
             csr_spmm(dataclasses.replace(
-                fmt, **{k: getattr(fmt, k).to("meta")
-                        for k in ("rowptr", "col", "val")}), x.to("meta"))
+                fmt, **{k: elsewhere(getattr(fmt, k))
+                        for k in ("rowptr", "col", "val")}), elsewhere(x))
 
 
 def _csr(src, dst, w, n_rows, n_cols):

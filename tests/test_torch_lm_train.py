@@ -59,6 +59,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch import train as ptrain
 from repro_torch.models.lm import transformer as ptf
 from repro_torch.optim.optimizers import tree_leaves
+from _elsewhere import elsewhere
 from _jax_release import release_jax_executables  # noqa: F401
 
 SCHED = dict(rtol=1e-6, atol=0.0)
@@ -243,7 +244,7 @@ def _lse():
 
 
 def test_bwd_refuses_other_devices_and_checks_kernel_operands():
-    q, k, v, do = (torch.zeros(1, 8, 2, 32, device="meta") for _ in range(4))
+    q, k, v, do = (elsewhere(torch.zeros(1, 8, 2, 32)) for _ in range(4))
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention_bwd(q, k, v, q, do)
     # the launch's checks run before anything is built: CPU tensors and a
