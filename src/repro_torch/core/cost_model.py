@@ -1,10 +1,12 @@
 """GreenDyGNN analytic cost model (paper Eq. 4) for the trainer's host side.
 
-Port of the parts of ``repro/core/cost_model.py`` that the P=1 trainer,
-the event fabric and the baseline policies run: the calibrated parameter
-set, the window action space, the Eq. 4 RPC closed forms, the measured-lane
-compute law, the congestion multiplier and its Eq. 8 inverse, and the
-Eq. 1-3 step laws (``step_time``, ``step_energy``) the oracle minimises.
+Port of ``repro/core/cost_model.py``: the calibrated parameter set, the
+window action space, the Eq. 4 RPC laws (``rpc_time`` and the closed
+forms the trainer, the event fabric and the baseline policies run), the
+measured-lane compute law, the congestion multiplier and its Eq. 8
+inverse, Eq. 3's straggler miss latency, Fig. 1's per-RPC energy split,
+and the Eq. 1-3 step laws (``step_time``, ``step_energy``) the oracle
+minimises.
 
 The reference evaluates these in jnp float32, with Python constants weakly
 typed: an operation between two Python constants happens in float64 first
@@ -132,6 +134,31 @@ def rpc_cpu_s(alpha_rpc, beta, gamma_c, payload_bytes, delta_ms):
     )
 
 
+def rpc_time(params: CostModelParams, n_nodes, delta_ms) -> np.ndarray:
+    """Eq. (4): round trip of one RPC carrying ``n_nodes * F_b`` bytes,
+    ``alpha_rpc + beta * payload + gamma_c * payload * delta`` in
+    float32, in the reference's term order."""
+    payload = np.asarray(n_nodes, _F32) * _F32(params.feature_bytes)
+    return (
+        _F32(params.alpha_rpc)
+        + _F32(params.beta) * payload
+        + _F32(params.gamma_c) * payload * np.asarray(delta_ms, _F32)
+    )
+
+
+def rpc_energy_breakdown(params: CostModelParams, n_nodes
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """Fig. 1: per-RPC energy split into initiation and payload parts,
+    ``(e_init, e_payload)`` in float32: the CPU's RPC power times each
+    time component (the two Python products first, as the reference's
+    weakly-typed scalars are)."""
+    n = np.asarray(n_nodes, _F32)
+    p = params.p_cpu_rpc
+    e_init = _F32(p * params.alpha_rpc) * np.ones_like(n)
+    e_payload = _F32(p * params.beta) * n * _F32(params.feature_bytes)
+    return e_init, e_payload
+
+
 def compute_step_s(t0, per_edge, n_edges):
     """Per-step compute-time law of the measured lane:
     ``t_step = t0 + per_edge * n_edges`` (same term order as the
@@ -152,6 +179,12 @@ def delta_from_sigma(params: CostModelParams, sigma) -> np.ndarray:
     (float32, left to right)."""
     return ((np.asarray(sigma, _F32) - _F32(1.0)) * _F32(params.beta)
             / _F32(params.gamma_c))
+
+
+def congested_miss_latency(params: CostModelParams, sigma) -> np.ndarray:
+    """Eq. (3): straggler across owners — the slowest link dictates the
+    miss cost; ``sigma`` is (..., P-1), per-remote-owner multipliers."""
+    return _F32(params.t_miss0) * np.max(np.asarray(sigma, _F32), axis=-1)
 
 
 def hit_rate(params: CostModelParams, window) -> np.ndarray:

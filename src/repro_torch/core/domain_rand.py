@@ -57,7 +57,8 @@ def paper_schedule_delta(
     epoch = int(epoch)
     owners = np.arange(n_owners)
     phase = max(epoch - 3, 0) % 7
-    congested = (epoch >= 3) and (epoch < n_epochs - 1) and (phase < 5)
+    in_window = (epoch >= 3) and (epoch < n_epochs - 1)
+    congested = in_window and (phase < 5)
     if not congested:
         return np.zeros(n_owners, np.float32)
     # severity sweeps 15 -> 25 ms across the 5 congested phases
@@ -227,7 +228,8 @@ def paper_schedule_delta_t(epoch: torch.Tensor, n_epochs: int,
     (n, n_owners) float32."""
     owners = torch.arange(n_owners, device=epoch.device)
     phase = torch.clamp(epoch - 3, min=0) % 7
-    congested = (epoch >= 3) & (epoch < n_epochs - 1) & (phase < 5)
+    in_window = (epoch >= 3) & (epoch < n_epochs - 1)
+    congested = in_window & (phase < 5)
     # severity sweeps 15 -> 25 ms across the 5 congested phases
     sev = (15.0 + 2.5 * phase.float())[:, None]
     # rotate the afflicted link; every other phase hits two links

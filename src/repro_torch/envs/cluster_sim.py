@@ -341,12 +341,14 @@ def ring_collective_t(cfg: ClusterEnvConfig, params, n_live: torch.Tensor):
         z = torch.zeros_like(n_live)
         return z, z
     n_active = 1.0 + n_live
-    phases = (n_active - 1.0) * (1.0 if cfg.sync == "reduce_scatter"
-                                 else 2.0)
+    scatter = cfg.sync == "reduce_scatter"
+    phases = (n_active - 1.0) * (1.0 if scatter else 2.0)
     chunk = torch.full_like(n_active, cfg.grad_bytes) / torch.clamp(
         n_active, min=1.0)
     per_phase = params.alpha_rpc + params.beta * chunk
-    return phases * per_phase, phases * (per_phase + params.beta * chunk)
+    wall = phases * per_phase
+    cpu = phases * (per_phase + params.beta * chunk)
+    return wall, cpu
 
 
 def peer_operands(cfg: ClusterEnvConfig, params, sc: ClusterScenario

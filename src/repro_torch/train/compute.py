@@ -28,7 +28,9 @@ every row. The input's rows lie ``d_in`` rounded up to 4 floats apart (a
 view of the first ``d_in`` columns), so that the SpMM kernel reads them as
 float4 at any width (``full_graph_sm``'s 1,433 included); the pad columns
 are never read into a result. The step is timed with CUDA events on the card and
-``time.perf_counter`` on the CPU. On the card the step is enqueued behind
+a host clock on the CPU (``clock``, ``time.perf_counter`` by default; a
+virtual clock pins the timing-to-calibration plumbing, as in the
+reference). On the card the step is enqueued behind
 a closed :class:`~repro_torch.kernels.step_gate.StepGate` (a kernel that
 holds the stream until the host opens it), which is opened only once the
 end event is enqueued: the events time the step's device work, not a host
@@ -128,7 +130,8 @@ class ComputeEngine:
     """Real SAGE step + timing + gradient compression for one worker, on
     ``cfg.device``."""
 
-    def __init__(self, graph, cfg):
+    def __init__(self, graph, cfg, clock=None):
+        self.clock = clock or time.perf_counter
         self.scheme = cfg.grad_compression
         gc.check_scheme(self.scheme)
         self.topk_frac = float(cfg.topk_frac)
@@ -309,14 +312,14 @@ class ComputeEngine:
         self.opt_state = dataclasses.replace(
             self.opt_state, mu=optim.tree_map(torch.clone, self.opt_state.mu),
             nu=optim.tree_map(torch.clone, self.opt_state.nu))
-        t0 = time.perf_counter()
+        t0 = self.clock()
         try:
             self._step_fn(x_pad, layers)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         finally:
             self.params, self.opt_state, self.error = state
-        self.compile_s += time.perf_counter() - t0
+        self.compile_s += self.clock() - t0
         self.n_compiles += 1
 
     # --------------------------------------------------------------- step
@@ -356,9 +359,9 @@ class ComputeEngine:
             self._gate.check()
             dt = start.elapsed_time(end) / 1e3
         else:
-            t0 = time.perf_counter()
+            t0 = self.clock()
             loss = self._step_fn(x_pad, layers)
-            dt = time.perf_counter() - t0
+            dt = self.clock() - t0
         self.losses.append(float(loss))
         self.step_s.append(float(dt))
         self.step_edges.append(int(n_edges))

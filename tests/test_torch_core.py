@@ -149,6 +149,102 @@ class TestCostLaws:
                                       ref.cumulative_kj())
 
 
+# ------------------------------------------- Eq. 3, Eq. 4 and Fig. 1
+def _param_pair(seed: int):
+    """The default parameters (seed 0) or a seeded draw around them, as
+    the reference's and the port's parameter sets."""
+    if seed == 0:
+        return rcm.CostModelParams(), pcm.CostModelParams()
+    rng = np.random.default_rng(seed)
+    kw = {name: float(getattr(rcm.CostModelParams(), name)
+                      * rng.uniform(0.5, 2.0))
+          for name in ("alpha_rpc", "beta", "gamma_c", "t_miss0",
+                       "feature_bytes", "p_cpu_rpc")}
+    return rcm.CostModelParams(**kw), pcm.CostModelParams(**kw)
+
+
+class TestEq3Eq4Fig1:
+    """``rpc_time``, ``congested_miss_latency`` and
+    ``rpc_energy_breakdown`` bit-equal to the reference's, then the
+    reference's own cases on the port."""
+
+    @pytest.mark.parametrize("seed", [0, 1, 2, 3])
+    def test_bit_equal_on_a_seeded_grid(self, seed):
+        ref, port = _param_pair(seed)
+        rng = np.random.default_rng(100 + seed)
+        n_nodes = np.concatenate([
+            rng.uniform(0, 1e5, 64), rng.integers(0, 5000, 64),
+            [0.0, 1.0, 10.0, 1000.0, 50_000.0]]).astype(np.float32)
+        delta = rng.uniform(0, 50, n_nodes.shape).astype(np.float32)
+        got = pcm.rpc_time(port, n_nodes, delta)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(
+            got, np.asarray(rcm.rpc_time(ref, n_nodes, delta)))
+        for want, have in zip(rcm.rpc_energy_breakdown(ref, n_nodes),
+                              pcm.rpc_energy_breakdown(port, n_nodes)):
+            assert have.dtype == np.float32
+            np.testing.assert_array_equal(have, np.asarray(want))
+        for n_owners in (1, 3, 7):
+            sigma = rng.uniform(1.0, 8.0, (64, n_owners)).astype(np.float32)
+            got = pcm.congested_miss_latency(port, sigma)
+            assert got.dtype == np.float32 and got.shape == (64,)
+            np.testing.assert_array_equal(
+                got, np.asarray(rcm.congested_miss_latency(ref, sigma)))
+
+    def test_scalars_bit_equal(self):
+        ref, port = _param_pair(0)
+        for n, d in ((1000.0, 0.0), (2000.0, 0.0), (1000.0, 5.0), (3, 2)):
+            assert pcm.rpc_time(port, n, d) == \
+                np.asarray(rcm.rpc_time(ref, n, d))
+            for want, have in zip(rcm.rpc_energy_breakdown(ref, n),
+                                  pcm.rpc_energy_breakdown(port, n)):
+                assert have == np.asarray(want)
+
+    def test_exported_from_core(self):
+        import repro_torch.core as core
+
+        assert core.rpc_time is pcm.rpc_time
+        assert core.congested_miss_latency is pcm.congested_miss_latency
+        assert core.rpc_energy_breakdown is pcm.rpc_energy_breakdown
+
+    # the reference's cases (tests/test_cost_model.py), on the port
+    def test_straggler_max_semantics(self):
+        """Eq. (3): only the worst link matters for the miss latency."""
+        params = pcm.CostModelParams()
+        t_lo = float(pcm.congested_miss_latency(params, [1.0, 1.0, 1.0]))
+        t_hi = float(pcm.congested_miss_latency(params, [3.0, 1.0, 1.0]))
+        t_hi2 = float(pcm.congested_miss_latency(params, [3.0, 2.0, 1.0]))
+        assert t_hi == pytest.approx(3 * t_lo)
+        assert t_hi2 == pytest.approx(t_hi)
+
+    def test_initiation_dominates_at_gnn_sizes(self):
+        """Fig. 1: at 10-100 remote nodes, initiation is 90-99% of
+        energy."""
+        params = pcm.CostModelParams()
+        for n in [10, 50, 100]:
+            e_init, e_pay = pcm.rpc_energy_breakdown(params, float(n))
+            share = float(e_init / (e_init + e_pay))
+            assert share > 0.89, (n, share)
+
+    def test_payload_dominates_past_10k(self):
+        e_init, e_pay = pcm.rpc_energy_breakdown(pcm.CostModelParams(),
+                                                 50_000.0)
+        assert float(e_pay) > float(e_init)
+
+    def test_crossover_near_1000_plus(self):
+        """Paper: crossover does not occur until batch > ~1000 nodes."""
+        e_init, e_pay = pcm.rpc_energy_breakdown(pcm.CostModelParams(),
+                                                 1000.0)
+        assert float(e_init) > 0.4 * (float(e_init) + float(e_pay))
+
+    def test_rpc_time_linear_in_payload_and_delta(self):
+        params = pcm.CostModelParams()
+        t0 = float(pcm.rpc_time(params, 1000.0, 0.0))
+        t1 = float(pcm.rpc_time(params, 2000.0, 0.0))
+        t2 = float(pcm.rpc_time(params, 1000.0, 5.0))
+        assert t1 > t0 and t2 > t0
+
+
 # ------------------------------------------------------------ controller
 @pytest.fixture(scope="module")
 def shared_qnet(tmp_path_factory):
