@@ -11,6 +11,12 @@ and writes the qnet to the port's artifact directory
     python scripts/export_qnet_torch.py --env analytic --iterations 20000
     python scripts/export_qnet_torch.py --device cpu --iterations 200
 
+The paper harness's policy (``repro_torch.paper.common.Sweep``'s
+``qnet_main``: one table per dataset at batch 2000, 40,000 iterations):
+
+    python scripts/export_qnet_torch.py --name qnet_main --iterations 40000 \
+        --datasets reddit ogbn-products ogbn-papers100m
+
 ``--env`` selects the training environment: ``table`` (trace-calibrated
 tables), ``analytic`` (parametric archetypes), ``queue`` (the
 scenario-conditioned fluid fabric twin) or ``cluster`` (the P-requester
@@ -56,6 +62,8 @@ def main() -> None:
                     help="retrain even if the artifact already exists")
     args = ap.parse_args()
 
+    import torch
+
     from repro_torch.train import gnn_trainer as gt
     from repro_torch.train import policy as pol
 
@@ -81,10 +89,17 @@ def main() -> None:
     kw = {"n_owners": P - 1}
     if args.env == "cluster":
         kw["n_workers"] = P
-    pol.get_or_train_policy(
+    t_train = time.time()
+    _, qnet = pol.get_or_train_policy(
         pool, name=args.name, iterations=args.iterations, force=args.force,
         env=args.env, device=args.device, **kw,
     )
+    if qnet["l1"]["w"].is_cuda:
+        torch.cuda.synchronize()
+    train_s = time.time() - t_train
+    print(f"policy trained or loaded in {train_s:.1f}s "
+          f"({args.iterations / train_s:.1f} iterations/s if trained)",
+          flush=True)
     artifact = args.name if args.env is None else f"{args.name}_{args.env}"
     if args.env == "cluster":
         artifact = f"{artifact}_p{P}"
