@@ -101,6 +101,28 @@ Phases, each of which ends the run with a non-zero exit on failure:
    card), serve_lm, train_distributed_gnn (its checkpoint read back)
    and congestion_adaptation_demo. No hand-written kernel may launch in
    the phase.
+   The sweeps phase (``phase_sweeps``) runs beside it, in a process of
+   its own (``--sweeps DIR``, ``phase_dryrun``'s records passed as the
+   dry-run's files), joined after it: the reference's last harness
+   modules through ``repro_torch.paper``, their policies trained there at
+   ``SWEEP_ITERS`` iterations (each training's iterations/s logged with
+   the host's CPU; each must launch its env's window kernel 2 an
+   iteration + 1 times, and the eight trainings of the phase must all
+   run), at the reference's batch over ``SWEEP_STEPS`` steps.
+   ``scenario_sweep``: the 12 registry scenarios x dgl, bgl, static_w
+   and heuristic at P = 1, then its clean-parity check.
+   ``cluster_sweep`` at P = 4: the 6 scenarios x the 5 methods, the
+   mixture axis and the memory axis at ``tight``, held to the
+   reference's ``--check`` invariants that do not rest on the policies'
+   quality (emergent queueing on every scenario without an overlay, the
+   unlimited budget digest-equal to the in-RAM store, the paired
+   greendygnn cells equal, block fetches and evictions). ``run_cluster`` at P = 2 and 8, static_w and greendygnn
+   (the cluster twin's policy for P: the window kernel at 1 and 7
+   owners), each digest-equal to its rerun on the CPU. ``policy_gauntlet``:
+   the 12 scenarios x the baselines and the analytic, table and queue
+   policies; its gate logged. ``roofline_report`` over the records. The
+   memory axis and the trainings must launch ``embedding_bag``,
+   ``queue_window`` and ``cluster_window``.
 3. Hold each kernel against its plain PyTorch version on the card, at the
    shapes its main path gives it. The trainer's kernels' checks run
    right after the build, with the trainer's two profiles of phase 4:
@@ -1928,39 +1950,40 @@ def phase_paper(torch, device, smi, qnet) -> None:
             f"{kernel_counts()}")
 
 
-class PaperProcess:
-    """``phase_paper`` in a process of its own (this script with ``--paper
-    DIR``, the table qnet passed as a file), started after the policy
-    phase and run beside the queue and cluster-env phases: all three are
-    host-bound and leave the card idle most of the time. Its output goes
-    to a file, relayed to this process's output at ``join``."""
+class ChildPhase:
+    """A phase in a process of its own: this script with ``--NAME DIR``,
+    ``write_inputs(DIR)`` having put its inputs there. The paper and the
+    sweeps phases run so, started after the policy phase and run beside
+    the queue and cluster-env phases: all of them are host-bound and
+    leave the card idle most of the time. Its output goes to a file,
+    relayed to this process's output at ``join``."""
 
-    def __init__(self, qnet):
+    def __init__(self, name: str, timeout_s: float, write_inputs):
         import tempfile
 
-        from repro_torch.core import dqn
-
+        self.name, self.timeout_s = name, timeout_s
         self.tmp = pathlib.Path(tempfile.mkdtemp(dir=ROOT / "build"))
-        dqn.save_qnet(str(self.tmp / "qnet.npz"), qnet)
-        self.out = open(self.tmp / "paper.log", "w")
+        write_inputs(self.tmp)
+        self.out = open(self.tmp / f"{name}.log", "w")
         self.proc = subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--paper",
+            [sys.executable, str(ROOT / "chip_smoke.py"), f"--{name}",
              str(self.tmp)], stdout=self.out, stderr=subprocess.STDOUT)
 
     def join(self) -> None:
         """Wait for the process, relay its output, fail if it failed; its
-        own phase time goes into ``PHASE_S`` as ``paper (own process)``."""
+        phase times go into ``PHASE_S`` marked ``(own process)``."""
         try:
-            rc = self.proc.wait(timeout=PAPER_TIMEOUT_S)
+            rc = self.proc.wait(timeout=self.timeout_s)
         except subprocess.TimeoutExpired:
             rc = None
         try:
-            with open(self.tmp / "paper.log") as f:
+            with open(self.tmp / f"{self.name}.log") as f:
                 sys.stdout.write(f.read())
             sys.stdout.flush()
-            require(rc == 0, f"the paper process exited {rc}")
-            with open(self.tmp / "paper.json") as f:
-                PHASE_S["paper (own process)"] = json.load(f)["paper"]
+            require(rc == 0, f"the {self.name} process exited {rc}")
+            with open(self.tmp / "phases.json") as f:
+                for k, v in json.load(f).items():
+                    PHASE_S[f"{k} (own process)"] = v
         finally:
             self.stop()
 
@@ -1976,14 +1999,20 @@ class PaperProcess:
         shutil.rmtree(self.tmp, ignore_errors=True)
 
 
-def paper_main(torch, device, tmp) -> int:
-    """The ``--paper DIR`` entry: ``phase_paper`` on the qnet in DIR; its
-    wall time to DIR/paper.json."""
+def paper_process(qnet) -> ChildPhase:
+    """``phase_paper`` in a process of its own, the table qnet passed as
+    a file."""
     from repro_torch.core import dqn
 
-    qnet = dqn.load_qnet(str(pathlib.Path(tmp) / "qnet.npz"), device=device)
-    timed("paper", phase_paper, torch, device, smi_line(), qnet)
-    with open(pathlib.Path(tmp) / "paper.json", "w") as f:
+    return ChildPhase("paper", PAPER_TIMEOUT_S, lambda tmp: dqn.save_qnet(
+        str(tmp / "qnet.npz"), qnet))
+
+
+def child_main(name: str, fn, tmp) -> int:
+    """The ``--NAME DIR`` entry: ``fn(DIR)`` timed as phase NAME; the
+    phase times to DIR/phases.json."""
+    timed(name, fn, pathlib.Path(tmp))
+    with open(pathlib.Path(tmp) / "phases.json", "w") as f:
         json.dump(PHASE_S, f)
     return 0
 
@@ -1991,6 +2020,260 @@ def paper_main(torch, device, tmp) -> int:
 # the paper process's limit: it took 164.9-225.1 s alone (NVIDIA H100 80GB
 # HBM3, 700 W)
 PAPER_TIMEOUT_S = 600
+
+
+# ------------------------------------------------------ the sweeps phase
+# the sweeps' lengths on the card: the reference's batch (1000) and
+# epochs of 16 steps, 3 epochs (2 of warmup: the policies decide once a
+# rank at step 32); the full-size run (``scripts/paper_sweeps.py``) takes
+# the reference's 8 and 6 epochs
+SWEEP_STEPS = 48
+SWEEP_ITERS = 100          # each policy's training budget, 64 envs
+GAUNTLET_ENVS = 32         # the gauntlet's training envs
+SWEEP_P_CPU = (2, 8)       # run_cluster sizes rerun on the CPU
+SWEEPS_TIMEOUT_S = 600
+
+
+def host_cpu() -> str:
+    """The host's CPU model (``/proc/cpuinfo``'s, where it names one) and
+    the CPUs this process may run on."""
+    import platform
+
+    model = "unnamed"
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            model = next((line.split(":", 1)[1].strip() for line in f
+                          if line.startswith("model name")), model)
+    return (f"host CPU {model} ({platform.machine()}), "
+            f"{len(os.sched_getaffinity(0))} of {os.cpu_count()} CPUs")
+
+
+# the trainings phase_sweeps must run, as (env, owners): the cluster
+# sweep's cluster-twin, queue-env and headroom-aware policies at P = 4,
+# the cluster twin's at P = 2 and 8, and the gauntlet's three
+SWEEP_TRAININGS = sorted([("cluster", 3), ("queue", 3), ("cluster", 3),
+                          ("cluster", 1), ("cluster", 7), ("analytic", 3),
+                          ("table", 3), ("queue", 3)])
+
+
+def sweeps_training(smi, host, trained):
+    """``trainings_timed``'s report: log a training, add its (env, owners)
+    to ``trained``, and require that it launched its env's window kernel
+    2 an iteration + 1 times (a probe window at the first reset, then a
+    step and a reset's probe window an iteration) and the other window
+    kernel never."""
+    from repro_torch.paper.common import WINDOW_KERNEL
+
+    def report(rec):
+        trained.append((rec["env"], rec["owners"]))
+        its, own = rec["iterations"], WINDOW_KERNEL.get(rec["env"])
+        log(f"sweeps training {rec['env']} ({rec['owners']} owners"
+            + (f", {rec['cluster_kwargs']}" if rec["cluster_kwargs"]
+               else "")
+            + f"): {its} iterations x {rec['n_envs']} envs in "
+            f"{rec['wall_s']:.2f} s ({rec['iterations_per_s']:.1f} "
+            f"iterations/s), {rec['episodes']} episodes, window launches "
+            f"{rec['queue_window']} queue / {rec['cluster_window']} "
+            f"cluster; {smi}; {host}")
+        for k in WINDOW_KERNEL.values():
+            want = 2 * its + 1 if k == own else 0
+            require(rec[k] == want,
+                    f"sweeps training {rec['env']} ({rec['owners']} "
+                    f"owners): {rec[k]} {k} launches, not {want}")
+    return report
+
+
+def sweeps_scenario(device, smi) -> None:
+    """``scenario_sweep`` at P = 1: the 12 registry scenarios x dgl, bgl,
+    static_w and heuristic, then ``check_clean_parity`` (the 5% band and
+    the bit-equal streams)."""
+    from repro_torch.paper import scenario_sweep as ss
+
+    res = ss.main(["--steps", str(SWEEP_STEPS), "--check-clean-parity",
+                   "--device", str(device)])
+    rows = res["rows"]
+    require(list(rows) == ss.default_scenarios() and len(rows) == 12
+            and all(list(c) == ss.DEFAULT_METHODS for c in rows.values())
+            and all(math.isfinite(v["total_kj"]) and v["total_kj"] > 0
+                    for c in rows.values() for v in c.values()),
+            f"scenario_sweep: rows {rows}")
+    log(f"sweeps scenario_sweep: {len(rows)} scenarios x "
+        f"{len(ss.DEFAULT_METHODS)} methods at P = 1, clean parity held; "
+        f"{smi}")
+
+
+def sweeps_cluster(device, smi) -> None:
+    """``cluster_sweep`` at P = 4 with the mixture axis and the memory
+    axis at ``tight``, its policies trained here; the reference's
+    ``--check`` invariants that do not rest on the policies' quality must
+    hold."""
+    from repro_torch.paper import cluster_sweep as cs
+
+    args = cs.parse_args([
+        "--workers", "4", "--steps", str(SWEEP_STEPS), "--mixture",
+        "--mem-budget", "tight", "--iterations", str(SWEEP_ITERS),
+        "--check", "--device", str(device)])
+    before = kernel_counts()
+    result = cs.run_sweep(args)
+    rows, mem = result["rows"][4], result["mem"][4]
+    emergent = [n for n in rows if not n.startswith("injected:")]
+    require(len(rows) == 6 and all(
+        list(c) == args.methods.split(",") for c in rows.values()),
+        f"cluster_sweep: rows {list(rows)}")
+    queue = {n: rows[n]["greendygnn"]["queue_s"] for n in emergent}
+    require(all(q > 0 for q in queue.values()),
+            f"cluster_sweep: no emergent queueing: {queue}")
+    tight = mem["rows"]["tight"]["greendygnn"]
+    tc = tight["tier_counts"]
+    require(mem["unlimited_parity"],
+            "cluster_sweep: the unlimited budget differs from the in-RAM "
+            "store")
+    require(tight["deterministic"],
+            "cluster_sweep: the paired greendygnn cells disagree")
+    require(tc["block_fetches"] > 0 and tc["evictions"] > 0,
+            f"cluster_sweep: no tier traffic under tight: {tc}")
+    bags = kernel_counts()["embedding_bag"] - before["embedding_bag"]
+    require(bags > 0, "cluster_sweep: the memory axis launched no "
+                      "embedding_bag kernel")
+    log(f"sweeps cluster_sweep P = 4: 6 scenarios x 5 methods, "
+        f"{len(result['mixtures'][4])} mixtures, memory axis at tight; "
+        f"emergent queueing {queue}; unlimited parity, deterministic "
+        f"pair, tier counts {tc}; embedding_bag launches {bags}; {smi}")
+
+
+def sweeps_cpu_reruns(torch, device, smi) -> None:
+    """``run_cluster`` at P = 2 and 8 under clean, static_w and greendygnn
+    (the cluster twin's policy for P, trained here: the window kernel's
+    1- and 7-owner instances in a training loop), each held against the
+    same run on the CPU by ``report_digest``."""
+    from repro_torch.analysis.digest import report_digest
+    from repro_torch.core import dqn
+    from repro_torch.paper import cluster_sweep as cs
+    from repro_torch.train import policy as pol
+    from repro_torch.train.cluster import (
+        ClusterConfig, build_cluster_traces, run_cluster,
+    )
+
+    for P in SWEEP_P_CPU:
+        cfg0 = dataclasses.replace(
+            cs.base_cfg("reddit", 1000, device=str(device)), n_parts=P,
+            n_epochs=SWEEP_STEPS // 16, steps_per_epoch=16)
+        bundles = build_cluster_traces(cfg0, P)
+        pool = cs.calib_pool(cfg0, bundles[0])
+        q_fns = cs.get_q_fns(cfg0, pool, SWEEP_ITERS, False, {"greendygnn"})
+        cpu_q = dqn.q_fn_of(dqn.load_qnet(
+            os.path.join(pol.ARTIFACT_DIR, f"qnet_sweep_cluster_p{P}.npz"),
+            device="cpu"))
+        for method, q_card, q_cpu in (("static_w", None, None),
+                                      ("greendygnn", q_fns["greendygnn"],
+                                       cpu_q)):
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(cfg0, method=method, scenario="clean",
+                                      q_fn=q_card)
+            card = run_cluster(cfg, ClusterConfig(n_workers=P),
+                               trace_bundles=bundles)
+            t_card = time.perf_counter() - t0
+            cpu = run_cluster(dataclasses.replace(cfg, device="cpu",
+                                                  q_fn=q_cpu),
+                              ClusterConfig(n_workers=P),
+                              trace_bundles=bundles)
+            windows = [r.window_per_epoch.tolist() for r in card.results]
+            require(report_digest(card) == report_digest(cpu),
+                    f"run_cluster P = {P} {method}: card "
+                    f"{card.totals_kj()} / windows {windows} against the "
+                    f"CPU {cpu.totals_kj()}")
+            log(f"sweeps run_cluster P = {P} {method} clean: card = CPU "
+                f"(report_digest {report_digest(card)[:16]}...), "
+                f"{card.totals_kj()['total_kj']:.6f} kJ, queueing "
+                f"{card.total_queue_s:.6f} s, windows {windows[0]}, card "
+                f"run {t_card:.2f} s; {smi}")
+
+
+def sweeps_gauntlet(device, smi) -> None:
+    """``policy_gauntlet``: the 12 scenarios x dgl, bgl, static_w and the
+    analytic, table and queue policies, trained here; its gate logged."""
+    from repro_torch.paper import policy_gauntlet as pg
+
+    res = pg.main(["--steps", str(SWEEP_STEPS), "--iterations",
+                   str(SWEEP_ITERS), "--n-envs", str(GAUNTLET_ENVS),
+                   "--device", str(device)])
+    rows = res["rows"]
+    cols = pg.BASELINES + [f"dqn_{e}" for e in pg.TRAIN_ENVS]
+    require(list(rows) == pg.default_scenarios()
+            and all(list(c) == cols for c in rows.values())
+            and all(math.isfinite(v["total_kj"]) and v["total_kj"] > 0
+                    for c in rows.values() for v in c.values()),
+            f"policy_gauntlet: rows {rows}")
+    try:
+        pg.check_acceptance(rows)
+        gate = "held"
+    except SystemExit as e:
+        gate = f"failed: {e} (policies of {SWEEP_ITERS} iterations; not " \
+            "required)"
+    log(f"sweeps policy_gauntlet: {len(rows)} scenarios x {len(cols)} "
+        f"columns; gate {gate}; {smi}")
+
+
+def sweeps_roofline(records_dir, smi) -> None:
+    """``roofline_report`` over the records ``phase_dryrun`` counted."""
+    from repro_torch.paper import roofline_report as rr
+
+    n = {d: len(rr.load_records(d, records_dir)) for d in ("meta", "cuda")}
+    rows = rr.main(None, records_dir=records_dir)
+    for row in rows:
+        log(f"sweeps {row}")
+    require(n["meta"] > 0 and rows[-3:-1] == [
+        f"roofline/cells_meta,{n['meta']},expect 44",
+        f"roofline/cells_cuda,{n['cuda']},the cells the card ran"]
+        and len(rows) == n["meta"] + 3,
+        f"roofline_report: {rows[-3:]} over {n}")
+
+
+def phase_sweeps(torch, device, tmp) -> None:
+    """The reference's last harness modules on the card, its policies
+    trained at ``SWEEP_ITERS`` iterations in a temporary artifact
+    directory: ``scenario_sweep``, ``cluster_sweep`` at P = 4,
+    ``run_cluster`` at P = 2 and 8 against the CPU, ``policy_gauntlet``
+    and ``roofline_report`` over the dry-run's records in ``tmp``. The
+    memory axis's device tiers and the trainings must launch the
+    ``embedding_bag``, ``queue_window`` and ``cluster_window`` kernels."""
+    from repro_torch.paper import cluster_sweep, policy_gauntlet
+    from repro_torch.paper import scenario_sweep
+    from repro_torch.paper.common import trainings_timed
+    from repro_torch.train import policy as pol
+
+    smi, host = smi_line(), host_cpu()
+    log(f"sweeps: {host}")
+    before = kernel_counts()
+    pol.ARTIFACT_DIR = str(tmp / "artifacts")
+    for mod in (scenario_sweep, cluster_sweep, policy_gauntlet):
+        mod.RESULTS_DIR = str(tmp / "results")
+    trained = []
+    with trainings_timed(sweeps_training(smi, host, trained)):
+        timed("sweeps scenario_sweep", sweeps_scenario, device, smi)
+        timed("sweeps cluster_sweep", sweeps_cluster, device, smi)
+        timed("sweeps run_cluster P = 2, 8", sweeps_cpu_reruns, torch,
+              device, smi)
+        timed("sweeps policy_gauntlet", sweeps_gauntlet, device, smi)
+    timed("sweeps roofline_report", sweeps_roofline, tmp / "records", smi)
+    launched = {k: v - before[k] for k, v in kernel_counts().items()}
+    log(f"sweeps: launches {launched}; {host}")
+    require(sorted(trained) == SWEEP_TRAININGS,
+            f"sweeps: trained {sorted(trained)}, not {SWEEP_TRAININGS}")
+    require(all(launched[k] > 0 for k in ("embedding_bag", "queue_window",
+                                          "cluster_window")),
+            f"sweeps: a kernel of the path did not launch: {launched}")
+
+
+def sweeps_process(records) -> ChildPhase:
+    """``phase_sweeps`` in a process of its own, ``phase_dryrun``'s
+    records passed as the dry-run's files."""
+    def write(tmp):
+        (tmp / "records").mkdir()
+        for (arch, shape), rec in records.items():
+            (tmp / "records" / f"{arch}__{shape}__{rec['device']}.json"
+             ).write_text(json.dumps(rec, default=str))
+    return ChildPhase("sweeps", SWEEPS_TIMEOUT_S, write)
 
 
 # ------------------------------------------------------- the queue phase
@@ -7311,7 +7594,7 @@ def dryrun_cells() -> list:
             + [("fm", s) for s in FM_SHAPES])
 
 
-def phase_dryrun(torch, device, smi) -> None:
+def phase_dryrun(torch, device, smi) -> dict:
     """``repro_torch.launch.dryrun``'s record of each of ``dryrun_cells``
     at full config on ``meta``: FLOPs by dtype, bytes, the live-bytes
     peak, the roofline terms at the card's peaks, the per-device argument
@@ -7321,7 +7604,8 @@ def phase_dryrun(torch, device, smi) -> None:
     of the card and whose CPU check, scaled from the largest sage cell
     run by the step's counted bytes, fits ``CPU_CHECK_MAX_S``
     (``scripts/gnn_cells.py`` runs the rest). No hand-written kernel is on
-    these paths."""
+    these paths. Returns the meta records by (arch, shape), which
+    ``phase_sweeps`` reports."""
     from repro_torch.launch import dryrun
 
     t_phase = time.perf_counter()
@@ -7380,6 +7664,7 @@ def phase_dryrun(torch, device, smi) -> None:
     require(kernel_counts() == before,
             f"the dry-run phase launched a hand-written kernel: {before} -> "
             f"{kernel_counts()}")
+    return records
 
 
 def main() -> int:
@@ -7401,7 +7686,15 @@ def main() -> int:
     if sys.argv[1:2] == ["--deploy"]:
         return deploy_main(torch, device, sys.argv[2])
     if sys.argv[1:2] == ["--paper"]:
-        return paper_main(torch, device, sys.argv[2])
+        from repro_torch.core import dqn
+
+        return child_main("paper", lambda tmp: phase_paper(
+            torch, device, smi_line(),
+            dqn.load_qnet(str(tmp / "qnet.npz"), device=device)),
+            sys.argv[2])
+    if sys.argv[1:2] == ["--sweeps"]:
+        return child_main("sweeps", lambda tmp: phase_sweeps(
+            torch, device, tmp), sys.argv[2])
 
     t_start = time.perf_counter()
     smi = timed("card_and_build", phase_card_and_build, torch)
@@ -7421,7 +7714,7 @@ def main() -> int:
     # training's millions of launches (a late trace held no kernel)
     timed("gnn_archs", phase_gnn_archs, torch, device, smi)
     timed("fm", phase_fm, torch, device, smi)
-    timed("dryrun", phase_dryrun, torch, device, smi)
+    records = timed("dryrun", phase_dryrun, torch, device, smi)
     # the LM phases read their flash launches from the profiler too: a
     # prefill trace taken after the policy training held 47 of the 48
     # flash kernels the wrapper counted, in each of three tries
@@ -7445,15 +7738,18 @@ def main() -> int:
                                       phase_lm_train_arch, torch, device,
                                       smi, arch)
     qnet, policy_pools = timed("policy", phase_policy, torch, device, smi)
-    paper = timed("paper_start", PaperProcess, qnet)
+    children = [timed("paper_start", paper_process, qnet)]
     try:
+        children.append(timed("sweeps_start", sweeps_process, records))
         queue_qnet, queue_info = timed("queue", phase_queue, torch, device,
                                        smi, policy_pools)
         cluster_qnet, cluster_info = timed("cluster_env", phase_cluster_env,
                                            torch, device, smi, policy_pools)
-        timed("paper_wait", paper.join)
+        for child in children:
+            timed(f"{child.name}_wait", child.join)
     finally:
-        paper.stop()
+        for child in children:
+            child.stop()
     timed("deploy", run_deploy_process, torch,
           {"cluster": cluster_qnet, "queue": queue_qnet})
     policy_pools["queue"] = policy_pools["analytic"]

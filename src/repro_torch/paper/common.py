@@ -16,8 +16,11 @@ under the reference's ``results/bench/``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import inspect
 import json
 import os
+import time
 
 from repro_torch.device import resolve
 from repro_torch.train import gnn_trainer as gt
@@ -109,11 +112,65 @@ class Sweep:
         return self.run(dataset, batch, method, congested).totals()
 
     def save_json(self, name: str, data) -> str:
-        os.makedirs(self.results_dir, exist_ok=True)
-        path = os.path.join(self.results_dir, f"{name}.json")
-        with open(path, "w") as f:
-            json.dump(data, f, indent=1, default=float)
-        return path
+        return save_json(name, data, self.results_dir)
+
+
+def save_json(name: str, data, results_dir: str = RESULTS_DIR) -> str:
+    """``data`` as ``<results_dir>/<name>.json``, in the reference's
+    format; returns the path."""
+    os.makedirs(results_dir, exist_ok=True)
+    path = os.path.join(results_dir, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(data, f, indent=1, default=float)
+    return path
+
+
+# the window kernel each training env launches (the others launch none)
+WINDOW_KERNEL = {"queue": "queue_window", "cluster": "cluster_window"}
+
+
+@contextlib.contextmanager
+def trainings_timed(report):
+    """Time every ``policy.train_policy`` call made in the block on the
+    card, ``get_or_train_policy``'s included, and hand ``report`` one dict
+    a training: its env, owners, ``cluster_kwargs``, iterations, envs,
+    epochs, episodes, wall time, iterations/s and the launches of the
+    ``queue_window`` and ``cluster_window`` kernels it made."""
+    import torch
+
+    from repro_torch.kernels.cluster_window import cluster_window
+    from repro_torch.kernels.queue_window import queue_window
+
+    train = pol.train_policy
+    kernels = {"queue_window": queue_window,
+               "cluster_window": cluster_window}
+
+    def timed(pool, **kw):
+        bound = inspect.signature(train).bind(pool, **kw)
+        bound.apply_defaults()
+        a = bound.arguments
+        if a["env"] == "cluster":
+            owners = (a["n_workers"] or (a["n_owners"] or 3) + 1) - 1
+        else:
+            owners = a["n_owners"] or 3
+        before = {k: w.launches for k, w in kernels.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train(pool, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        report({"env": a["env"], "owners": owners,
+                "cluster_kwargs": a["cluster_kwargs"],
+                "iterations": a["iterations"], "n_envs": a["n_envs"],
+                "n_epochs": a["n_epochs"], "episodes": int(res["episodes"]),
+                "wall_s": wall, "iterations_per_s": a["iterations"] / wall,
+                **{k: w.launches - before[k] for k, w in kernels.items()}})
+        return res
+    pol.train_policy = timed
+    try:
+        yield
+    finally:
+        pol.train_policy = train
 
 
 def fmt_row(name: str, value, derived: str = "") -> str:

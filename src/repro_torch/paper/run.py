@@ -4,10 +4,10 @@
 
 Prints ``name,value,derived`` CSV rows per module and a ``wall_s`` row a
 module, over one :class:`~repro_torch.paper.common.Sweep` at the
-reference's grid. It covers the reference's ``benchmarks/run.py`` list but
-``roofline_report``, which reads the dry-run's records and belongs with
-the port's benchmark. A module that raises prints an ``ERROR`` row, the
-others still run, and the command exits 1.
+reference's grid. It covers the reference's ``benchmarks/run.py`` list,
+in its order; the last, ``roofline_report``, reads the dry-run's records
+(``results/dryrun_torch/``) and runs nothing. A module that raises prints
+an ``ERROR`` row, the others still run, and the command exits 1.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from repro_torch.paper import (
     fig8_sim_validation,
     fig9_cumulative,
     pipeline_overlap,
+    roofline_report,
     table1_energy,
     table2_ablation,
 )
@@ -39,6 +40,7 @@ MODULES = [
     ("fig9_cumulative", fig9_cumulative),
     ("table2_ablation", table2_ablation),
     ("pipeline_overlap", pipeline_overlap),
+    ("roofline_report", roofline_report),
 ]
 
 

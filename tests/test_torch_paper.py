@@ -36,6 +36,7 @@ from benchmarks import (  # noqa: E402
     fig8_sim_validation as rfig8,
     fig9_cumulative as rfig9,
     pipeline_overlap as rpipe,
+    roofline_report as rroof,
     table1_energy as rtable1,
     table2_ablation as rtable2,
 )
@@ -50,6 +51,7 @@ from repro_torch.paper import (  # noqa: E402
     fig8_sim_validation as pfig8,
     fig9_cumulative as pfig9,
     pipeline_overlap as ppipe,
+    roofline_report as proof,
     run as prun,
     table1_energy as ptable1,
     table2_ablation as ptable2,
@@ -206,17 +208,104 @@ def test_run_main_exit_status(sweeps, monkeypatch, fails, capsys):
     capsys.readouterr()
 
 
-def test_run_covers_the_reference_list_but_the_roofline():
+def test_run_covers_the_reference_list():
+    """``run.MODULES`` is the reference's ``benchmarks/run.py`` list,
+    in its order, the roofline report last."""
+    import re
+
     with open(os.path.join(os.path.dirname(rcommon.__file__), "run.py")) as f:
         text = f.read()
-    names = [n for n, _ in prun.MODULES]
-    assert names == [n for n in (
-        "fig1_rpc_energy", "table1_energy", "fig5_overhead", "fig6_clean",
-        "fig7_adaptation", "fig8_sim_validation", "fig9_cumulative",
-        "table2_ablation", "pipeline_overlap", "roofline_report")
-        if n != "roofline_report"]
-    for n in names + ["roofline_report"]:
-        assert f'("{n}", {n})' in text
+    ref = re.findall(r'\("(\w+)", (\w+)\)', text)
+    assert all(n == m for n, m in ref) and len(ref) == 10
+    assert [n for n, _ in prun.MODULES] == [n for n, _ in ref]
+    assert prun.MODULES[-1] == ("roofline_report", proof)
+
+
+def _record(arch, shape, frac, dom, peak):
+    return {"arch": arch, "shape": shape,
+            "roofline": {"roofline_fraction": frac, "dominant": dom,
+                         "compute_s": frac * 1e-3, "memory_s": 2.5e-4,
+                         "collective_s": 0.0},
+            "memory": {"peak_estimate_gb": peak}}
+
+
+RECORDS = [_record("qwen3-1.7b", "train_4k", 0.7312, "compute", 61.204),
+           _record("fm", "serve", 0.0421, "memory", 0.5),
+           _record("pna", "molecule", 0.31251, "memory", 0.013)]
+
+
+def test_roofline_report_rows_equal(tmp_path, monkeypatch):
+    """The port's report over its ``meta`` and ``cuda`` records prints
+    the reference's rows over the same records as ``single`` and
+    ``multi``: the count rows named for the port's record sets."""
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    for d in (ref_dir, port_dir):
+        d.mkdir()
+    for i, rec in enumerate(RECORDS):
+        sets = (("single", "meta"), ("multi", "cuda")) if i < 2 else (
+            ("single", "meta"),)
+        for ref_set, port_set in sets:
+            stem = f"{rec['arch']}__{rec['shape']}"
+            (ref_dir / f"{stem}__{ref_set}.json").write_text(json.dumps(rec))
+            (port_dir / f"{stem}__{port_set}.json").write_text(
+                json.dumps(rec))
+    monkeypatch.setattr(rroof, "DRYRUN_DIR", str(ref_dir))
+    want = rroof.main()
+    got = proof.main(None, records_dir=port_dir)
+    assert got[:-3] == want[:-3]
+    assert got[:3] == [
+        "roofline/fm/serve,0.042,dom=memory;compute=4.21e-05s;"
+        "memory=2.50e-04s;collective=0.00e+00s;peak=0.5GB",
+        "roofline/pna/molecule,0.313,dom=memory;compute=3.13e-04s;"
+        "memory=2.50e-04s;collective=0.00e+00s;peak=0.013GB",
+        "roofline/qwen3-1.7b/train_4k,0.731,dom=compute;compute=7.31e-04s;"
+        "memory=2.50e-04s;collective=0.00e+00s;peak=61.204GB"]
+    assert want[-3:] == ["roofline/cells_single,3,expect 44",
+                         "roofline/cells_multi,2,expect 44",
+                         "roofline/dominant_histogram,compute=1|memory=2,"]
+    assert got[-3:] == ["roofline/cells_meta,3,expect 44",
+                        "roofline/cells_cuda,2,the cells the card ran",
+                        want[-1]]
+    assert [r["arch"] for r in proof.load_records("cuda", port_dir)] == [
+        "fm", "qwen3-1.7b"]
+
+
+def test_roofline_report_reads_the_dryrun_records(tmp_path, monkeypatch,
+                                                  capsys):
+    """A record the port's dry-run writes (a sage cell on ``meta``) is
+    the report's row, through the command line's ``--records``."""
+    from repro_torch.launch import dryrun
+
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path)
+    rec = dryrun.run_cell("greendygnn-sage", "molecule", "meta")
+    rows = proof.cli(["--records", str(tmp_path)])
+    t = rec["roofline"]
+    assert rows[0].startswith(
+        f"roofline/greendygnn-sage/molecule,{t['roofline_fraction']:.3f},"
+        f"dom={t['dominant']};")
+    assert rows[1:] == ["roofline/cells_meta,1,expect 44",
+                        "roofline/cells_cuda,0,the cells the card ran",
+                        f"roofline/dominant_histogram,{t['dominant']}=1,"]
+    assert capsys.readouterr().out.splitlines() == rows
+
+
+@pytest.mark.parametrize("where", ["empty", "missing", "cuda_only"])
+def test_roofline_report_error_row(tmp_path, monkeypatch, where):
+    """No ``meta`` record: the reference's error row, nothing raised (the
+    reference's own row on an empty directory is the same but for the
+    command it names)."""
+    d = tmp_path / "records"
+    if where != "missing":
+        d.mkdir()
+    if where == "cuda_only":
+        (d / "fm__serve__cuda.json").write_text(json.dumps(RECORDS[1]))
+    rows = proof.main(None, records_dir=d)
+    assert rows == ["roofline/error,no dry-run results,run python -m "
+                    "repro_torch.launch.dryrun --all first"]
+    monkeypatch.setattr(rroof, "DRYRUN_DIR", str(d))
+    want = rroof.main()
+    assert [r.split(",")[:2] for r in want] \
+        == [r.split(",")[:2] for r in rows]
 
 
 def test_sweep_refuses_the_card_without_one():
