@@ -2276,6 +2276,274 @@ def sweeps_process(records) -> ChildPhase:
     return ChildPhase("sweeps", SWEEPS_TIMEOUT_S, write)
 
 
+# -------------------------------------------------------- the mesh phase
+# rank 0's program of the single-pod mesh (16 x 16) on the card: (arch,
+# shape, layers run; None = the full depth). deepseek-v2 runs 1 dense and
+# 11 MoE layers of its 60, a cut for the script's time: its step is
+# host-bound (4.28 s at 4 layers alone on an H100 80GB HBM3 at 700 W, so
+# ~65 s at 60), and a cell takes three (meta, timed, counted); its
+# counted peak at full depth, 32.6 GB, fits the card (PERF.md §5)
+MESH_CELLS = (("tinyllama-1.1b", "train_4k", None),
+              ("deepseek-v2-236b", "train_4k", 12),
+              ("tinyllama-1.1b", "decode_32k", None))
+# counted on meta only: each LM arch's train_4k at the single pod and
+# deepseek-v2's train_4k and long_500k at the multi pod, at MESH_META_LAYERS
+# layers (an MoE arch's dense layer among them), the same cut for time;
+# the full-depth records are ``python -m repro_torch.launch.dryrun --mesh
+# both`` on the host (PERF.md §5)
+MESH_META_CELLS = (
+    ("tinyllama-1.1b", "train_4k", "single"),
+    ("qwen3-1.7b", "train_4k", "single"),
+    ("minicpm3-4b", "train_4k", "single"),
+    ("moonshot-v1-16b-a3b", "train_4k", "single"),
+    ("deepseek-v2-236b", "train_4k", "single"),
+    ("deepseek-v2-236b", "train_4k", "multi"),
+    ("deepseek-v2-236b", "long_500k", "multi"))
+MESH_META_LAYERS = 4
+# the process's limit: it took 72.3 s alone with deepseek-v2 at 4 layers
+# and 2-layer meta cells, 86.3-97.9 s in the whole script at these
+# settings (NVIDIA H100 80GB HBM3, 700 W)
+MESH_TIMEOUT_S = 600
+# the local flash shapes of the mesh cells (rank 0 of 16 x 16): (label,
+# B, S, local q heads, the KV heads they read, D, D_v); B cut to 1 for
+# the plain versions' sake
+MESH_FLASH = (("tinyllama train_4k", 1, 4096, 2, 1, 64, 64),
+              ("deepseek-v2 train_4k", 1, 4096, 8, 8, 192, 128))
+
+
+def arch_at_depth(arch_id: str, layers: int | None):
+    """The arch with its config cut to ``layers`` layers (an MoE arch's
+    dense layers kept); itself at None."""
+    from repro_torch.configs.registry import get_arch
+
+    arch = get_arch(arch_id)
+    if layers is None:
+        return arch
+    cfg = arch.make_config()
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    return dataclasses.replace(arch, make_config=lambda: cfg)
+
+
+def mesh_flash_vs_plain(torch, device) -> float:
+    """The flash forward and backward kernels at the mesh cells' local
+    shapes (bf16, causal) against their plain versions; returns the
+    largest |kernel - plain|."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_lse,
+        flash_attention_plain,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 23)
+    err = 0.0
+    for label, b, s, hq, hkv, d, dv in MESH_FLASH:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen).to(device, torch.bfloat16)
+
+        q, k, v = randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, dv)
+        o, lse = flash_attention_lse(q, k, v, True, s, s)
+        want, want_lse = flash_attention_plain(q, k, v, True, 128, 64,
+                                               return_lse=True)
+        e = float((o.float() - want.float()).abs().max())
+        require(bool(torch.isfinite(o).all())
+                and torch.allclose(o.float(), want.float(), **TOL_BF16_PLAIN)
+                and torch.allclose(lse, want_lse, **TOL_LSE),
+                f"mesh flash {label}: kernel vs plain {e:.3e}")
+        do = randn(b, s, hq, dv)
+        got = flash_attention_bwd(q, k, v, o, do, True, lse)
+        ref = flash_attention_bwd_plain(q, k, v, o, do, True, lse=lse)
+        errs = []
+        for name, a, w in zip(("dq", "dk", "dv"), got, ref):
+            e_g = float((a.float() - w.float()).abs().max())
+            tol = dict(rtol=TOL_BWD_BF16_RTOL, atol=TOL_BWD_BF16_ATOL_FRAC
+                       * float(w.float().abs().max()))
+            require(bool(torch.isfinite(a).all())
+                    and torch.allclose(a.float(), w.float(), **tol),
+                    f"mesh flash bwd {label} {name}: kernel vs plain "
+                    f"{e_g:.3e}")
+            errs.append(e_g)
+        err = max(err, e, *errs)
+        log(f"mesh flash {label} (local q {hq} heads, KV {hkv}, D {d}/{dv}, "
+            f"B {b}, S {s}, bf16 causal): max|kernel-plain| o {e:.3e}, dq "
+            f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}")
+        del q, k, v, o, lse, want, want_lse, do, got, ref
+    return err
+
+
+def mesh_meta_count(torch, arch, shape: str, dmesh, sms: int):
+    """Rank 0's program of the cell over ``dmesh`` (a DeviceMesh of
+    device type cpu) counted on meta: (the cell, the summary, the
+    counter)."""
+    from repro_torch.launch import count
+    from repro_torch.launch.cell import build_lm_cell
+
+    cell = build_lm_cell(arch, shape, "meta", SEED, mesh=dmesh)
+    counter = count.Counter(sms=sms)
+    summary, out = count.count_call(cell["step_fn"], *cell["args"],
+                                    counter=counter)
+    del out
+    return cell, summary, counter
+
+
+def mesh_line(summary) -> str:
+    coll = summary["collective_bytes"]
+    return (f"{summary['flops']:.6g} FLOPs {summary['flops_by_dtype']}, "
+            f"{summary['bytes']:.6g} bytes, collectives "
+            f"{ {k: f'{v:.6g}' for k, v in coll.items()} } bytes, "
+            f"{summary['n_ops']} ops, kernel charges "
+            f"{ {k: v['calls'] for k, v in summary['kernels'].items()} }, "
+            f"peak {summary['peak_live_bytes'] / 2**30:.3f} GiB")
+
+
+def mesh_cell_on_card(torch, device, smi, arch_id: str, shape: str,
+                      layers: int | None) -> dict:
+    """One cell's rank-0 program of the 16 x 16 mesh, under the fake
+    backend: counted on meta; the depth cut by that count where its peak
+    exceeds ``MEM_FRAC`` of what the card has free; then built on the
+    card (rank 0's shards drawn from the seed), one step timed by CUDA
+    events and one counted, whose count must equal meta's (FLOPs by
+    dtype, bytes, collective bytes by kind, kernel charges) and whose
+    charges must equal the launches counted. The fake collectives take
+    no time and move nothing: the step's time is the local compute's,
+    its values undefined (its outputs' shapes are checked)."""
+    from repro_torch.launch import count, roofline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.cell import build_lm_cell
+
+    names = mesh_lib.make_production_mesh()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    label = f"mesh {arch_id} {shape}"
+    with mesh_lib.fake_world(names.size):
+        meta_mesh = mesh_lib.device_mesh(names, "cpu")
+        card_mesh = mesh_lib.device_mesh(names, "cuda")
+        full = arch_at_depth(arch_id, None).make_config()
+        depth = layers or full.n_layers
+        free = torch.cuda.mem_get_info(device)[0]   # other processes' too
+        while True:
+            arch = arch_at_depth(arch_id, depth)
+            t0 = time.perf_counter()
+            meta_cell, meta, on_meta = mesh_meta_count(torch, arch, shape,
+                                                       meta_mesh, sms)
+            t_meta = time.perf_counter() - t0
+            if meta["peak_live_bytes"] <= MEM_FRAC * free or depth <= 2:
+                break
+            log(f"{label}: counted peak {meta['peak_live_bytes'] / 2**30:.3f}"
+                f" GiB at {depth} layers over {MEM_FRAC} of the card's free "
+                f"{free / 2**30:.2f} GiB: the depth halved")
+            depth = max(2, depth // 2)
+        require(meta["peak_live_bytes"] <= MEM_FRAC * free,
+                f"{label}: counted peak {meta['peak_live_bytes']} > "
+                f"{MEM_FRAC} x {free}")
+        cut = ("full depth" if depth == full.n_layers else
+               f"{depth} of {full.n_layers} layers (" + (
+                   "cut for the script's time" if layers else
+                   "cut by the count for memory") + ")")
+        cell = build_lm_cell(arch, shape, device, SEED, mesh=card_mesh)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = cell["step_fn"](*cell["args"])
+        end.record()
+        end.synchronize()
+        step_ms, wall_ms = (start.elapsed_time(end),
+                            (time.perf_counter() - t0) * 1e3)
+        del out
+        torch.cuda.reset_peak_memory_stats(device)
+        before_alloc = torch.cuda.memory_allocated(device)
+        before = kernel_counts()
+        on_card = count.Counter()
+        card, out = count.count_call(cell["step_fn"], *cell["args"],
+                                     counter=on_card)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device)
+        launched = {k: v - before[k] for k, v in kernel_counts().items()
+                    if v != before[k]}
+        shapes = [tuple(t.shape) for t in count._tensors(out)]
+        del out, cell
+    torch.cuda.empty_cache()
+    charges = {k: v["calls"] for k, v in card["kernels"].items()}
+    terms = roofline.roofline_terms(card["flops_by_dtype"], card["bytes"],
+                                    card["collective_bytes"],
+                                    roofline.mesh_peaks_of(
+                                        torch.cuda.get_device_name(device)))
+    log(f"{label}: rank 0 of 16 x 16 at {cut}: card {mesh_line(card)}; "
+        f"meta {mesh_line(meta)} (counted in {t_meta:.1f} s); "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB ({before_alloc / 2**30:.3f}"
+        f" GiB held before the step) against the counted peak "
+        f"{card['peak_live_bytes'] / 2**30:.3f} GiB; step {step_ms:.2f} ms "
+        f"by CUDA events ({wall_ms:.1f} ms of host wall), the local compute "
+        f"only: the fake backend's collectives take no time; bound "
+        f"{terms['bound_s'] * 1e3:.3f} ms ({terms['dominant']}: compute "
+        f"{terms['compute_s'] * 1e3:.3f}, memory {terms['memory_s'] * 1e3:.3f}"
+        f", collective {terms['collective_s'] * 1e3:.3f} ms at the link "
+        f"rate); launched {launched}; outputs {shapes[:4]}; {smi}")
+    diff = on_card.differences(on_meta)
+    for op, (c, m) in list(diff.items())[:20]:
+        log(f"{label}: {op} card [calls, FLOPs, bytes] {c}, meta {m}")
+    for key in ("flops_by_dtype", "bytes", "collective_bytes", "kernels"):
+        require(card[key] == meta[key],
+                f"{label}: the card's {key} {card[key]} differs from meta's "
+                f"{meta[key]} ({len(diff)} ops differ)")
+    require(charges == launched,
+            f"{label}: kernel charges {charges}, launches {launched}")
+    if shape == "train_4k":
+        require(launched.get("flash_attention", 0) > 0
+                and launched.get("flash_attention_bwd", 0) > 0,
+                f"{label}: the flash kernels did not launch: {launched}")
+    require(sum(card["collective_bytes"].values()) > 0,
+            f"{label}: no collective bytes")
+    return {"label": label, "depth": depth, "step_ms": step_ms,
+            "max_memory_allocated": peak, **card}
+
+
+def phase_mesh(torch, device, tmp) -> None:
+    """Rank 0's programs of the production meshes (``launch.cell`` over
+    a ``DeviceMesh`` on the fake backend), in a process of its own (the
+    default process group is global state): the flash kernels at the
+    cells' local shapes against their plain versions; ``MESH_CELLS`` on
+    the card, each held to its meta count; ``MESH_META_CELLS`` counted
+    on meta, their records logged."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    smi = smi_line()
+    timed("mesh_flash", mesh_flash_vs_plain, torch, device)
+    for arch_id, shape, layers in MESH_CELLS:
+        timed(f"mesh {arch_id} {shape}", mesh_cell_on_card, torch, device,
+              smi, arch_id, shape, layers)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    t0 = time.perf_counter()
+    for arch_id, shape, mesh in MESH_META_CELLS:
+        names = mesh_lib.make_production_mesh(multi_pod=mesh == "multi")
+        arch = arch_at_depth(arch_id, MESH_META_LAYERS)
+        t1 = time.perf_counter()
+        with mesh_lib.fake_world(names.size):
+            dmesh = mesh_lib.device_mesh(names, "cpu")
+            cell, summary, _ = mesh_meta_count(torch, arch, shape, dmesh,
+                                               sms)
+            rec = dryrun.mesh_record(arch_id, shape, mesh, names.size, cell,
+                                     summary, 0, time.perf_counter() - t1)
+            del cell
+        r = rec["roofline"]
+        log(f"mesh meta {arch_id} {shape} {mesh} ({rec['n_devices']} "
+            f"devices, {arch.make_config().n_layers} layers, a cut for time)"
+            f": {mesh_line(summary)}; arguments "
+            f"{rec['memory']['argument_bytes_per_device'] / 2**30:.3f} GiB; "
+            f"bound {r['bound_s'] * 1e3:.3f} ms ({r['dominant']}; "
+            f"collective {r['collective_s'] * 1e3:.3f} ms); counted in "
+            f"{rec['count_s']:.1f} s")
+        require(sum(summary["collective_bytes"].values()) > 0
+                and summary["peak_live_bytes"] > 0,
+                f"mesh meta {arch_id} {shape} {mesh}: {summary}")
+    PHASE_S["mesh_meta"] = time.perf_counter() - t0
+
+
+def mesh_process() -> ChildPhase:
+    """``phase_mesh`` in a process of its own."""
+    return ChildPhase("mesh", MESH_TIMEOUT_S, lambda tmp: None)
+
+
 # ------------------------------------------------------- the queue phase
 def queue_card_vs_cpu(torch, device, theta):
     """The queue env's reset and ``ENV_CHECK_STEPS`` steps of 28 envs on
@@ -7695,6 +7963,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--sweeps"]:
         return child_main("sweeps", lambda tmp: phase_sweeps(
             torch, device, tmp), sys.argv[2])
+    if sys.argv[1:2] == ["--mesh"]:
+        return child_main("mesh", lambda tmp: phase_mesh(torch, device, tmp),
+                          sys.argv[2])
 
     t_start = time.perf_counter()
     smi = timed("card_and_build", phase_card_and_build, torch)
@@ -7737,8 +8008,17 @@ def main() -> int:
         new_lm[arch]["train"] = timed(f"lm_train {arch}",
                                       phase_lm_train_arch, torch, device,
                                       smi, arch)
-    qnet, policy_pools = timed("policy", phase_policy, torch, device, smi)
-    children = [timed("paper_start", paper_process, qnet)]
+    # the mesh phase in a process of its own (the default process group is
+    # global state), beside the host-bound policy, queue and cluster-env
+    # phases
+    children = [timed("mesh_start", mesh_process)]
+    try:
+        qnet, policy_pools = timed("policy", phase_policy, torch, device,
+                                   smi)
+    except BaseException:
+        children[0].stop()
+        raise
+    children.append(timed("paper_start", paper_process, qnet))
     try:
         children.append(timed("sweeps_start", sweeps_process, records))
         queue_qnet, queue_info = timed("queue", phase_queue, torch, device,

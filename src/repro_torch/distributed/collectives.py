@@ -12,6 +12,14 @@ receives: what the ``jax.lax`` collective computes over an axis of size
 P. None of them calls ``torch.distributed``; sums run in rank order.
 Ranks that receive the same value receive the same tree object.
 
+Each also has a form over one dim of a ``torch.distributed``
+``DeviceMesh`` (``psum_over``, ``pmean_over``, ``reduce_scatter_over``,
+``all_gather_rows_over``, ``deferred_grad_sync_over``): called on every
+rank with that rank's tree, it returns what the rank receives, by the
+functional collectives (``torch.distributed._functional_collectives``)
+over the ranks that share the rank's other mesh coordinates: the
+reference's helpers as they run in a ``shard_map`` body.
+
 ``ring_collective_cost``: the cluster runs its P trainers on one
 virtual clock, so it charges each step the ring algorithm's cost instead
 of running a collective: a ring all-reduce moves 2*(P-1) chunks of |g|/P
@@ -81,6 +89,67 @@ def deferred_grad_sync(unreduced: list, scatter: bool = True) -> list:
     if scatter:
         return reduce_scatter_tree(unreduced)
     return psum_tree(unreduced)
+
+
+# ------------------------------------------------ over a DeviceMesh dim
+def _group(device_mesh, mesh_dim):
+    """The functional collectives' group of ``device_mesh``'s dim
+    ``mesh_dim`` (its index or its name)."""
+    if isinstance(mesh_dim, str):
+        mesh_dim = device_mesh.mesh_dim_names.index(mesh_dim)
+    return device_mesh, mesh_dim
+
+
+def psum_over(tree, device_mesh, mesh_dim):
+    """Each leaf summed over the ranks along ``mesh_dim``
+    (``jax.lax.psum``)."""
+    import torch.distributed._functional_collectives as funcol
+
+    group = _group(device_mesh, mesh_dim)
+    return tree_map(lambda x: funcol.all_reduce(x, "sum", group), tree)
+
+
+def pmean_over(tree, device_mesh, mesh_dim):
+    """Each leaf's mean over the ranks along ``mesh_dim``
+    (``jax.lax.pmean``)."""
+    n = device_mesh.size(_group(device_mesh, mesh_dim)[1])
+    return tree_map(lambda x: x / n, psum_over(tree, device_mesh, mesh_dim))
+
+
+def reduce_scatter_over(tree, device_mesh, mesh_dim):
+    """Each leaf summed over the ranks along ``mesh_dim``, this rank
+    keeping its block of dim 0 (``jax.lax.psum_scatter(...,
+    scatter_dimension=0, tiled=True)``)."""
+    import torch.distributed._functional_collectives as funcol
+
+    group = _group(device_mesh, mesh_dim)
+    n = device_mesh.size(group[1])
+
+    def one(x):
+        if x.shape[0] % n:
+            raise ValueError(f"reduce_scatter: dim 0 ({x.shape[0]}) is not "
+                             f"a multiple of the {n} ranks")
+        return funcol.reduce_scatter_tensor(x, "sum", 0, group)
+
+    return tree_map(one, tree)
+
+
+def all_gather_rows_over(x: torch.Tensor, device_mesh, mesh_dim):
+    """The ranks' row blocks along ``mesh_dim`` joined along dim 0, in
+    rank order (``jax.lax.all_gather(..., axis=0, tiled=True)``)."""
+    import torch.distributed._functional_collectives as funcol
+
+    return funcol.all_gather_tensor(x, 0, _group(device_mesh, mesh_dim))
+
+
+def deferred_grad_sync_over(unreduced, device_mesh, mesh_dim,
+                            scatter: bool = True):
+    """:func:`deferred_grad_sync` over ``mesh_dim``: a reduce-scatter
+    when the optimizer state is sharded across the ranks, else an
+    all-reduce."""
+    if scatter:
+        return reduce_scatter_over(unreduced, device_mesh, mesh_dim)
+    return psum_over(unreduced, device_mesh, mesh_dim)
 
 
 def ring_collective_cost(

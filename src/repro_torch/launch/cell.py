@@ -34,6 +34,16 @@ turns into per-device sizes under a mesh's rules, :func:`cell_rules`),
 ``loss_fn(params, *inputs)``. ``device`` defaults to the card and raises
 without one. Node and candidate counts are not padded to a mesh's device
 count, as the reference pads them; edges are padded to 512.
+
+An LM cell also builds over a ``torch.distributed`` ``DeviceMesh``
+(``build_lm_cell(..., mesh=...)``, under ``launch.mesh.fake_world`` for
+the production meshes): its arguments become DTensors at the reference's
+placements (``sharding.distribute_tree`` under :func:`cell_rules`), and
+its step runs under those rules and that mesh, so it is the program of
+one device, this rank's. On ``meta`` nothing is drawn; on the card this
+rank's shards are drawn from ``seed`` (parameters by their initialiser
+at the whole leaf's fan-in, tokens uniform, optimizer state and cache
+zeros). The GNN and FM cells take no mesh.
 """
 from __future__ import annotations
 
@@ -67,7 +77,7 @@ def cell_rules(arch: ArchDef, shape_name: str, mesh) -> dict:
     otherwise, the arch's overrides; at ``long_500k`` (batch 1) the batch
     is not sharded and the half-million-token cache is spread over the
     data axes (and the model axis where attention heads leave it)."""
-    multi = "pod" in mesh.axis_names
+    multi = "pod" in shlib.axis_names_of(mesh)
     rules = shlib.default_rules(multi)
     rules.setdefault("cache_seq", None)
     rules.update(arch.rule_overrides)
@@ -105,7 +115,7 @@ def _inputs_on(specs: dict, arrays, dev) -> list:
 
 # ===================================================================== LM
 def build_lm_cell(arch: ArchDef, shape_name: str, device="cuda",
-                  seed: int = 0) -> dict:
+                  seed: int = 0, mesh=None) -> dict:
     """The reference's LM cell at ``arch``'s config: ``train`` (the
     ``make_train_step`` of ``cfg.grad_accum`` microbatches under
     ``adamw(warmup_cosine_schedule(3e-4, 2000, 100_000), weight_decay=0.1,
@@ -115,6 +125,8 @@ def build_lm_cell(arch: ArchDef, shape_name: str, device="cuda",
     from repro_torch.launch.train import make_train_step
     from repro_torch.models.lm import transformer as tf
 
+    if mesh is not None:
+        return _over_mesh(arch, shape_name, device, seed, mesh)
     dev = _device(device)
     cfg = arch.make_config()
     shape = LM_SHAPES[shape_name]
@@ -155,6 +167,69 @@ def build_lm_cell(arch: ArchDef, shape_name: str, device="cuda",
     return {**cell, "step_fn": step_fn, "kind": "serve_step",
             "args": (params, tokens(b, 1), cache, s - 1),
             "arg_axes": (axes, tok_axes, tf.cache_specs(cfg), None)}
+
+
+def _drawn_shard(dev, seed: int, cfg, inits: dict):
+    """``local_fn`` of ``sharding.distribute_tree`` on the card: a
+    parameter's shard drawn by its initialiser at the whole leaf's fan-in
+    (``inits``: ``id`` of its meta leaf -> (initialiser, fan-in, stacked)),
+    token ids uniform over the vocabulary, anything else zeros."""
+    from repro_torch.models import param as P
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tok_gen = torch.Generator().manual_seed(seed + 1)
+
+    def local_fn(t, shape, offset):
+        init = inits.get(id(t))
+        if init is not None:
+            how, fan_in, stacked = init
+            scale = None if how != "normal" else 1.0 / fan_in ** 0.5
+            if stacked:
+                return P.param(shape[1:], gen, how, dev, t.dtype,
+                               layers=shape[0], scale=scale)
+            return P.param(shape, gen, how, dev, t.dtype, scale=scale)
+        if t.dtype == torch.int64:
+            return torch.randint(0, cfg.vocab, shape, generator=tok_gen
+                                 ).to(dev)
+        return torch.zeros(shape, dtype=t.dtype, device=dev)
+
+    return local_fn
+
+
+def _over_mesh(arch: ArchDef, shape_name: str, device, seed: int,
+               dmesh) -> dict:
+    """The LM cell over the ``DeviceMesh`` ``dmesh``: the meta cell's
+    arguments distributed at the reference's placements, its step run
+    under the cell's rules and ``dmesh`` (see the module's doc)."""
+    from repro_torch.models.lm import transformer as tf
+
+    dev = _device(device)
+    cell = build_lm_cell(arch, shape_name, "meta", seed)
+    rules = cell_rules(arch, shape_name, dmesh)
+    local_fn = None
+    if dev.type != "meta":
+        params = cell["args"][0]
+        inits = {}
+        for name, init in tf.param_inits(cell["cfg"]).items():
+            leaf = params[name]
+            if isinstance(init, dict):
+                for k, (how, fan_in) in init.items():
+                    inits[id(leaf[k])] = (how, fan_in, name == "layers")
+            else:
+                inits[id(leaf)] = (*init, False)
+        local_fn = _drawn_shard(dev, seed, cell["cfg"], inits)
+    args = shlib.distribute_tree(cell["args"], cell["arg_axes"], rules,
+                                 dmesh, local_fn)
+    step = cell["step_fn"]
+
+    def step_fn(*a):
+        with shlib.use_rules(rules, dmesh):
+            return step(*a)
+
+    meta = dict(cell["meta"], mesh=dict(zip(dmesh.mesh_dim_names,
+                                            dmesh.mesh.shape)))
+    return {**cell, "step_fn": step_fn, "args": args, "rules": rules,
+            "meta": meta}
 
 
 # ===================================================================== GNN
@@ -437,10 +512,14 @@ def build_fm_cell(arch: ArchDef, shape_name: str, device="cuda",
 
 
 def build_cell(arch: ArchDef, shape_name: str, device="cuda",
-               seed: int = 0) -> dict:
-    """The cell of ``arch`` at ``shape_name``, by the arch's family."""
+               seed: int = 0, mesh=None) -> dict:
+    """The cell of ``arch`` at ``shape_name``, by the arch's family; over
+    the ``DeviceMesh`` ``mesh`` for an LM arch."""
     if arch.family == "lm":
-        return build_lm_cell(arch, shape_name, device, seed)
+        return build_lm_cell(arch, shape_name, device, seed, mesh)
+    if mesh is not None:
+        raise NotImplementedError(
+            f"cell over a mesh: {arch.family} cells run on one device")
     if arch.family == "gnn":
         return build_gnn_cell(arch, shape_name, device, seed)
     if arch.family == "recsys":

@@ -47,6 +47,20 @@ on the ``meta`` device (shapes only, nothing allocated):
   prices: ``launch.roofline``'s table for the dry-run, the card's own
   when a card's count is held against meta.
 
+* **One device of a mesh.** A program over a ``DeviceMesh`` runs on
+  DTensors (``launch.cell`` with a mesh, under ``launch.mesh.fake_world``).
+  The counter declines every op on a DTensor (``NotImplemented``), so
+  DTensor runs it as local ops on this rank's shards, and those are what
+  it counts: one device's FLOPs, bytes, live storages and kernel
+  charges. It runs, but does not count, the ops on the fake tensors of
+  DTensor's sharding propagation (an op run once at its global shape to
+  learn the output's, then cached): a first step would count them, a
+  second not. The collectives DTensor and the model call
+  (``_c10d_functional``: all-gather, reduce-scatter, all-reduce,
+  all-to-all) are priced as collective bytes by kind, not as HBM bytes,
+  by the reference's convention: per device, sized by the output shape
+  (``repro/launch/roofline.py::collective_bytes``).
+
 Every loop iteration runs, so every iteration is counted: the reference's
 ``loop_factor`` (XLA counts a while body once) is 1 here. One card moves
 no collective bytes.
@@ -79,6 +93,15 @@ _GATHER = frozenset(("index", "index_select", "embedding", "gather", "take",
 _SCATTER_INTO = frozenset(("index_add_", "index_put_", "_index_put_impl_",
                            "scatter_add_", "scatter_", "scatter_reduce_",
                            "index_copy_"))
+# the functional collectives (and DTensor's all-to-all between two split
+# dims), by the reference's (HLO) kind names
+_COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_reduce": "all-reduce",
+                "all_to_all_single": "all-to-all",
+                "shard_dim_alltoall": "all-to-all"}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd",
+                          "_dtensor")
 _lock = threading.RLock()
 
 
@@ -105,7 +128,7 @@ def _tensors(tree) -> list[torch.Tensor]:
 
     def walk(x):
         if isinstance(x, torch.Tensor):
-            out.append(x)
+            out.append(_local(x))
         elif isinstance(x, dict):
             for v in x.values():
                 walk(v)
@@ -118,6 +141,28 @@ def _tensors(tree) -> list[torch.Tensor]:
 
     walk(tree)
     return out
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (what this device holds); ``t`` itself
+    for any other tensor."""
+    local = getattr(t, "_local_tensor", None)
+    return t if local is None else local
+
+
+def _declined(types) -> bool:
+    """Whether an op on ``types`` is left to a tensor subclass that runs
+    it as local ops: a DTensor, or a collective's pending result."""
+    return any(getattr(t, "__name__", "") in ("DTensor",
+                                              "AsyncCollectiveTensor")
+               for t in types)
+
+
+def _fake(types) -> bool:
+    """Whether an op runs on fake tensors: DTensor works out an op's
+    global output shape so once (its sharding propagation, cached), and
+    nothing is computed or stored."""
+    return any(getattr(t, "__name__", "") == "FakeTensor" for t in types)
 
 
 def _flat(values) -> list[torch.Tensor]:
@@ -143,6 +188,9 @@ class _OpMeta:
     def __init__(self, func):
         self.key = str(func)
         self.name = func.overloadpacket.__name__
+        self.collective = (_COLLECTIVES.get(self.name)
+                           if func.namespace in _COLLECTIVE_NAMESPACES
+                           else None)
         self.view = bool(func.is_view) or self.name in _WRITE_NOTHING
         self.flops = flop_registry.get(func.overloadpacket)
         args = func._schema.arguments
@@ -222,6 +270,7 @@ class Counter(TorchDispatchMode):
         self.flops: dict[str, float] = {}
         self.bytes = 0.0
         self.kernels: dict[str, dict] = {}
+        self.collectives: dict[str, float] = {}  # kind -> bytes
         self.n_ops = 0
         self.by_op: dict[str, list] = {}   # op -> [calls, flops, bytes]
         self.live = 0
@@ -273,8 +322,12 @@ class Counter(TorchDispatchMode):
 
     # ------------------------------------------------------------- mode
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _declined(types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if _fake(types):
+            return out
         ins = _flat(args) + (_flat(kwargs.values()) if kwargs else [])
         outs = _flat((out,))
         if not any(_on_device(t) for t in ins + outs):
@@ -283,8 +336,13 @@ class Counter(TorchDispatchMode):
         in_keys = {t.untyped_storage()._cdata for t in ins}
         with _lock:
             self.n_ops += 1
-            n_bytes = _op_bytes(meta, args, kwargs, ins, outs, in_keys)
-            self.bytes += n_bytes
+            if meta.collective is not None:
+                n_bytes = float(sum(footprint(t) for t in outs))
+                self.collectives[meta.collective] = (
+                    self.collectives.get(meta.collective, 0.0) + n_bytes)
+            else:
+                n_bytes = _op_bytes(meta, args, kwargs, ins, outs, in_keys)
+                self.bytes += n_bytes
             n = 0
             if meta.flops is not None:
                 n = meta.flops(*args, **kwargs, out_val=out)
@@ -314,12 +372,13 @@ class Counter(TorchDispatchMode):
                 if self.by_op.get(k, zero) != other.by_op.get(k, zero)}
 
     def summary(self) -> dict:
-        """FLOPs by dtype and in all, bytes, ops counted, the live-bytes
-        peak and each kernel's charges."""
+        """FLOPs by dtype and in all, bytes, collective bytes by kind, ops
+        counted, the live-bytes peak and each kernel's charges."""
         return {
             "flops_by_dtype": dict(sorted(self.flops.items())),
             "flops": float(sum(self.flops.values())),
             "bytes": float(self.bytes),
+            "collective_bytes": dict(sorted(self.collectives.items())),
             "n_ops": self.n_ops,
             "peak_live_bytes": int(self.peak),
             "tracked_bytes": int(self.tracked),

@@ -9,6 +9,7 @@ and a per-device size (``launch.dryrun``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -44,3 +45,43 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 def make_mesh_from_shape(shape: tuple, axes: tuple) -> Mesh:
     """Any mesh (elastic restarts: e.g. (1, 16, 16) after a pod's loss)."""
     return Mesh(tuple(axes), tuple(int(n) for n in shape))
+
+
+@contextlib.contextmanager
+def fake_world(n_devices: int, rank: int = 0):
+    """The default process group on torch's ``fake`` backend, as rank
+    ``rank`` of ``n_devices``, inside the block; destroyed on exit.
+
+    Its collectives return at once and leave their outputs as allocated
+    (undefined values): a program run under it is one device's program,
+    good for shapes, counts, memory and time, never for values. The
+    backend is torch's own test backend
+    (``torch.testing._internal.distributed.fake_pg``); without it this
+    raises rather than fall back to one device."""
+    import torch.distributed as dist
+
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError("fake_world: this torch has no fake process "
+                           "group backend") from e
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a default process group exists")
+    dist.init_process_group("fake", rank=rank, world_size=n_devices,
+                            store=FakeStore())
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def device_mesh(mesh: Mesh, device_type: str):
+    """``mesh``'s axes as a ``torch.distributed`` ``DeviceMesh`` over the
+    default process group's ranks (same dim names and sizes, ranks in
+    row-major order, as ``jax.make_mesh`` lays devices out).
+    ``device_type``: ``"cuda"``, or ``"cpu"`` for a program on the CPU or
+    on ``meta``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device_type, mesh.sizes,
+                            mesh_dim_names=mesh.axis_names)

@@ -13,9 +13,11 @@ from the counted FLOPs by dtype, bytes and collective bytes
 (``launch.count``) at a :class:`CardPeaks`. :func:`loop_factor` and
 :func:`model_flops` are the reference's, copied. The port counts every
 loop iteration, so the factor it applies is 1; the reference's factor is
-recorded beside it. One card moves no collective bytes, so the
-reference's HLO-text parser ``collective_bytes`` has no input in the port
-and is not copied (a stated divergence, ROADMAP queue 3).
+recorded beside it. The collective bytes come from the counter's view of
+the functional collectives a program over a mesh calls
+(``launch.count``), so the reference's HLO-text parser
+``collective_bytes`` has no input in the port and is not copied (a
+stated divergence, ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ class CardPeaks:
     hbm_bytes_per_s: float
     fp32_flop_per_s: float     # outside the tensor cores
     bf16_flop_per_s: float     # dense, tensor cores
-    link_bytes_per_s: float | None = None   # collectives; None: one card
+    link_bytes_per_s: float | None = None   # collectives; None: unknown
     sms: int | None = None
 
     def flop_per_s(self, dtype: str = "fp32") -> float:
@@ -69,6 +71,15 @@ PEAKS = {
         CardPeaks("NVIDIA H100 80GB HBM3", 3.35e12, 67e12, 989e12, sms=132),
     )
 }
+# A card's link rate for the collectives of a program over a mesh. The
+# H100's NVLink 4: 900 GB/s in all, 450 GB/s a direction (NVIDIA's H100
+# SXM data sheet; not a measurement). Collective bytes are priced at one
+# direction's rate, as the reference prices its own at one link rate. A
+# 16 x 16 mesh spans 32 eight-card nodes, so on the ``data`` axis this
+# one rate flatters the network between nodes. A card's one-device
+# peaks (:data:`PEAKS`) carry no link rate: a one-device count moves no
+# collective bytes, and one that claims some raises.
+LINK_BYTES_PER_S = {"NVIDIA H100 80GB HBM3": 450e9}
 
 
 def peaks_of(name: str) -> CardPeaks:
@@ -80,6 +91,15 @@ def peaks_of(name: str) -> CardPeaks:
         raise KeyError(
             f"no peaks for CUDA card {name!r}; known: {sorted(PEAKS)}"
         ) from None
+
+
+def mesh_peaks_of(name: str) -> CardPeaks:
+    """:func:`peaks_of` with the card's link rate
+    (:data:`LINK_BYTES_PER_S`): the peaks that price one device of a
+    mesh, collectives included."""
+    peaks = peaks_of(name)
+    return dataclasses.replace(peaks,
+                               link_bytes_per_s=LINK_BYTES_PER_S[name])
 
 
 def device_peaks(device) -> CardPeaks | None:

@@ -13,10 +13,16 @@ newest checkpoint, printing the reference's lines. What differs:
   a resumed run draws what an uninterrupted one would.
 
 :func:`make_train_step` is the step of the reference's ``train_4k`` cell
-(``repro/launch/cell.py:86-122``) without the mesh and its sharding
-rules: the loss and gradients of each of ``accum`` microbatches, the
-float32 gradients summed (in place) and divided by ``accum``, then the
-optimizer's update. ``main`` uses it with ``accum=1``.
+(``repro/launch/cell.py:86-122``): the loss and gradients of each of
+``accum`` microbatches, the float32 gradients summed (in place) and
+divided by ``accum``, then the optimizer's update. ``main`` uses it with
+``accum=1``. Over a mesh (tokens and parameters DTensors, ``launch.cell``
+with a ``DeviceMesh``) a microbatch takes the same share of every
+device's local rows (``sharding.split_local_rows``: no collective),
+where the reference reshapes the global batch to ``(accum, b // accum,
+s)``: a stated divergence. The microbatches then hold other rows, so
+the summed gradient is the reference's up to float reassociation (and,
+with MoE, up to which tokens an expert's capacity drops).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import time
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.distributed import sharding as shlib
 from repro_torch.optim.optimizers import (
     apply_updates,
     tree_leaves,
@@ -64,11 +71,18 @@ def make_train_step(cfg, opt, accum: int = 1):
         else:
             # gradient accumulation: the activation peak scales with
             # b / accum, not b
-            tm = tokens.reshape(accum, b // accum, s)
-            gm = targets.reshape(accum, b // accum, s)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            lsum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            if shlib.is_dtensor(tokens):
+                tm = shlib.split_local_rows(tokens, accum)
+                gm = shlib.split_local_rows(targets, accum)
+                grads = tree_map(lambda p: torch.zeros_like(
+                    p, dtype=torch.float32), params)
+            else:
+                tm = tokens.reshape(accum, b // accum, s)
+                gm = targets.reshape(accum, b // accum, s)
+                grads = tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=torch.float32, device=p.device), params)
+            lsum = 0.0 if shlib.is_dtensor(tokens) else torch.zeros(
+                (), dtype=torch.float32, device=tokens.device)
             for t, g in zip(tm, gm):
                 loss, gr = value_and_grad(params, cfg, t, g)
                 for acc, x in zip(tree_leaves(grads), tree_leaves(gr)):

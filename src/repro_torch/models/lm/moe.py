@@ -19,7 +19,9 @@ in plain JAX, outside any Pallas kernel, and so does the port (gathers,
 - ``jax.lax.top_k`` puts the lower index first among equal values and
   ``torch.topk`` does not; :func:`route_topk` takes the first ``k`` of a
   stable descending sort, which keeps the lower index first;
-- ``shard_activation`` is the identity on one card and is dropped;
+- ``shard_activation`` is the identity on one card; over a mesh (x a
+  DTensor) :func:`moe_ffn` runs :func:`_moe_ffn_sharded`, whose expert
+  products sit between the reference's two sites;
 - the per-expert counts are a ``scatter_add_`` of ones (``bincount``
   would read its length back from the card).
 """
@@ -28,7 +30,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shlib
+from repro_torch.distributed.sharding import shard_activation
 from repro_torch.models.lm.layers import swiglu
+
+ECD = ("experts", "expert_capacity", "embed")   # the dispatch tensors' axes
 
 
 def route_topk(gates_logits: torch.Tensor, top_k: int):
@@ -99,6 +105,9 @@ def moe_ffn(x: torch.Tensor,            # (T, D) flattened tokens
     t, d = x.shape
     e = router_w.shape[1]
     capacity = capacity_of(t, e, top_k, capacity_factor, no_drop)
+    if shlib.is_dtensor(x):
+        return _moe_ffn_sharded(x, router_w, w_gate, w_up, w_down, top_k,
+                                capacity)
     weights, experts = route_topk(x @ router_w, top_k)
     dispatch, combine_slot = build_dispatch(experts, e, capacity)
 
@@ -114,6 +123,95 @@ def moe_ffn(x: torch.Tensor,            # (T, D) flattened tokens
     per_k = ye_flat[slot]                             # (T, k, D)
     w = torch.where(live, weights, 0.0).to(per_k.dtype)
     return torch.einsum("tkd,tk->td", per_k, w)
+
+
+def _moe_ffn_sharded(x, router_w, w_gate, w_up, w_down, top_k: int,
+                     capacity: int):
+    """:func:`moe_ffn` over a mesh, with the reference's global routing:
+    the capacity is the whole (global) token count's, and earlier tokens
+    win an expert's slots across all devices.
+
+    * Every device routes all T tokens: the router's logits (T, E) are
+      gathered (T x E values, no (E, C, D) tensor), and the sort, the
+      per-expert counts and the (E, C) dispatch table run on each device
+      (``local_map``; the sort and the scatters have no DTensor
+      strategy). From a gathered value only sort positions index
+      anything, so every index stays in range whatever the values.
+    * A device gathers the tokens of its own (experts, capacity) block of
+      the dispatch tensors, ``("experts", "expert_capacity", "embed")``
+      at the rules' placements, from the gathered (T, D) tokens: the
+      dispatch tensors (E, C, D) are only ever held a block a device.
+    * The expert products run on the local block with the local experts'
+      weights (their FSDP rows gathered).
+    * Each device adds its block's weighted outputs into a (T, D)
+      partial sum of its tokens' outputs; the partial sums are reduced
+      onto x's placements (a reduce-scatter over the batch's mesh dims
+      and an all-reduce over the others).
+
+    The combine sums a token's k expert outputs in another order than
+    the one-device einsum: equal up to float reassociation."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dmesh = x.device_mesh
+    rules = shlib.current_rules()
+    n = dmesh.ndim
+    t, d = x.shape
+    e = router_w.shape[1]
+    ecd_pl = shlib.placements_for(shlib.spec_for(ECD, rules, dmesh), dmesh)
+    ec_pl = tuple(p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+                  for p in ecd_pl)
+    (e_n, c_n, _), (e0, c0, _) = shlib.local_slices((e, capacity, d),
+                                                    ecd_pl, dmesh)
+    # the experts' weights: experts as the dispatch tensors, nothing else
+    w_pl = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0
+                 else Replicate() for p in ecd_pl)
+    w_grad = tuple(p if isinstance(p, Shard) else Partial() for p in w_pl)
+    rep, part = (Replicate(),) * n, (Partial(),) * n
+
+    def dispatch(x_all, logits):
+        weights, experts = route_topk(logits, top_k)
+        table, combine_slot = build_dispatch(experts, e, capacity)
+        block = table[e0:e0 + e_n, c0:c0 + c_n]
+        # each slot's combine weight (0 where empty), and its token's row
+        live = combine_slot >= 0
+        slot = torch.where(live, combine_slot, e * capacity).reshape(-1)
+        w_slot = torch.zeros(e * capacity + 1, dtype=weights.dtype,
+                             device=weights.device).scatter(
+            0, slot.long(), torch.where(live, weights, 0.0).reshape(-1))
+        w_slot = w_slot[:-1].reshape(e, capacity)[e0:e0 + e_n, c0:c0 + c_n]
+        x_pad = torch.cat([x_all, x_all.new_zeros((1, d))])
+        return x_pad[block.long()], w_slot, block
+
+    xe, w_slot, block = local_map(
+        dispatch, out_placements=(ecd_pl, ec_pl, ec_pl),
+        in_placements=(rep, rep), in_grad_placements=(part, part),
+        device_mesh=dmesh, redistribute_inputs=True)(
+        shlib.replicated(x), shlib.replicated(x @ router_w))
+    xe = shard_activation(xe, ECD)
+
+    def experts_ffn(xe, wg, wu, wd):
+        h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
+        return torch.bmm(h, wd)
+
+    ye = local_map(experts_ffn, out_placements=list(ecd_pl),
+                   in_placements=(ecd_pl, w_pl, w_pl, w_pl),
+                   in_grad_placements=(ecd_pl, w_grad, w_grad, w_grad),
+                   device_mesh=dmesh, redistribute_inputs=True)(
+        xe, w_gate, w_up, w_down)
+    ye = shard_activation(ye, ECD)
+
+    def combine(ye, w_slot, block):
+        out = ye.new_zeros((t + 1, d))
+        contrib = ye * w_slot[..., None].to(ye.dtype)
+        out.index_add_(0, block.reshape(-1).long(), contrib.reshape(-1, d))
+        return out[:t]
+
+    y = local_map(combine, out_placements=list(part),
+                  in_placements=(ecd_pl, ec_pl, ec_pl),
+                  device_mesh=dmesh, redistribute_inputs=True)(
+        ye, w_slot, block)
+    return y.redistribute(dmesh, x.placements)
 
 
 def shared_expert_ffn(x, w_gate, w_up, w_down):

@@ -31,7 +31,13 @@ What differs from the reference:
 - the ``lax.scan`` over layers is a Python loop over the stacked
   ``params["layers"]`` (leading ``(L, ...)`` axis, as ``vmap_init``
   stacks them);
-- ``shard_activation`` is the identity on one card and is dropped;
+- ``shard_activation`` is the identity on one card; over a mesh (the
+  parameters and tokens DTensors, ``launch.cell`` with a ``DeviceMesh``)
+  it redistributes at the reference's five sites, each layer gathers its
+  weights' FSDP rows first (``sharding.gather_rows``), attention runs on
+  the local heads (``attention.over_heads``, ``cached_attention``, the
+  MLA cache's :func:`_mla_cached`), and ``lm_loss`` takes its
+  log-sum-exp over logits sharded on ``vocab`` from each device's slice;
 - the cache keeps the reference's dicts (GQA ``{"k", "v"}: (L, B, Smax,
   Hkv, D)``, MLA ``{"c", "r"}``), but ``decode_step`` writes it in place;
 - the stacked layer parameters are split once with ``unbind``, so their
@@ -46,12 +52,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
+from repro_torch.distributed import sharding as shlib
+from repro_torch.distributed.sharding import shard_activation
 from repro_torch.models import param as P
 from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm import moe as moe_lib
 from repro_torch.models.lm.layers import apply_rope, rms_norm, swiglu
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+EMBED = ("batch", "seq", "embed")   # the residual stream's logical axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,6 +210,25 @@ def param_axes(cfg: LMConfig) -> dict:
     return axes
 
 
+def param_inits(cfg: LMConfig) -> dict:
+    """Each leaf's initialiser (``"normal"``, ``"embedding"``, ``"ones"``)
+    and fan-in, in :func:`param_axes`' tree: what drawing a shard of the
+    leaf needs (``launch.cell`` over a mesh draws each device's own)."""
+    _check_supported(cfg)
+    v, d = cfg.padded_vocab, cfg.d_model
+    out = {"embed": ("embedding", v), "lm_head": ("normal", d),
+           "final_norm": ("ones", d)}
+    for i in range(cfg.first_k_dense):
+        out[f"dense_layer_{i}"] = {
+            name: (how, shape[0])
+            for name, (shape, how, _) in _layer_shapes(cfg, False).items()}
+    if cfg.n_scan_layers > 0:
+        out["layers"] = {
+            name: (how, shape[0])
+            for name, (shape, how, _) in _layer_shapes(cfg, cfg.moe).items()}
+    return out
+
+
 def init(cfg: LMConfig, seed: int = 0, device="cuda",
          with_axes: bool = False):
     """Parameters in the reference's layout, drawn on ``device`` from a
@@ -243,14 +271,15 @@ def init(cfg: LMConfig, seed: int = 0, device="cuda",
 # ----------------------------------------------------------------- attention
 def _gqa_attention(p, cfg: LMConfig, x, positions, cache_kv, cache_len):
     b, s, _ = x.shape
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = shlib.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = shlib.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = shlib.einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard_activation(q, ("batch", "seq", "heads", "head_dim"))
 
     if cache_kv is None:
         if s >= cfg.blockwise_threshold:
@@ -258,6 +287,8 @@ def _gqa_attention(p, cfg: LMConfig, x, positions, cache_kv, cache_len):
                                            block_k=cfg.attn_block_k)
         else:
             out = attn.dense_attention(q, k, v, causal=True)
+    elif shlib.is_dtensor(q):
+        out = attn.cached_attention(q, k, v, *cache_kv, cache_len)
     else:
         ck, cv = cache_kv          # this layer's (B, Smax, Hkv, D) views
         ck[:, cache_len:cache_len + s] = k.to(ck.dtype)
@@ -265,7 +296,7 @@ def _gqa_attention(p, cfg: LMConfig, x, positions, cache_kv, cache_len):
         lens = torch.full((b,), cache_len + s, dtype=torch.int32,
                           device=x.device)
         out = attn.decode_attention(q, ck, cv, lens)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return shlib.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def _mla_attention(p, cfg: LMConfig, x, positions, cache_kv, cache_len):
@@ -274,29 +305,38 @@ def _mla_attention(p, cfg: LMConfig, x, positions, cache_kv, cache_len):
     latent cache (DeepSeek-V2 Sec. 2.1), writing it in place."""
     b, s, _ = x.shape
     if cfg.q_lora > 0:
-        cq = rms_norm(x @ p["w_dq"], p["q_norm"])
-        q = torch.einsum("bsq,qhk->bshk", cq, p["w_uq"])
+        cq = rms_norm(shlib.matmul(x, p["w_dq"]), p["q_norm"])
+        q = shlib.einsum("bsq,qhk->bshk", cq, p["w_uq"])
     else:
-        q = torch.einsum("bsd,dhk->bshk", x, p["w_q"])
+        q = shlib.einsum("bsd,dhk->bshk", x, p["w_q"])
     q_nope, q_rope = q[..., :cfg.d_nope], q[..., cfg.d_nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    c_kv = rms_norm(x @ p["w_dkv"], p["kv_norm"])          # (B,S,kv_lora)
-    k_rope = apply_rope((x @ p["w_kr"])[:, :, None, :], positions,
-                        cfg.rope_theta)[:, :, 0, :]        # (B,S,d_rope)
+    c_kv = rms_norm(shlib.matmul(x, p["w_dkv"]), p["kv_norm"])  # (B,S,kv_lora)
+    k_rope = apply_rope(shlib.matmul(x, p["w_kr"])[:, :, None, :],
+                        positions, cfg.rope_theta)[:, :, 0, :]  # (B,S,d_rope)
 
     if cache_kv is None:
         # prefill/train: expand the latent to per-head K/V
-        k_nope = torch.einsum("bsc,chk->bshk", c_kv, p["w_uk"])
-        v = torch.einsum("bsc,chk->bshk", c_kv, p["w_uv"])
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-            *k_nope.shape[:3], cfg.d_rope)], dim=-1)
+        k_nope = shlib.einsum("bsc,chk->bshk", c_kv, p["w_uk"])
+        v = shlib.einsum("bsc,chk->bshk", c_kv, p["w_uv"])
+        # over a mesh, a latent split on kv_lora sums into the heads
+        k_nope = shard_activation(k_nope, ("batch", "seq", "heads", "head_dim"))
+        v = shard_activation(v, ("batch", "seq", "heads", "head_dim"))
+        k_rope_h = shard_activation(k_rope[:, :, None, :].expand(
+            *k_nope.shape[:3], cfg.d_rope), ("batch", "seq", "heads",
+                                             "head_dim"))
+        k = torch.cat([k_nope, k_rope_h], dim=-1)
         qfull = torch.cat([q_nope, q_rope], dim=-1)
+        qfull = shard_activation(qfull, ("batch", "seq", "heads", "head_dim"))
         if s >= cfg.blockwise_threshold:
             out = attn.blockwise_attention(qfull, k, v, causal=True,
                                            block_k=cfg.attn_block_k)
         else:
             out = attn.dense_attention(qfull, k, v, causal=True)
+    elif shlib.is_dtensor(x):
+        out = _mla_cached(p, cfg, q_nope, q_rope, c_kv, k_rope, *cache_kv,
+                          cache_len)
     else:
         cc, ckr = cache_kv         # this layer's (B, Smax, .) views
         cc[:, cache_len:cache_len + s] = c_kv.to(cc.dtype)
@@ -311,7 +351,72 @@ def _mla_attention(p, cfg: LMConfig, x, positions, cache_kv, cache_len):
         probs = torch.softmax(scores, dim=-1).to(cc.dtype)
         o_lat = torch.einsum("bhst,btc->bshc", probs, cc)
         out = torch.einsum("bshc,chk->bshk", o_lat, p["w_uv"])
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return shlib.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+@torch.no_grad()
+def _mla_cached(p, cfg: LMConfig, q_nope, q_rope, c_kv, k_rope, cc, ckr,
+                cache_len: int):
+    """MLA's absorbed decode over a mesh: writes the step's latent and
+    rotary key into this layer's cache (B, Smax, kv_lora) and (B, Smax,
+    d_rope) at ``cache_len`` and attends every head over it, the latent
+    dim split over the rules' ``kv_lora`` mesh dims (the latent scores
+    and the output summed across them) and the cache's sequence over its
+    ``cache_seq`` mesh dims (the softmax combined across them,
+    ``attention.combined_softmax``), as the one-device branch of
+    :func:`_mla_attention` computes it. The cache's slices stay where
+    they are. Returns (B, S, H, d_v), every head on every device."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dmesh = q_nope.device_mesh
+    rules = shlib.current_rules()
+
+    def pl(axes):
+        return shlib.placements_for(shlib.spec_for(axes, rules, dmesh), dmesh)
+
+    c_pl = pl(("batch", "cache_seq", "kv_lora"))
+    r_pl = pl(("batch", "cache_seq", "head_dim"))
+    lora = shlib.mesh_dims_of("kv_lora", rules, dmesh)
+    seq = shlib.mesh_dims_of("cache_seq", rules, dmesh)
+
+    def unseq(pls):
+        return tuple(Replicate() if isinstance(x, Shard) and x.dim == 1
+                     else x for x in pls)
+
+    q_pl = tuple(x if isinstance(x, Shard) and x.dim == 0 else Replicate()
+                 for x in c_pl)
+    w_pl = tuple(Shard(0) if i in lora else Replicate()
+                 for i in range(len(c_pl)))
+    off = shlib.local_slices(cc.shape, c_pl, dmesh)[1][1]
+    scale = _inv_sqrt(cfg.d_nope + cfg.d_rope)
+
+    def reduce(t, dims):
+        if not dims:
+            return t
+        return attn.reduce_over(t.float(), "sum", dmesh, dims).to(t.dtype)
+
+    def body(qn, qr, ckv, kr, w_uk, w_uv, cc, ckr):
+        s = qn.shape[1]
+        if off <= cache_len and cache_len + s <= off + cc.shape[1]:
+            cc[:, cache_len - off:cache_len - off + s] = ckv.to(cc.dtype)
+            ckr[:, cache_len - off:cache_len - off + s] = kr.to(ckr.dtype)
+        q_abs = torch.einsum("bshk,chk->bshc", qn, w_uk)
+        s_lat = reduce(torch.einsum("bshc,btc->bhst", q_abs, cc), lora)
+        s_rope = torch.einsum("bshk,btk->bhst", qr, ckr)
+        scores = (s_lat + s_rope).float() * scale
+        pos = torch.arange(off, off + cc.shape[1], device=qn.device)
+        scores = torch.where(pos < cache_len + s, scores, attn.NEG_INF)
+        probs = attn.combined_softmax(scores, dmesh, seq).to(cc.dtype)
+        o_lat = reduce(torch.einsum("bhst,btc->bshc", probs, cc), seq)
+        return reduce(torch.einsum("bshc,chk->bshk", o_lat, w_uv), lora)
+
+    return local_map(
+        body, out_placements=list(q_pl),
+        in_placements=(q_pl, q_pl, unseq(c_pl), unseq(r_pl), w_pl, w_pl,
+                       c_pl, r_pl),
+        device_mesh=dmesh, redistribute_inputs=True)(
+        q_nope, q_rope, c_kv, k_rope, p["w_uk"], p["w_uv"], cc, ckr)
 
 
 @functools.lru_cache(maxsize=None)
@@ -327,21 +432,26 @@ def _inv_sqrt(d: int) -> torch.Tensor:
 # -------------------------------------------------------------------- layers
 def _layer_apply(p, cfg: LMConfig, use_moe: bool, h, positions, cache_kv,
                  cache_len):
+    p = shlib.gather_rows(p)
     attn_fn = _mla_attention if cfg.attn_type == "mla" else _gqa_attention
-    h = h + attn_fn(p, cfg, rms_norm(h, p["ln_attn"]), positions, cache_kv,
-                    cache_len)
+    # over a mesh, the products' partial sums are reduced before the adds
+    h = h + shard_activation(
+        attn_fn(p, cfg, rms_norm(h, p["ln_attn"]), positions, cache_kv,
+                cache_len), EMBED)
     x = rms_norm(h, p["ln_ffn"])
     if not use_moe:
-        return h + swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+        h = h + shard_activation(swiglu(x, p["w_gate"], p["w_up"],
+                                        p["w_down"]), EMBED)
+        return shard_activation(h, EMBED)
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     y = moe_lib.moe_ffn(flat, p["router"], p["w_gate"], p["w_up"],
                         p["w_down"], cfg.top_k, cfg.capacity_factor,
                         no_drop=cache_kv is not None)
     if cfg.n_shared > 0:
-        y = y + moe_lib.shared_expert_ffn(flat, p["ws_gate"], p["ws_up"],
-                                          p["ws_down"])
-    return h + y.reshape(b, s, d)
+        y = y + shard_activation(moe_lib.shared_expert_ffn(
+            flat, p["ws_gate"], p["ws_up"], p["ws_down"]), ("batch", "embed"))
+    return shard_activation(h + y.reshape(b, s, d), EMBED)
 
 
 # ------------------------------------------------------------------- forward
@@ -359,16 +469,25 @@ def forward(params, cfg: LMConfig, tokens, positions=None, cache=None,
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    h = params["embed"][tokens].to(cfg.torch_dtype())
+    if shlib.is_dtensor(tokens):
+        if not shlib.is_dtensor(positions):
+            positions = shlib.like(positions, tokens)
+        h = _embed_over_mesh(tokens, shlib.gather_rows(params["embed"]))
+        h = h.to(cfg.torch_dtype())
+    else:
+        h = params["embed"][tokens].to(cfg.torch_dtype())
+    h = shard_activation(h, EMBED)
     remat = cfg.remat and mode == "train"
     keys = sorted(cache) if cache is not None else ()
+    # a recomputed layer runs on autograd's thread: under the rules of now
+    apply = shlib.bind_rules(_layer_apply)
 
     def layer(lp, use_moe, h, row):
         lc = None if cache is None else tuple(cache[k][row] for k in keys)
         if remat:
-            return checkpoint(_layer_apply, lp, cfg, use_moe, h, positions,
+            return checkpoint(apply, lp, cfg, use_moe, h, positions,
                               lc, cache_len, use_reentrant=False)
-        return _layer_apply(lp, cfg, use_moe, h, positions, lc, cache_len)
+        return apply(lp, cfg, use_moe, h, positions, lc, cache_len)
 
     for i in range(cfg.first_k_dense):
         h = layer(params[f"dense_layer_{i}"], False, h, i)
@@ -380,8 +499,35 @@ def forward(params, cfg: LMConfig, tokens, positions=None, cache=None,
     return rms_norm(h, params["final_norm"])
 
 
+def _embed_over_mesh(tokens, table):
+    """``table[tokens]`` for DTensors, the table's rows split over its
+    ``vocab`` mesh dims: each device looks up the tokens its rows hold
+    (zeros elsewhere), so the result is a partial sum over those dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    t_pl, e_pl = tuple(tokens.placements), tuple(table.placements)
+    v0 = shlib.local_slices(table.shape, e_pl, table.device_mesh)[1][0]
+    out_pl = [Partial() if isinstance(ep, Shard)
+              else tp if isinstance(tp, Shard) else Replicate()
+              for tp, ep in zip(t_pl, e_pl)]
+    e_grad = tuple(Partial() if isinstance(tp, Shard) else ep
+                   for tp, ep in zip(t_pl, e_pl))
+
+    def body(tok, emb):
+        ids = tok - v0
+        ok = (ids >= 0) & (ids < emb.shape[0])
+        rows = torch.nn.functional.embedding(torch.where(ok, ids, 0), emb)
+        return torch.where(ok[..., None], rows, 0.0)
+
+    return local_map(body, out_placements=out_pl, in_placements=(t_pl, e_pl),
+                     in_grad_placements=(t_pl, e_grad),
+                     device_mesh=table.device_mesh)(tokens, table)
+
+
 def logits_of(params, cfg: LMConfig, hidden):
-    return hidden @ params["lm_head"]
+    out = shlib.matmul(hidden, shlib.gather_rows(params["lm_head"]))
+    return shard_activation(out, ("batch", "seq", "vocab"))
 
 
 def lm_loss(params, cfg: LMConfig, tokens, targets):
@@ -395,26 +541,77 @@ def lm_loss(params, cfg: LMConfig, tokens, targets):
     chunk = cfg.loss_chunk or s
     n_chunks = s // chunk
 
+    sharded = shlib.is_dtensor(hidden)
+
     def chunk_loss(h_c, t_c):
         logits = logits_of(params, cfg, h_c).float()
+        if sharded:
+            return _sharded_chunk_loss(logits, t_c)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, t_c[..., None])[..., 0]
         return torch.sum(logz - gold)
 
+    loss_fn = shlib.bind_rules(chunk_loss)
+
     def run(h_c, t_c):
         if cfg.remat:
-            return checkpoint(chunk_loss, h_c, t_c, use_reentrant=False)
-        return chunk_loss(h_c, t_c)
+            return checkpoint(loss_fn, h_c, t_c, use_reentrant=False)
+        return loss_fn(h_c, t_c)
 
     if n_chunks <= 1:
         total = run(hidden, targets)
+    elif sharded:
+        hs = hidden.reshape(b, n_chunks, chunk, d)
+        ts = targets.reshape(b, n_chunks, chunk)
+        total = sum(run(hs[:, c], ts[:, c]) for c in range(n_chunks))
     else:
         hs = hidden.reshape(b, n_chunks, chunk, d)
         ts = targets.reshape(b, n_chunks, chunk)
         total = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for c in range(n_chunks):
             total = total + run(hs[:, c], ts[:, c])
+    if sharded:
+        total = shlib.replicated(total)
     return total / (b * s)
+
+
+def _sharded_chunk_loss(logits, targets):
+    """``sum(logsumexp(logits) - logits[targets])`` over float32 logits
+    (B, c, V) split on ``vocab``, from each device's vocabulary slice
+    (``local_map``): the row max, the sum of exponentials and the gold
+    logit (picked where a device's slice holds the target) leave each
+    device as partial results and are reduced across the ``vocab`` mesh
+    dims, (B, c) values a row. The logits are never gathered."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dmesh = logits.device_mesh
+    lg_pl = tuple(logits.placements)
+    vocab = tuple(isinstance(p, Shard) and p.dim == 2 for p in lg_pl)
+    row_pl = tuple(Replicate() if v else p for v, p in zip(vocab, lg_pl))
+    t_pl = tuple(targets.placements)
+    v0 = shlib.local_slices(logits.shape, lg_pl, dmesh)[1][2]
+
+    def local_max(lg):
+        return lg.amax(dim=-1, keepdim=True)
+
+    m = local_map(local_max, out_placements=[
+        Partial("max") if v else p for v, p in zip(vocab, row_pl)],
+        in_placements=(lg_pl,), device_mesh=dmesh)(logits.detach())
+    m = m.redistribute(dmesh, row_pl)
+
+    def sums(lg, m, t):
+        z = torch.exp(lg - m).sum(dim=-1)
+        ids = torch.arange(v0, v0 + lg.shape[-1], device=lg.device)
+        gold = torch.where(ids == t[..., None], lg, 0.0).sum(dim=-1)
+        return z, gold
+
+    part = [Partial() if v else p for v, p in zip(vocab, row_pl)]
+    z, gold = local_map(sums, out_placements=(part, part),
+                        in_placements=(lg_pl, row_pl, t_pl),
+                        device_mesh=dmesh)(logits, m, targets)
+    z, gold = z.redistribute(dmesh, row_pl), gold.redistribute(dmesh, row_pl)
+    return torch.sum(torch.log(z) + m[..., 0] - gold)
 
 
 # ------------------------------------------------------------------- serving

@@ -18,6 +18,12 @@ the gradients' device: clipping reads nothing back to the host. A learning
 rate is a float or a schedule, a callable of the (1-based) step count; a
 schedule computes in float32 on the host, as the jnp version does, and
 returns a 0-dim float32 tensor.
+
+Over a mesh the leaves are DTensors (``launch.cell`` with a
+``DeviceMesh``) and the same code runs on each device's shards:
+:func:`global_norm`'s sum over a sharded leaf is a partial sum, which
+DTensor all-reduces when the norm is used; the learning rate and the
+bias corrections stay host scalars.
 """
 from __future__ import annotations
 

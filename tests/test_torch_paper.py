@@ -315,3 +315,58 @@ def test_sweep_refuses_the_card_without_one():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Sweep()
+
+
+def test_roofline_report_reads_the_mesh_records(tmp_path, monkeypatch):
+    """Records of the production meshes (``arch__shape__single__meta``,
+    ``__multi__meta``) are the reference's ``single`` and ``multi`` sets:
+    the port's mesh rows equal the reference's rows over the same records
+    (each cell row named ``/single``, the count rows noting the 20 LM
+    cells), after the one-device rows, which they leave as they were."""
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    for d in (ref_dir, port_dir):
+        d.mkdir()
+    for i, rec in enumerate(RECORDS):
+        stem = f"{rec['arch']}__{rec['shape']}"
+        sets = ("single", "multi") if i < 2 else ("single",)
+        for mesh in sets:
+            (ref_dir / f"{stem}__{mesh}.json").write_text(json.dumps(rec))
+            (port_dir / f"{stem}__{mesh}__meta.json").write_text(
+                json.dumps(rec))
+        (port_dir / f"{stem}__meta.json").write_text(json.dumps(rec))
+    monkeypatch.setattr(rroof, "DRYRUN_DIR", str(ref_dir))
+    want = rroof.main()
+    got = proof.main(None, records_dir=port_dir)
+    assert got[:6] == want[:3] + [
+        "roofline/cells_meta,3,expect 44",
+        "roofline/cells_cuda,0,the cells the card ran", want[-1]]
+    mesh = got[6:]
+    assert [r.replace("/single,", ",", 1) for r in mesh[:3]] == want[:3]
+    assert mesh[3:] == [
+        "roofline/cells_single,3,expect 44; the LM cells' 20 here",
+        "roofline/cells_multi,2,expect 44; the LM cells' 20 here",
+        want[-1].replace("histogram", "histogram_single")]
+    assert len(proof.load_records("meta", port_dir)) == 3
+
+
+def test_roofline_report_reads_a_dryrun_mesh_record(tmp_path, monkeypatch):
+    """A record of ``launch.dryrun --mesh single`` (TinyLlama's decode
+    step, rank 0 of 16 x 16, on ``meta``) is a mesh row with its
+    collective term."""
+    from repro_torch.launch import dryrun
+
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path)
+    rec = dryrun.run_cell("tinyllama-1.1b", "decode_32k", "meta",
+                          mesh="single")
+    assert (tmp_path / "tinyllama-1.1b__decode_32k__single__meta.json"
+            ).exists()
+    assert rec["n_devices"] == 256 and rec["roofline"]["collective_s"] > 0
+    rows = proof.mesh_rows(tmp_path)
+    t = rec["roofline"]
+    assert rows[0].startswith(
+        f"roofline/tinyllama-1.1b/decode_32k/single,"
+        f"{t['roofline_fraction']:.3f},dom={t['dominant']};")
+    assert f"collective={t['collective_s']:.2e}s" in rows[0]
+    assert rows[1:3] == [
+        "roofline/cells_single,1,expect 44; the LM cells' 20 here",
+        "roofline/cells_multi,0,expect 44; the LM cells' 20 here"]
